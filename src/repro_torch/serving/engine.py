@@ -1,0 +1,461 @@
+"""The multitask serving engine, the PyTorch port of
+``repro.serving.engine.MultitaskEngine``.
+
+The Antler runtime: a task graph + optimal order + the block-cached
+executor, serving batched requests that each want some subset of the task
+set.  Conditional constraints become runtime gates (a dependent task is
+skipped when its prerequisite's outcome says so).
+
+This slice serves one-shot batches: :meth:`MultitaskEngine.serve_batch`
+plans once and runs the planned groups in sequence — the reference's
+greedy one-shot session with no faults.  Sessions and their admission
+policies, streaming, intermittent power, adaptive gating, the mesh and the
+LM server wait for later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.constraints import Constraints
+from repro_torch.core.cost_model import GraphCostModel
+from repro_torch.core.executor import MultitaskProgram, TaskGraphExecutor
+from repro_torch.core.ordering import optimal_order, solve_suborder
+from repro_torch.core.types import (
+    ExecutionStats, HardwareModel, TPU_V5E, TaskGateRecord,
+)
+from repro_torch.serving.batching import (
+    RequestGroup, RequestGroupScheduler, effective_order, normalize_subset,
+)
+from repro_torch.serving.policies import EnginePolicy
+
+
+@dataclasses.dataclass
+class MultitaskRequest:
+    """One inference request: an input (numpy or tensor) and the tasks it
+    wants.  The reference's SLO fields (deadline, priority, tenant) belong
+    to the session layer and come with it."""
+
+    x: Any
+    tasks: Optional[Sequence[int]] = None  # None = all tasks
+
+
+@dataclasses.dataclass
+class MultitaskResponse:
+    """Engine reply for one request.
+
+    ``stats`` are the counters of the *execution group* the request was
+    served in (``group_size`` requests share one batched pass); each
+    response carries its own copy.  ``predicted_seconds`` is this request's
+    per-request share of the group's modelled cost as it actually ran;
+    ``warm_weight_bytes_saved`` is the group's weight bytes not loaded
+    because of cross-group residency alone.  ``order`` is the engine's
+    global task order; ``effective_order`` the sequence the request's group
+    actually ran.
+    """
+
+    outputs: Dict[int, torch.Tensor]
+    stats: ExecutionStats
+    order: Tuple[int, ...]
+    predicted_seconds: float
+    group_size: int = 1
+    warm_weight_bytes_saved: float = 0.0
+    effective_order: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass
+class GroupExecution:
+    """One executed request group.
+
+    ``outputs`` holds the per-slot (valid rows only) task outputs; ``stats``
+    the executed counters of this group alone; ``predicted`` the cost
+    model's prediction for the same group from the executor's residency
+    immediately before execution, conditioned on ``gate_trace`` (the
+    realized per-task gate outcomes).
+    """
+
+    group: RequestGroup
+    eff: Tuple[int, ...]
+    outputs: List[Dict[int, torch.Tensor]]
+    stats: ExecutionStats
+    predicted: ExecutionStats
+    warm_saved: float
+    gate_trace: Optional[List[TaskGateRecord]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class _ConditionalProbabilities:
+    """Task execution probabilities of conditional constraints (Eq. 8) in
+    the cost model's gate-model interface — the reference's
+    ``GateModel.from_constraints`` for an engine without adaptive gating."""
+
+    constraints: Constraints
+
+    def task_probability(self, task: int) -> float:
+        return self.constraints.execution_probability(task)
+
+    def fire_probability(self, task: int, depth: int) -> float:
+        return 1.0
+
+
+class MultitaskEngine:
+    """Antler end-to-end: ordering solved once at startup, executor reused.
+
+    ``gates``: {task: fn(outputs_so_far) -> bool} runtime conditions
+    implementing conditional constraints; ``gate_deps`` declares which
+    outputs each gate reads (derived from the conditional constraint edges
+    when not given), which makes per-plan order re-solving sound.
+
+    Schedule-shaped behaviour comes from one :class:`EnginePolicy`
+    (``policy``); the ``warm_start`` / ``group_ordering`` / ``scheduler``
+    keywords override its fields.  None of them change results, only how
+    much gets loaded.  The engine runs on the program's device: each planned
+    group moves there once.
+    """
+
+    def __init__(
+        self,
+        program: MultitaskProgram,
+        constraints: Optional[Constraints] = None,
+        hw: HardwareModel = TPU_V5E,
+        gates: Optional[Dict[int, Callable[[Dict[int, torch.Tensor]], bool]]] = None,
+        gate_deps: Optional[Dict[int, Sequence[int]]] = None,
+        order: Optional[Sequence[int]] = None,
+        scheduler: Optional[RequestGroupScheduler] = None,
+        warm_start: Optional[bool] = None,
+        group_ordering: Optional[bool] = None,
+        policy: Optional[EnginePolicy] = None,
+    ):
+        self.program = program
+        self.device = program.device
+        self.hw = hw
+        self.constraints = constraints
+        self.gates = gates or {}
+        policy = policy if policy is not None else EnginePolicy()
+        overrides: Dict[str, Any] = {}
+        if warm_start is not None:
+            overrides["warm_start"] = bool(warm_start)
+        if group_ordering is not None:
+            overrides["group_ordering"] = bool(group_ordering)
+        if scheduler is not None:
+            overrides["scheduler"] = scheduler
+        if overrides:
+            policy = dataclasses.replace(policy, **overrides)
+        if policy.scheduler is None:
+            policy = dataclasses.replace(
+                policy, scheduler=RequestGroupScheduler()
+            )
+        self.policy = policy
+        # Which tasks each runtime gate reads: {gated_task: (input_tasks,)}.
+        self.gate_deps: Dict[int, Tuple[int, ...]] = {}
+        if gate_deps is not None:
+            self.gate_deps = {
+                int(t): tuple(int(i) for i in deps)
+                for t, deps in gate_deps.items()
+            }
+        elif constraints is not None and self.gates:
+            for t in self.gates:
+                deps = tuple(sorted(
+                    i for (i, j, _p) in constraints.conditional if j == t
+                ))
+                if deps:
+                    self.gate_deps[t] = deps
+        self._plan_constraints = self._build_plan_constraints(
+            program.graph.num_tasks, constraints
+        )
+        self.cost_model = GraphCostModel(program.graph, program.block_costs, hw)
+        self._cost_matrix = self.cost_model.cost_matrix()
+        self._resolve_mat: Optional[np.ndarray] = None
+        if order is None:
+            # optimal_order applies the Eq.-8 conditional weighting itself.
+            order = optimal_order(self._cost_matrix, constraints).order
+        self.order = tuple(order)
+        if constraints is not None and not constraints.is_valid_order(self.order):
+            raise ValueError("supplied order violates the constraints")
+        if (
+            self._plan_constraints is not None
+            and not self._plan_constraints.is_valid_order(self.order)
+        ):
+            raise ValueError(
+                "gate_deps edges conflict with the engine's task order: a "
+                "gate would read an output its order produces later"
+            )
+        self.executor = TaskGraphExecutor(program)
+        # Cumulative counters of the most recent serve_batch call; with no
+        # gates these equal predicted_group_stats(plan_groups(requests))
+        # computed before that call.
+        self.last_batch_stats = ExecutionStats()
+
+    @property
+    def warm_start(self) -> bool:
+        return self.policy.warm_start
+
+    @property
+    def group_ordering(self) -> bool:
+        return self.policy.group_ordering
+
+    @property
+    def scheduler(self) -> RequestGroupScheduler:
+        return self.policy.scheduler
+
+    def normalized_subset(
+        self, tasks: Optional[Sequence[int]]
+    ) -> Optional[FrozenSet[int]]:
+        """A request's task subset in the scheduler's bucket-key form."""
+        return normalize_subset(tasks, self.program.graph.num_tasks)
+
+    # ------------------------------------------------------------- planning
+    def _build_plan_constraints(
+        self, num_tasks: int, constraints: Optional[Constraints]
+    ) -> Optional[Constraints]:
+        """Constraints for per-plan re-solving: the engine's own, plus one
+        precedence edge per declared gate input."""
+        edges = {
+            (i, t) for t, deps in self.gate_deps.items() for i in deps
+        }
+        base = constraints.precedence if constraints is not None else frozenset()
+        if not (edges - set(base)):
+            return constraints
+        return Constraints.make(
+            num_tasks,
+            precedence=set(base) | edges,
+            conditional=(
+                constraints.conditional if constraints is not None else ()
+            ),
+        )
+
+    def _planning_gate_model(self) -> Optional[_ConditionalProbabilities]:
+        """``solve_suborder`` rebuilds precedence-only constraints, so the
+        conditional constraints' Eq.-8 probabilities are folded into the
+        re-solve's cost matrix instead."""
+        if self.constraints is None or not self.constraints.conditional:
+            return None
+        return _ConditionalProbabilities(self.constraints)
+
+    def _resolve_matrix(self) -> np.ndarray:
+        """Switching-cost matrix for per-plan re-solving (expected costs
+        under conditional constraints, the exact matrix otherwise)."""
+        if self._resolve_mat is None:
+            gm = self._planning_gate_model()
+            self._resolve_mat = (
+                self.cost_model.expected_cost_matrix(gm)
+                if gm is not None else self._cost_matrix
+            )
+        return self._resolve_mat
+
+    def plan_groups(
+        self, requests: Sequence[MultitaskRequest]
+    ) -> List[RequestGroup]:
+        """The group plan :meth:`serve_batch` runs for ``requests``.
+
+        Deterministic, so callers can plan, predict (via
+        :meth:`predicted_group_stats`), and then serve the same requests.
+        With ``policy.resolve_order_per_plan`` on, each group's internal
+        task order is re-solved here and recorded on ``RequestGroup.order``.
+        """
+        use_order = self.group_ordering
+        groups = self.scheduler.plan(
+            requests,
+            num_tasks=self.program.graph.num_tasks,
+            cost_model=self.cost_model if use_order else None,
+            task_order=self.order if use_order else None,
+            initial_resident=(
+                self.executor.residency_state()
+                if use_order and self.warm_start else None
+            ),
+        )
+        if self.policy.resolve_order_per_plan and all(
+            t in self.gate_deps for t in self.gates
+        ):
+            groups = self._resolve_plan_orders(groups)
+        return groups
+
+    def group_order(self, group: RequestGroup) -> Tuple[int, ...]:
+        """The task sequence ``group`` executes: its re-solved per-plan
+        order when one was recorded, else the global order filtered to the
+        group's subset."""
+        if group.order is not None:
+            return tuple(group.order)
+        return tuple(effective_order(self.order, group.tasks))
+
+    def _resolve_plan_orders(
+        self, groups: Sequence[RequestGroup]
+    ) -> List[RequestGroup]:
+        """Residency-aware per-plan task-order re-solving: walking the
+        planned groups in execution sequence, each group's subset is
+        re-solved over the switching-cost matrix with a virtual start node
+        whose edges are the residency-conditioned entry loads, then the
+        simulated residency advances past that group."""
+        depth = self.program.graph.depth
+        resident = (
+            self.executor.residency_state() if self.warm_start
+            else (None,) * depth
+        )
+        matrix = self._resolve_matrix()
+        gm = self._planning_gate_model()
+        out: List[RequestGroup] = []
+        for group in groups:
+            eff = effective_order(self.order, group.tasks)
+            if len(eff) > 1:
+                start = [
+                    self.cost_model.expected_resume_load_cost(
+                        resident, t, gate_model=gm
+                    )
+                    for t in eff
+                ]
+                solved = solve_suborder(
+                    matrix, eff,
+                    start_costs=start, constraints=self._plan_constraints,
+                )
+                group = dataclasses.replace(group, order=tuple(solved))
+            out.append(group)
+            if self.warm_start:
+                resident = self.cost_model.residency_after(
+                    self.group_order(group), resident
+                )
+        return out
+
+    def predicted_group_stats(
+        self, groups: Sequence[RequestGroup]
+    ) -> ExecutionStats:
+        """Cumulative counter prediction for serving ``groups`` in sequence.
+
+        Warm engines carry residency group-to-group (seeded from the
+        executor's *current* residency), cold engines re-predict each group
+        from scratch; tasks outside a group's subset count as skipped.
+        Assumes every gate fires; with no gates the executor's cumulative
+        counters match this exactly.
+        """
+        predictor = self.cost_model.plan_predictor(
+            resume=(
+                self.executor.residency_state() if self.warm_start else None
+            ),
+            carry_residency=self.warm_start,
+        )
+        for g in groups:
+            eff = self.group_order(g)
+            predictor.append(
+                eff, batch_size=g.valid,
+                extra_tasks_skipped=(len(self.order) - len(eff)) * g.valid,
+            )
+        return predictor.stats
+
+    # ------------------------------------------------------------ execution
+    def _run_group(
+        self, group: RequestGroup, eff: Sequence[int]
+    ) -> Tuple[List[Dict[int, torch.Tensor]], ExecutionStats,
+               List[TaskGateRecord]]:
+        """Execute one homogeneous request group through the batched path.
+
+        Gates are evaluated per request row against that row's outputs so
+        far.  A task runs (batched, once) when any row's gate fires; rows
+        whose gate did not fire drop the task's output — exact, because a
+        task's output depends only on its input row.  Flop/task counters are
+        weighted by the fired-row count.  The third return value is the
+        group's realized gate trace, one record per task of ``eff``.
+        """
+        ex = self.executor
+        v = group.valid
+        per_request: List[Dict[int, torch.Tensor]] = [dict() for _ in range(v)]
+        stats = ExecutionStats()
+        stats.tasks_skipped += (len(self.order) - len(eff)) * v
+        trace: List[TaskGateRecord] = []
+        for t in eff:
+            g = self.gates.get(t)
+            fire = [True] * v if g is None else [bool(g(per_request[i])) for i in range(v)]
+            fired = sum(fire)
+            stats.tasks_skipped += v - fired
+            if fired == 0:
+                trace.append(TaskGateRecord(task=t, weight=0, offered=v))
+                continue
+            out = ex.run_task_batch(t, group.xs, stats, weight=fired)
+            trace.append(dataclasses.replace(ex.last_gate_record, offered=v))
+            for i in range(v):
+                if fire[i]:
+                    per_request[i][t] = out[i]
+        return per_request, stats, trace
+
+    def _execute_group(self, group: RequestGroup) -> GroupExecution:
+        """Run one planned group.
+
+        Handles the warm/cold group boundary (keep residency and drop
+        activations, or full reset), moves the group's inputs to the
+        program's device, executes, and predicts the group's counters from
+        the executor's residency right before execution, conditioned on
+        the realized gate trace.
+        """
+        if self.warm_start:
+            self.executor.clear_activations()
+        else:
+            self.executor.reset()  # cold per group (reference semantics)
+        group = dataclasses.replace(group, xs=group.xs.to(self.device))
+        eff = self.group_order(group)
+        resume = self.executor.residency_state() if self.warm_start else None
+        per_request, stats, trace = self._run_group(group, eff)
+        predicted = self.cost_model.predicted_stats(
+            eff, batch_size=group.valid, resume=resume, gate_trace=trace,
+        )
+        warm_saved = 0.0
+        if self.warm_start:
+            cold_pred = self.cost_model.predicted_stats(
+                eff, batch_size=group.valid, gate_trace=trace,
+            )
+            warm_saved = (
+                cold_pred.weight_bytes_loaded - predicted.weight_bytes_loaded
+            )
+        predicted.tasks_skipped += (len(self.order) - len(eff)) * group.valid
+        return GroupExecution(
+            group=group, eff=eff, outputs=per_request, stats=stats,
+            predicted=predicted, warm_saved=warm_saved, gate_trace=trace,
+        )
+
+    def _group_responses(
+        self, execution: GroupExecution
+    ) -> List[MultitaskResponse]:
+        """Responses for one executed group, in group-slot order."""
+        stats = execution.stats
+        group = execution.group
+        per_req_seconds = stats.seconds(self.hw) / max(group.valid, 1)
+        return [
+            MultitaskResponse(
+                outputs=execution.outputs[slot],
+                stats=dataclasses.replace(stats),
+                order=self.order,
+                predicted_seconds=per_req_seconds,
+                group_size=group.valid,
+                warm_weight_bytes_saved=execution.warm_saved,
+                effective_order=execution.eff,
+            )
+            for slot in range(group.valid)
+        ]
+
+    # ---------------------------------------------------- one-shot serving
+    def serve_batch(
+        self, requests: Sequence[MultitaskRequest]
+    ) -> List[MultitaskResponse]:
+        """Serve many requests via grouped batched execution.
+
+        Plans once with :meth:`plan_groups` and runs the groups in sequence
+        with :meth:`_execute_group` — the reference's one-shot greedy
+        session (``GreedyBatchPolicy``) with no faults, until the session
+        layer is ported.  Each group runs the block-cached executor once
+        with every block batched over the group, so weight loads amortise
+        across its requests; a warm engine keeps residency between groups.
+        ``last_batch_stats`` holds the call's cumulative counters.
+        Responses come back in submission order.
+        """
+        responses: List[Optional[MultitaskResponse]] = [None] * len(requests)
+        stats = ExecutionStats()
+        for group in self.plan_groups(requests):
+            execution = self._execute_group(group)
+            stats = stats.merge(execution.stats)
+            for i, response in zip(group.indices, self._group_responses(execution)):
+                responses[i] = response
+        self.last_batch_stats = stats
+        return responses
+
+    def serve(self, request: MultitaskRequest) -> MultitaskResponse:
+        return self.serve_batch([request])[0]
