@@ -2,31 +2,47 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's CUDA kernel (the Pearson Gram) from the sources in
-   this checkout and holds it against its plain PyTorch version on the card,
-   at the main path's shapes and a few ragged ones, in fp32 and from bf16
-   inputs, timing kernel, plain version and one library call with CUDA
-   events.
-2. Drives Antler's main path on the card at the full width of the paper's
-   LeNet-5: affinity profiling of 5 random-initialised per-task networks on
-   512 probes, task-graph selection, Held-Karp and GA ordering, then
+1. Builds the port's CUDA kernels (the Pearson Gram and flash attention)
+   from the sources in this checkout, one ``nvcc`` each, started together,
+   and prints each build time.
+2. Holds each kernel against its plain PyTorch version on the card at the
+   main paths' shapes and at ragged ones (fp32 and bf16, GQA, a sliding
+   window), timing kernel, plain version and one library call (the
+   yardstick only) with CUDA events.
+3. Drives Antler's main path on the paper's LeNet-5 at full width: affinity
+   profiling of 5 random-initialised per-task networks on 512 probes,
+   task-graph selection, Held-Karp and GA ordering, then
    ``MultitaskEngine.serve_batch`` on 48 requests over several task subsets.
-   It checks the Pearson kernel ran 15 times, the served counters equal the
-   cost model's prediction field for field, the outputs match the per-block
-   executor, and Antler's counters beat Vanilla's.
-3. Prints one ``{"kernels": [...]}`` line, then the device line last.
+4. Drives the same path on a transformer backbone: mistral-nemo-12b at full
+   width (d_model 5120, GQA 32/8, head_dim 160, bf16), its 40 layers cut to
+   8, sequences of 128 tokens, 256 random-token probes, 4 blocks of 2 layers.
+5. Drives ``LMServer.generate`` on the same configuration: 4 prompts of 512
+   tokens, 16 greedy decode steps.
+6. Prints one ``{"kernels": [...]}`` line, then the device line last.
+
+Each path runs with every launch count set to 0 just before it and read
+just after; the script checks that the kernels ran where the path runs
+them (Pearson 15 times per profile; flash attention 30 times in the
+transformer profile, twice per executed block in serving, 8 times in the
+prefill), that served counters equal the cost model's prediction field for
+field, that served outputs match the per-block executor, that Antler beats
+Vanilla, and that the first decode step agrees with ``forward``.  Any failed
+check raises.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  TF32 is switched off for matmuls and cuDNN:
-the checks hold fp32 to 1e-5.
+the checks hold fp32 to 1e-5 and 2e-5.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -34,31 +50,67 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    MSP430, GAConfig, GraphCostModel, TaskGraph, TaskGraphExecutor,
+    MSP430, TPU_V5E, GAConfig, GraphCostModel, TaskGraph, TaskGraphExecutor,
     VanillaExecutor, genetic_order, optimal_order,
 )
 from repro_torch.core.affinity import affinity_matrix, profile_task  # noqa: E402
 from repro_torch.core.tradeoff import select_task_graph  # noqa: E402
 from repro_torch.data import MultitaskDataset, train_test_split  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    SOURCE as FLASH_SOURCE, flash_attention,
+)
 from repro_torch.kernels.pearson_affinity import (  # noqa: E402
     SOURCE as PEARSON_SOURCE, pearson_dissimilarity,
 )
-from repro_torch.kernels.ref import pearson_dissimilarity_ref  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    flash_attention_bhsd_ref, flash_attention_ref, pearson_dissimilarity_ref,
+)
 from repro_torch.models.cnn import build_lenet5_blocks  # noqa: E402
-from repro_torch.models.multitask import build_cnn_program  # noqa: E402
-from repro_torch.serving import MultitaskEngine, MultitaskRequest  # noqa: E402
+from repro_torch.models.multitask import (  # noqa: E402
+    _split_layers, build_cnn_program, build_transformer_program,
+    transformer_block_costs,
+)
+from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.serving import LMServer, MultitaskEngine, MultitaskRequest  # noqa: E402
+from repro_torch.serving.engine import _grow_cache  # noqa: E402
 
 N_TASKS, N_CLASSES, N_BRANCH_POINTS = 5, 4, 3
 N_PROBES = 512
 N_REQUESTS = 48
 SUBSETS = (None, (0, 1), (2, 3, 4), (1, 3), (4,))
-# (K, F): the main path's three branch points at K = 512, then ragged edges.
-PEARSON_SHAPES = ((512, 1568), (512, 784), (512, 64), (37, 100), (64, 300))
+# (K, F): the LeNet path's three branch points at K = 512, the transformer
+# profile's taps (K = 256 probes, F = 128 tokens x d_model 5120), then
+# ragged edges.
+PEARSON_SHAPES = ((512, 1568), (512, 784), (512, 64), (256, 128 * 5120), (37, 100), (64, 300))
 FP32_TOL, BF16_TOL, PIPELINE_TOL = 1e-5, 5e-2, 1e-5
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, HBM3.
-FP32_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+# Flash attention: the reference sweep's tolerances (tests/test_kernels.py).
+FLASH_FP32_TOL, FLASH_BF16_TOL = 2e-5, 2e-2
+# Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores,
+# dense bf16 on the tensor cores, HBM3.
+FP32_PEAK_FLOPS, BF16_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
+
+# The transformer paths: mistral-nemo-12b at full width, depth 40 -> 8.
+ARCH, TF_LAYERS, TF_SEQ, TF_PROBES = "mistral-nemo-12b", 8, 128, 256
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 512, 16
+TF_TOL = 5e-2  # bf16 activations: served vs per-block, decode vs forward
+# Flash shapes of the main paths, model layout (B, S, Hq, Hk, d), bf16 causal:
+# a serving group of 16, the LM prefill, the profile's probe batch.
+FLASH_MAIN = (("serve_group", 16, 128, 32, 8, 160), ("lm_prefill", 4, 512, 32, 8, 160),
+              ("profile", 256, 128, 32, 8, 160))
+# Ragged and windowed checks: (layout, B, S, T, Hq, Hk, d, causal, window).
+FLASH_RAGGED = (
+    ("flat", 4, 70, 70, 1, 1, 32, True, None),
+    ("flat", 4, 48, 96, 1, 1, 64, True, None),
+    ("flat", 2, 33, 33, 6, 1, 16, True, None),
+    ("flat", 4, 70, 70, 1, 1, 32, True, 24),
+    ("flat", 4, 70, 70, 1, 1, 32, False, 24),
+    ("bhsd", 2, 300, 300, 4, 2, 64, True, 24),
+    ("bhsd", 1, 200, 200, 4, 1, 128, False, 40),
+    ("bhsd", 2, 150, 150, 32, 8, 160, True, 24),
+)
 
 
 def check(ok: bool, what: str) -> None:
@@ -112,6 +164,47 @@ def pearson_bound(k: int, f: int) -> dict:
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
     }
+
+
+def launch_counts() -> dict:
+    return {"pearson_gram": pearson_dissimilarity.launches,
+            "flash_attention": flash_attention.launches}
+
+
+def reset_launch_counts() -> None:
+    pearson_dissimilarity.launches = 0
+    flash_attention.launches = 0
+
+
+def free_memory() -> None:
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def peak_gb(device: torch.device) -> float:
+    """Peak device memory since the last reset, in GB (0 on the CPU)."""
+    if device.type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def reset_peak(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def build_kernels() -> dict:
+    """One nvcc per source, all started together; seconds each."""
+    def timed(source: str) -> float:
+        t0 = time.perf_counter()
+        _build.build(source)
+        return time.perf_counter() - t0
+
+    sources = (PEARSON_SOURCE, FLASH_SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        futures = {src: pool.submit(timed, src) for src in sources}
+        return {src: f.result() for src, f in futures.items()}
 
 
 def kernel_phase(device: torch.device) -> dict:
@@ -168,6 +261,65 @@ def branch_point_taps(program, task: int, x: torch.Tensor):
     return taps
 
 
+def check_affinity(aff: np.ndarray) -> None:
+    check(aff.shape == (N_BRANCH_POINTS, N_TASKS, N_TASKS), f"affinity shape {aff.shape}")
+    check(bool(np.isfinite(aff).all()), "affinity has non-finite entries")
+    check(np.allclose(np.diagonal(aff, axis1=1, axis2=2), 1.0, atol=1e-5),
+          "affinity diagonal is not 1")
+
+
+def select_and_order(aff: np.ndarray, costs, hw, laps: Laps, label: str):
+    """Task-graph selection, then the exact and the GA order on ``hw``."""
+    sel = select_task_graph(N_TASKS, N_BRANCH_POINTS, aff, costs, hw).selected
+    laps.lap("select")
+    cm = GraphCostModel(sel.graph, costs, hw)
+    exact = optimal_order(cm.cost_matrix())
+    ga = genetic_order(cm.cost_matrix(), config=GAConfig(seed=0))
+    laps.lap("order")
+    check(ga.cost >= exact.cost - 1e-12, "GA beat the exact solver")
+    print(f"{label}selected graph {sel.graph.partitions}; exact order {exact.order} "
+          f"cost {exact.cost * 1e3:.3f} ms (modelled, {hw.name}); GA order "
+          f"{ga.order} cost {ga.cost * 1e3:.3f} ms", flush=True)
+    return sel, exact
+
+
+def check_served(engine, plan, requests, responses, predicted, device, tol: float,
+                 label: str) -> float:
+    """Served counters equal the prediction field for field, and every served
+    output matches the per-block executor on its group; the max abs error."""
+    check(engine.last_batch_stats == predicted,
+          f"{label}served counters {engine.last_batch_stats} != predicted {predicted}")
+    check(len({engine.normalized_subset(r.tasks) for r in requests}) >= 4,
+          "fewer than 4 task subsets requested")
+    reference = TaskGraphExecutor(engine.program, fused=False)
+    max_err = 0.0
+    for group in plan:
+        outs, _stats = reference.run_batch(
+            group.xs.to(device), engine.group_order(group), valid=group.valid
+        )
+        for slot, i in enumerate(group.indices):
+            got = responses[i].outputs
+            check(set(got) == set(engine.group_order(group)), f"request {i} tasks")
+            for t, y in got.items():
+                check(tuple(y.shape) == (1, N_CLASSES), f"output shape {tuple(y.shape)}")
+                check(bool(torch.isfinite(y).all()), "non-finite output")
+                max_err = max(max_err, float((y - outs[t][slot]).abs().max()))
+    check(max_err <= tol, f"{label}served vs per-block max abs err {max_err}")
+    return max_err
+
+
+def check_beats_vanilla(program, x: torch.Tensor, order, hw, label: str) -> None:
+    """Antler's block cache against the Vanilla baseline (quickstart step 5):
+    fewer blocks executed and less modelled time on ``hw``."""
+    _o, s_ant = TaskGraphExecutor(program).run(x, list(order))
+    _o, s_van = VanillaExecutor(program).run(x, list(order))
+    for name, st in (("antler ", s_ant), ("vanilla", s_van)):
+        print(f"{label}{name}: {st.blocks_executed} blocks executed, {st.blocks_skipped} "
+              f"skipped, {st.seconds(hw) * 1e3:.2f} ms modelled ({hw.name})", flush=True)
+    check(s_van.seconds(hw) > s_ant.seconds(hw), "Vanilla not slower than Antler")
+    check(s_van.blocks_executed > s_ant.blocks_executed, "Vanilla executed no more blocks")
+
+
 def pipeline_phase(device: torch.device, n_probes: int = N_PROBES) -> dict:
     """Quickstart steps 1 and 3-5 on ``device`` (no training)."""
     ds = MultitaskDataset(num_tasks=N_TASKS, num_classes=N_CLASSES, seed=0)
@@ -189,22 +341,10 @@ def pipeline_phase(device: torch.device, n_probes: int = N_PROBES) -> dict:
     laps.lap("profile")
     aff = affinity_matrix(profiles).cpu().numpy()
     laps.lap("spearman")
-    check(aff.shape == (N_BRANCH_POINTS, N_TASKS, N_TASKS), f"affinity shape {aff.shape}")
-    check(bool(np.isfinite(aff).all()), "affinity has non-finite entries")
-    check(np.allclose(np.diagonal(aff, axis1=1, axis2=2), 1.0, atol=1e-5),
-          "affinity diagonal is not 1")
+    check_affinity(aff)
 
     # Task-graph selection and ordering.
-    sel = select_task_graph(N_TASKS, N_BRANCH_POINTS, aff, costs, MSP430).selected
-    laps.lap("select")
-    cm = GraphCostModel(sel.graph, costs, MSP430)
-    exact = optimal_order(cm.cost_matrix())
-    ga = genetic_order(cm.cost_matrix(), config=GAConfig(seed=0))
-    laps.lap("order")
-    check(ga.cost >= exact.cost - 1e-12, "GA beat the exact solver")
-    print(f"selected graph {sel.graph.partitions}; exact order {exact.order} "
-          f"cost {exact.cost * 1e3:.3f} ms (modelled, MSP430); GA order "
-          f"{ga.order} cost {ga.cost * 1e3:.3f} ms", flush=True)
+    sel, exact = select_and_order(aff, costs, MSP430, laps, "")
 
     # Serving: request groups through the block-cached engine.
     prog2 = build_cnn_program(
@@ -225,54 +365,307 @@ def pipeline_phase(device: torch.device, n_probes: int = N_PROBES) -> dict:
     laps.lap("plan")
     responses = engine.serve_batch(requests)
     laps.lap("serve")
-    check(engine.last_batch_stats == predicted,
-          f"served counters {engine.last_batch_stats} != predicted {predicted}")
-    check(len({engine.normalized_subset(SUBSETS[s]) for s in picks}) >= 4,
-          "fewer than 4 task subsets requested")
-
-    reference = TaskGraphExecutor(prog2, fused=False)
-    max_err = 0.0
-    for group in plan:
-        outs, _stats = reference.run_batch(
-            group.xs.to(device), engine.group_order(group), valid=group.valid
-        )
-        for slot, i in enumerate(group.indices):
-            got = responses[i].outputs
-            check(set(got) == set(engine.group_order(group)), f"request {i} tasks")
-            for t, y in got.items():
-                check(tuple(y.shape) == (1, N_CLASSES), f"output shape {tuple(y.shape)}")
-                check(bool(torch.isfinite(y).all()), "non-finite output")
-                max_err = max(max_err, float((y - outs[t][slot]).abs().max()))
-    check(max_err <= PIPELINE_TOL, f"served vs per-block max abs err {max_err}")
-
-    # Antler's block cache against the Vanilla baseline (quickstart step 5).
-    x = torch.as_tensor(xte[:8], device=device)
-    _o, s_ant = TaskGraphExecutor(prog2).run(x, list(exact.order))
-    _o, s_van = VanillaExecutor(prog2).run(x, list(exact.order))
-    print(f"antler : {s_ant.blocks_executed} blocks executed, "
-          f"{s_ant.blocks_skipped} skipped, {s_ant.seconds(MSP430) * 1e3:.2f} ms modelled (MSP430)")
-    print(f"vanilla: {s_van.blocks_executed} blocks executed, "
-          f"{s_van.blocks_skipped} skipped, {s_van.seconds(MSP430) * 1e3:.2f} ms modelled (MSP430)",
-          flush=True)
-    check(s_van.seconds(MSP430) > s_ant.seconds(MSP430), "Vanilla not slower than Antler")
-    check(s_van.blocks_executed > s_ant.blocks_executed, "Vanilla executed no more blocks")
+    max_err = check_served(engine, plan, requests, responses, predicted, device,
+                           PIPELINE_TOL, "")
+    check_beats_vanilla(prog2, torch.as_tensor(xte[:8], device=device), exact.order,
+                        MSP430, "")
     return {
         "engine": engine, "plan": plan, "requests": requests,
         "laps": laps.seconds, "max_err": max_err,
     }
 
 
-def time_groups(result: dict) -> list:
+def time_groups(result: dict, reps: int = 20, warmup: int = 2) -> list:
     """Per-group wall time of the engine's group execution (CUDA events),
     after the checked run, on a warm engine."""
     engine = result["engine"]
     out = []
     for group in result["plan"]:
-        ms = cuda_ms(lambda: engine._execute_group(group), reps=20, warmup=2)
+        ms = cuda_ms(lambda: engine._execute_group(group), reps=reps, warmup=warmup)
         out.append({"tasks": sorted(group.tasks) if group.tasks else "all",
                     "valid": group.valid, "padded": int(group.xs.shape[0]),
                     "order": list(engine.group_order(group)), "ms": ms})
     return out
+
+
+def device_breakdown(fn, timed_ms: float, top: int = 6) -> dict:
+    """``torch.profiler`` over one warm call of ``fn``: device time by kernel
+    name (the top ones), the device total, and the host window around the
+    call with the profiler on (which slows the host).  ``busy`` is the
+    device total over ``timed_ms``, the call's CUDA-event time without the
+    profiler: the device's busy share, an upper bound where kernels
+    overlap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            calls, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    device_ms = sum(us for _c, us in by_name.values()) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
+    return {
+        "window_ms": window_ms, "timed_ms": timed_ms, "device_ms": device_ms,
+        "busy": device_ms / timed_ms,
+        "kernels": sum(c for c, _us in by_name.values()),
+        "top": [{"name": name[:80], "calls": c, "ms": us / 1e3}
+                for name, (c, us) in ranked[:top]],
+    }
+
+
+# --------------------------------------------------------------------------
+# Flash attention
+# --------------------------------------------------------------------------
+
+def allowed_pairs(s: int, t: int, causal: bool, window) -> int:
+    """Query-key pairs the mask keeps (positions are indices)."""
+    qp = torch.arange(s)[:, None]
+    kp = torch.arange(t)[None, :]
+    mask = torch.ones(s, t, dtype=torch.bool)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= (qp - kp) < window
+    return int(mask.sum())
+
+
+def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool, window) -> dict:
+    """Least time on the card for model-layout ``q`` (B, S, Hq, d) over
+    ``k``/``v`` (B, T, Hk, d): 4 * B * Hq * pairs * d operations at the peak
+    of the input type vs q, k, v and o moved once (K/V not repeated)."""
+    b, s, hq, d = q.shape
+    peak = BF16_PEAK_FLOPS if q.dtype == torch.bfloat16 else FP32_PEAK_FLOPS
+    ops_ms = 4.0 * b * hq * allowed_pairs(s, k.shape[1], causal, window) * d / peak * 1e3
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+    }
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device).to(dtype)
+
+
+def flash_phase(device: torch.device) -> dict:
+    """Flash kernel vs its plain version at the main paths' shapes (timed,
+    with SDPA as the yardstick) and at ragged / windowed ones."""
+    rng = np.random.default_rng(1)
+    rows, max_err = [], 0.0
+    for name, b, s, hq, hk, d in FLASH_MAIN:
+        q = _randn(rng, (b, s, hq, d), torch.bfloat16, device)
+        k = _randn(rng, (b, s, hk, d), torch.bfloat16, device)
+        v = _randn(rng, (b, s, hk, d), torch.bfloat16, device)
+        out = ops.flash_attention_bhsd(q, k, v)
+        plain = flash_attention_bhsd_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = float((out.float() - plain.float()).abs().max())
+        check(err <= FLASH_BF16_TOL, f"flash bf16 {name}: max abs err {err} > {FLASH_BF16_TOL}")
+        max_err = max(max_err, err)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row = {
+            "kernel": "flash_attention", "path": name, "shape": [b * hq, s, d],
+            "B": b, "S": s, "Hq": hq, "Hk": hk, "d": d, "dtype": "bfloat16",
+            "max_abs_err": err,
+            "kernel_ms": cuda_ms(lambda: ops.flash_attention_bhsd(q, k, v), reps=20),
+            "plain_ms": cuda_ms(lambda: flash_attention_bhsd_ref(q, k, v), reps=10),
+            # One library call computing the same attention: the yardstick only.
+            "library_ms": cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                                  reps=20),
+            **flash_bound(q, k, True, None),
+            "peak": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s (H100 SXM data sheet)",
+        }
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, out, plain
+        free_memory()
+
+    for layout, b, s, t, hq, hk, d, causal, window in FLASH_RAGGED:
+        for dtype, tol in ((torch.float32, FLASH_FP32_TOL), (torch.bfloat16, FLASH_BF16_TOL)):
+            if layout == "flat":
+                q = _randn(rng, (b * hq, s, d), dtype, device)
+                k = _randn(rng, (b * hk, t, d), dtype, device)
+                v = _randn(rng, (b * hk, t, d), dtype, device)
+                out = flash_attention(q, k, v, causal=causal, window=window)
+                plain = flash_attention_ref(q, k, v, causal=causal, window=window)
+            else:
+                q = _randn(rng, (b, s, hq, d), dtype, device)
+                k = _randn(rng, (b, t, hk, d), dtype, device)
+                v = _randn(rng, (b, t, hk, d), dtype, device)
+                out = ops.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+                plain = flash_attention_bhsd_ref(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype and out.shape == plain.shape, "flash output dtype/shape")
+            err = float((out.float() - plain.float()).abs().max())
+            what = f"flash {layout} {b}x{s}x{t} heads {hq}/{hk} d {d} causal {causal} " \
+                   f"window {window} {dtype}"
+            check(err <= tol, f"{what}: max abs err {err} > {tol}")
+            max_err = max(max_err, err)
+            print(json.dumps({"kernel": "flash_attention", "check": what, "max_abs_err": err}),
+                  flush=True)
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+# --------------------------------------------------------------------------
+# The transformer paths
+# --------------------------------------------------------------------------
+
+def transformer_config(layers: int = TF_LAYERS):
+    return dataclasses.replace(get_config(ARCH), num_layers=layers)
+
+
+def transformer_pipeline_phase(
+    device: torch.device, cfg, n_probes: int = TF_PROBES, seq_len: int = TF_SEQ,
+    group_reps: int = 5,
+) -> dict:
+    """Profile -> select -> order -> serve on a transformer backbone.
+
+    Launch counts are set to 0 just before the profile and before
+    ``serve_batch``, and read just after each.
+    """
+    laps = Laps(device)
+    mem = {}
+    depth = N_BRANCH_POINTS + 1
+    costs = transformer_block_costs(cfg, _split_layers(cfg.num_layers, depth), seq_len)
+    gen_device = device if device.type == "cuda" else torch.device("cpu")
+
+    # Affinity: profile each per-task network of the fully-separate graph.
+    reset_peak(device)
+    sep = TaskGraph.fully_separate(N_TASKS, N_BRANCH_POINTS)
+    prog = build_transformer_program(
+        sep, cfg, [N_CLASSES] * N_TASKS, seq_len,
+        generator=torch.Generator(device=gen_device).manual_seed(0), device=device,
+    )
+    rng = np.random.default_rng(0)
+    probes = torch.as_tensor(
+        rng.integers(0, cfg.raw_vocab_size, (n_probes, seq_len)), device=device
+    )
+    laps.lap("build_profile_program")
+    reset_launch_counts()
+    profiles = [
+        profile_task(branch_point_taps(prog, t, probes)) for t in range(N_TASKS)
+    ]
+    sync(device)
+    profile_launches = launch_counts()
+    laps.lap("profile")
+    mem["profile_gb"] = peak_gb(device)
+    aff = affinity_matrix(profiles).cpu().numpy()
+    laps.lap("spearman")
+    check_affinity(aff)
+    del prog, profiles
+    free_memory()
+
+    # Task-graph selection and ordering, planned with the TPU hardware model
+    # the reference pairs with transformer programs.
+    sel, exact = select_and_order(aff, costs, TPU_V5E, laps, "transformer: ")
+
+    # Serving: request groups through the block-cached engine.
+    reset_peak(device)
+    prog2 = build_transformer_program(
+        sel.graph, cfg, [N_CLASSES] * N_TASKS, seq_len,
+        generator=torch.Generator(device=gen_device).manual_seed(1), device=device,
+    )
+    engine = MultitaskEngine(prog2, hw=TPU_V5E)
+    rng = np.random.default_rng(1)
+    picks = rng.integers(0, len(SUBSETS), size=N_REQUESTS)
+    tokens = rng.integers(0, cfg.raw_vocab_size, (N_REQUESTS, 1, seq_len)).astype(np.int32)
+    requests = [MultitaskRequest(x=tokens[i], tasks=SUBSETS[s]) for i, s in enumerate(picks)]
+    laps.lap("build_engine")
+    plan = engine.plan_groups(requests)
+    predicted = engine.predicted_group_stats(plan)
+    laps.lap("plan")
+    reset_launch_counts()
+    responses = engine.serve_batch(requests)
+    sync(device)
+    serve_launches = launch_counts()
+    laps.lap("serve")
+    mem["serve_gb"] = peak_gb(device)
+    max_err = check_served(engine, plan, requests, responses, predicted, device,
+                           TF_TOL, "transformer ")
+    check_beats_vanilla(prog2, torch.as_tensor(tokens[:2, 0], device=device), exact.order,
+                        TPU_V5E, "transformer ")
+    laps.lap("check")
+    result = {
+        "engine": engine, "plan": plan, "requests": requests, "laps": laps.seconds,
+        "max_err": max_err, "mem": mem, "graph": sel.graph.partitions,
+        "profile_launches": profile_launches, "serve_launches": serve_launches,
+        "blocks_executed": engine.last_batch_stats.blocks_executed,
+    }
+    if device.type == "cuda":
+        result["groups"] = time_groups(result, reps=group_reps, warmup=1)
+        i = max(range(len(plan)),
+                key=lambda j: len(engine.group_order(plan[j])) * plan[j].xs.shape[0])
+        result["trace"] = {
+            "group": {"tasks": result["groups"][i]["tasks"],
+                      "padded": result["groups"][i]["padded"]},
+            **device_breakdown(lambda: engine._execute_group(plan[i]),
+                               result["groups"][i]["ms"]),
+        }
+    return result
+
+
+def lm_phase(
+    device: torch.device, cfg, batch: int = LM_BATCH, prompt_len: int = LM_PROMPT,
+    steps: int = LM_STEPS,
+) -> dict:
+    """``LMServer.generate`` on ``transformer.init`` of ``cfg``; then the
+    first decode step against ``forward`` over the prompt plus its token."""
+    laps = Laps(device)
+    reset_peak(device)
+    gen_device = device if device.type == "cuda" else torch.device("cpu")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=gen_device).manual_seed(2), device)
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.raw_vocab_size, (batch, prompt_len)).astype(np.int32)
+    server = LMServer(model, params)
+    laps.lap("init")
+    reset_launch_counts()
+    tokens = server.generate(prompts, steps)
+    sync(device)
+    launches = launch_counts()
+    laps.lap("generate")
+    check(tokens.shape == (batch, steps), f"generated shape {tokens.shape}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token ids out of range")
+
+    logits0, cache = model.prefill(params, prompts)
+    tok = torch.argmax(logits0, dim=-1)
+    check(np.array_equal(tok.cpu().numpy(), tokens[:, 0]), "first token differs from generate")
+    cache = _grow_cache(model, cache, prompt_len + steps, prompt_len)
+    step_logits, _cache = model.decode_step(params, tok, cache, prompt_len)
+    full, _aux = model.forward(
+        params, torch.cat([torch.as_tensor(prompts, device=device).long(), tok[:, None]], 1))
+    ref = full[:, -1].float()
+    err = float((step_logits.float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(bool(torch.isfinite(step_logits).all()), "non-finite decode logits")
+    check(err <= TF_TOL * scale,
+          f"decode vs forward: max abs err {err} > {TF_TOL} x max |logit| {scale}")
+    laps.lap("check")
+    result = {"tokens": tokens, "launches": launches, "laps": laps.seconds,
+              "decode_vs_forward_err": err, "max_abs_logit": scale,
+              "mem_gb": peak_gb(device)}
+    if device.type == "cuda":
+        result["prefill_ms"] = cuda_ms(lambda: model.prefill(params, prompts), reps=5, warmup=1)
+        result["decode_step_ms"] = cuda_ms(
+            lambda: model.decode_step(params, tok, cache, prompt_len), reps=10, warmup=2)
+        result["trace"] = {
+            "prefill": device_breakdown(lambda: model.prefill(params, prompts),
+                                        result["prefill_ms"]),
+            "decode_step": device_breakdown(
+                lambda: model.decode_step(params, tok, cache, prompt_len),
+                result["decode_step_ms"]),
+        }
+    return result
 
 
 def main() -> int:
@@ -290,39 +683,114 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    for src, seconds in build_kernels().items():
+        print(f"built {src} in {seconds:.1f} s", flush=True)
+
     t0 = time.perf_counter()
-    _build.build(PEARSON_SOURCE)
-    print(f"built {PEARSON_SOURCE} in {time.perf_counter() - t0:.1f} s", flush=True)
-
     kernels = kernel_phase(device)
+    flash = flash_phase(device)
+    print(json.dumps({"kernel_checks_seconds": time.perf_counter() - t0}), flush=True)
 
-    pearson_dissimilarity.launches = 0
+    # LeNet-5: profile -> select -> order -> serve.
+    reset_launch_counts()
     result = pipeline_phase(device)
-    launches = pearson_dissimilarity.launches
-    check(launches == N_TASKS * N_BRANCH_POINTS,
-          f"pearson kernel launched {launches} times on the main path, "
-          f"expected {N_TASKS * N_BRANCH_POINTS}")
-    print(f"pipeline: pearson launches {launches}; serve_batch "
+    lenet_launches = launch_counts()
+    check(lenet_launches["pearson_gram"] == N_TASKS * N_BRANCH_POINTS,
+          f"pearson kernel launched {lenet_launches['pearson_gram']} times on the LeNet "
+          f"path, expected {N_TASKS * N_BRANCH_POINTS}")
+    print(f"pipeline: pearson launches {lenet_launches['pearson_gram']}; serve_batch "
           f"{len(result['requests'])} requests in {len(result['plan'])} groups; "
           f"served vs per-block max abs err {result['max_err']:.3g}", flush=True)
     print(json.dumps({"pipeline_seconds": result["laps"]}), flush=True)
     for row in time_groups(result):
         print(json.dumps({"group": row}), flush=True)
+    del result
+    free_memory()
 
-    main_row = kernels["rows"][0]
+    # mistral-nemo-12b, 8 layers: profile -> select -> order -> serve.
+    device_breakdown(torch.cuda.synchronize, 1.0)  # the profiler's first session pays its start-up
+    cfg = transformer_config()
+    tf = transformer_pipeline_phase(device, cfg)
+    prof, serve = tf["profile_launches"], tf["serve_launches"]
+    check(prof["flash_attention"] == 2 * N_TASKS * N_BRANCH_POINTS,
+          f"flash kernel launched {prof['flash_attention']} times in the transformer "
+          f"profile, expected {2 * N_TASKS * N_BRANCH_POINTS}")
+    check(prof["pearson_gram"] == N_TASKS * N_BRANCH_POINTS,
+          f"pearson kernel launched {prof['pearson_gram']} times in the transformer profile")
+    layers_per_block = cfg.num_layers // (N_BRANCH_POINTS + 1)
+    check(serve["flash_attention"] == layers_per_block * tf["blocks_executed"],
+          f"flash kernel launched {serve['flash_attention']} times in serve_batch, expected "
+          f"{layers_per_block} x {tf['blocks_executed']} blocks executed")
+    print(f"transformer pipeline: graph {tf['graph']}; flash launches profile "
+          f"{prof['flash_attention']}, serve {serve['flash_attention']} "
+          f"({tf['blocks_executed']} blocks executed); pearson launches "
+          f"{prof['pearson_gram']}; served vs per-block max abs err {tf['max_err']:.3g}",
+          flush=True)
+    print(json.dumps({"transformer_pipeline_seconds": tf["laps"],
+                      "peak_memory_gb": tf["mem"]}), flush=True)
+    for row in tf["groups"]:
+        print(json.dumps({"transformer_group": row}), flush=True)
+    print(json.dumps({"transformer_group_trace": tf["trace"]}), flush=True)
+    del tf
+    free_memory()
+
+    # mistral-nemo-12b, 8 layers: LMServer prefill + greedy decode.
+    lm = lm_phase(device, cfg)
+    check(lm["launches"]["flash_attention"] == cfg.num_layers,
+          f"flash kernel launched {lm['launches']['flash_attention']} times in "
+          f"generate, expected {cfg.num_layers} (one per layer of the prefill)")
+    print(json.dumps({
+        "lm": {"batch": LM_BATCH, "prompt": LM_PROMPT, "steps": LM_STEPS,
+               "flash_launches": lm["launches"]["flash_attention"],
+               "prefill_ms": lm["prefill_ms"], "decode_step_ms": lm["decode_step_ms"],
+               "decode_vs_forward_err": lm["decode_vs_forward_err"],
+               "max_abs_logit": lm["max_abs_logit"], "seconds": lm["laps"],
+               "peak_memory_gb": lm["mem_gb"], "tokens_row0": lm["tokens"][0].tolist()},
+    }), flush=True)
+    print(json.dumps({"lm_trace": lm["trace"]}), flush=True)
+
+    pearson_row = kernels["rows"][0]
+    transformer_pearson_row = next(r for r in kernels["rows"] if r["K"] == TF_PROBES)
+    flash_row = flash["rows"][0]
     print(json.dumps({"kernels": [{
         "name": "pearson_gram",
         "route": "cuda",
         "source": "src/repro_torch/csrc/pearson_gram.cu",
         "replaces": "src/repro/kernels/pearson_affinity.py:71",
-        "launches": launches,
+        "launches": lenet_launches["pearson_gram"] + prof["pearson_gram"],
+        "launches_by_path": {"lenet_profile": lenet_launches["pearson_gram"],
+                             "transformer_profile": prof["pearson_gram"]},
         "max_abs_err": kernels["max_abs_err"],
-        "ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": [main_row["K"], main_row["F"]],
+        "ms": pearson_row["kernel_ms"],
+        "plain_ms": pearson_row["plain_ms"],
+        "bound_ms": pearson_row["bound_ms"],
+        "bound_by": pearson_row["bound_by"],
+        "library_ms": pearson_row["library_ms"],
+        "shape": [pearson_row["K"], pearson_row["F"]],
+        "by_path": {path: {"shape": [r["K"], r["F"]], **{k: r[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+            for path, r in (("lenet_profile", pearson_row),
+                            ("transformer_profile", transformer_pearson_row))},
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:113",
+        "launches": (prof["flash_attention"] + serve["flash_attention"]
+                     + lm["launches"]["flash_attention"]),
+        "launches_by_path": {"transformer_profile": prof["flash_attention"],
+                             "transformer_serve": serve["flash_attention"],
+                             "lm_prefill": lm["launches"]["flash_attention"]},
+        "max_abs_err": flash["max_abs_err"],
+        "ms": flash_row["kernel_ms"],
+        "plain_ms": flash_row["plain_ms"],
+        "bound_ms": flash_row["bound_ms"],
+        "bound_by": flash_row["bound_by"],
+        "library_ms": flash_row["library_ms"],
+        "shape": flash_row["shape"],
+        "by_path": {r["path"]: {k: r[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for r in flash["rows"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

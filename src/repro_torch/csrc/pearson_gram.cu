@@ -13,7 +13,11 @@
 //     micro-tile per thread, F walked in 16-wide slices staged in shared
 //     memory (k-major, padded against bank conflicts);
 //   * loads masked at the ragged K and F edges instead of zero padding;
-//   * an fp32 FMA accumulator with the 1 - acc epilogue fused;
+//   * fp32 FMAs summed in two levels: a partial sum over each 256-feature
+//     chunk, added to the running total once per chunk, so the long chain of
+//     additions is F / 256 long, not F (one flat chain lost 2.6e-4 against
+//     cuBLAS at F = 655,360, the transformer profile's taps);
+//   * the 1 - acc epilogue fused;
 //   * only tiles with row-tile <= column-tile do work, and each off-diagonal
 //     tile writes its mirror too, so out[i][j] and out[j][i] are bit-equal
 //     (Spearman ranks the profile's ties, which a one-bit asymmetry breaks).
@@ -26,6 +30,7 @@ namespace {
 constexpr int kTile = 64;     // output rows/columns per block
 constexpr int kSlice = 16;    // features per shared-memory stage
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kChunk = 256;   // features per partial sum (a multiple of kSlice)
 
 __global__ void __launch_bounds__(kThreads)
 pearson_gram_kernel(const float* __restrict__ z, float* __restrict__ out,
@@ -49,32 +54,44 @@ pearson_gram_kernel(const float* __restrict__ z, float* __restrict__ out,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
 
-  for (int f0 = 0; f0 < f; f0 += kSlice) {
-    // 64 rows x 16 features per operand: 4 elements per thread, adjacent
-    // threads on adjacent features of one row.
-    for (int l = tid; l < kTile * kSlice; l += kThreads) {
-      const int r = l / kSlice;
-      const int s = l % kSlice;
-      const int fi = f0 + s;
-      const int gi = row0 + r;
-      const int gj = col0 + r;
-      a_s[s][r] = (gi < k && fi < f) ? z[(size_t)gi * f + fi] : 0.0f;
-      b_s[s][r] = (gj < k && fi < f) ? z[(size_t)gj * f + fi] : 0.0f;
+  for (int c0 = 0; c0 < f; c0 += kChunk) {
+    float part[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part[r][c] = 0.0f;
+    const int c_end = min(c0 + kChunk, f);
+    for (int f0 = c0; f0 < c_end; f0 += kSlice) {
+      // 64 rows x 16 features per operand: 4 elements per thread, adjacent
+      // threads on adjacent features of one row.
+      for (int l = tid; l < kTile * kSlice; l += kThreads) {
+        const int r = l / kSlice;
+        const int s = l % kSlice;
+        const int fi = f0 + s;
+        const int gi = row0 + r;
+        const int gj = col0 + r;
+        a_s[s][r] = (gi < k && fi < f) ? z[(size_t)gi * f + fi] : 0.0f;
+        b_s[s][r] = (gj < k && fi < f) ? z[(size_t)gj * f + fi] : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int s = 0; s < kSlice; ++s) {
+        float a[4], b[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[r] = a_s[s][ty + 16 * r];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) b[c] = b_s[s][tx + 16 * c];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) part[r][c] = fmaf(a[r], b[c], part[r][c]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
 #pragma unroll
-    for (int s = 0; s < kSlice; ++s) {
-      float a[4], b[4];
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = a_s[s][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) b[c] = b_s[s][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-    }
-    __syncthreads();
+      for (int c = 0; c < 4; ++c) acc[r][c] += part[r][c];
   }
 
 #pragma unroll

@@ -1,9 +1,13 @@
 """Public wrappers around the port's kernels."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention_bhsd_kernel
 from repro_torch.kernels.pearson_affinity import pearson_dissimilarity
+from repro_torch.kernels.ref import flash_attention_bhsd_ref
 
 
 def standardize_rows(feats: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -21,3 +25,19 @@ def pairwise_pearson_dissimilarity(feats: torch.Tensor) -> torch.Tensor:
     (K, K) fp32.  A CUDA input launches the Pearson kernel.
     """
     return pearson_dissimilarity(standardize_rows(feats).contiguous())
+
+
+def flash_attention_bhsd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+) -> torch.Tensor:
+    """GQA flash attention in model layout (``repro/kernels/ops.py``).
+
+    ``q`` (B, S, Hq, d), ``k``/``v`` (B, T, Hk, d) with Hq a multiple of
+    Hk; returns (B, S, Hq, d) in ``q``'s dtype.  A CUDA input launches the
+    flash-attention kernel, which reads the KV head of each query head in
+    place; a CPU input runs the plain version.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bhsd_ref(q, k, v, causal=causal, window=window)
+    return flash_attention_bhsd_kernel(q, k, v, causal=causal, window=window)

@@ -1,0 +1,59 @@
+"""Uniform model API across families, the PyTorch port of
+``repro.models.registry``.
+
+``get_model(cfg)`` returns a :class:`ModelApi` whose members have identical
+signatures regardless of family, so the server never branches on
+architecture:
+
+  init(generator, device=None)           -> params
+  forward(params, tokens)                -> (logits, aux_loss)
+  prefill(params, tokens)                -> (last_logits, cache)
+  decode_step(params, token, cache, n)   -> (logits, cache)
+  cache_shape(batch, seq_len)            -> cache of meta tensors
+
+Unlike the reference, which returns an updated copy, ``decode_step`` writes
+the token's K/V into ``cache`` in place (slot ``n % capacity`` of every
+layer) and returns that same object.
+
+The reference's sharding members (``param_specs``, ``cache_spec``) come
+with the mesh.  The dense family is ported; the others raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+from repro_torch.models import cache as C
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelApi:
+    cfg: ModelConfig
+    init: Callable
+    forward: Callable
+    prefill: Callable
+    decode_step: Callable
+    cache_shape: Callable
+
+
+def _transformer_api(cfg: ModelConfig) -> ModelApi:
+    return ModelApi(
+        cfg=cfg,
+        init=lambda generator, device=None: transformer.init(generator, cfg, device),
+        forward=lambda p, tokens: transformer.forward(p, tokens, cfg),
+        prefill=lambda p, tokens: transformer.prefill(p, tokens, cfg),
+        decode_step=lambda p, tok, cache, n: transformer.decode_step(
+            p, tok, cache, n, cfg
+        ),
+        cache_shape=lambda batch, seq_len: C.kv_cache_shape(cfg, batch, seq_len),
+    )
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    if cfg.family == "dense":
+        return _transformer_api(cfg)
+    if cfg.family in ("vlm", "moe", "ssm", "hybrid", "encdec"):
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,0 +1,228 @@
+"""Decoder-only transformer, dense family (granite-34b/20b, nemotron-4-340b,
+mistral-nemo-12b): the PyTorch port of ``repro.models.transformer``.
+
+Layer parameters stay stacked with a leading L axis, as in the reference,
+so its trees carry over unchanged; the port loops over the layers where the
+reference scans.  Every full-sequence attention (``forward``,
+``hidden_states``, ``prefill``) goes through the flash kernel on CUDA.  The
+MoE and VLM families come with later slices.
+
+Entry points (plain functions; the device is the parameters'):
+  ``init`` — parameters from a ``torch.Generator``.
+  ``forward`` — full-sequence logits.
+  ``hidden_states`` — hidden states after some layers (affinity profiling).
+  ``prefill`` — forward + populated KV cache + last-position logits.
+  ``decode_step`` — one token against a KV cache.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.cache import KVCache
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; repro_torch runs the dense family"
+        )
+
+
+def layer_params(layers: Params, i: int) -> Params:
+    """Layer ``i`` of a stacked layer tree (views, no copy)."""
+    if isinstance(layers, dict):
+        return {k: layer_params(v, i) for k, v in layers.items()}
+    return layers[i]
+
+
+def num_stacked(layers: Params) -> int:
+    """The leading L axis of a stacked layer tree."""
+    while isinstance(layers, dict):
+        layers = next(iter(layers.values()))
+    return layers.shape[0]
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+
+def _init_layer(generator: torch.Generator, cfg: ModelConfig, device: torch.device) -> Params:
+    _check_family(cfg)
+    return {
+        "attn_norm": L.init_rmsnorm(cfg.d_model, cfg.params_dtype(), device),
+        "mlp_norm": L.init_rmsnorm(cfg.d_model, cfg.params_dtype(), device),
+        "attn": L.init_attention(generator, cfg, device),
+        "mlp": L.init_mlp(generator, cfg, device),
+    }
+
+
+def stack_layers(layers) -> Params:
+    """Stack per-layer trees on a new leading axis."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([lp[k] for lp in layers]) for k in first}
+    return torch.stack(list(layers))
+
+
+def init_layers(
+    generator: torch.Generator, cfg: ModelConfig, n: int, device: torch.device
+) -> Params:
+    """``n`` layers drawn in order, stacked with a leading L axis."""
+    return stack_layers([_init_layer(generator, cfg, device) for _ in range(n)])
+
+
+def init(
+    generator: torch.Generator, cfg: ModelConfig, device: DeviceLike = None
+) -> Params:
+    """Parameters of the whole model on ``device`` (``cuda`` unless the
+    caller names another), drawn from ``generator``."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    return {
+        "embed": L.init_embed(generator, cfg, dev),
+        "layers": init_layers(generator, cfg, cfg.num_layers, dev),
+        "final_norm": L.init_rmsnorm(cfg.d_model, cfg.params_dtype(), dev),
+    }
+
+
+# --------------------------------------------------------------------------
+# Layer body
+# --------------------------------------------------------------------------
+
+def _layer_apply(
+    lp: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    q_pos: torch.Tensor,
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_len: Optional[int] = None,
+    return_kv: bool = False,
+):
+    """One pre-norm decoder layer.  Returns (x, new_kv, aux): with
+    ``return_kv`` (prefill) the fresh K/V for the cache, with ``kv`` the
+    cache written in place by the decode token."""
+    _check_family(cfg)
+    h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+    if return_kv:
+        # Prefill: compute fresh K/V and also hand them back for the cache.
+        q = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wq"])
+        k, v = L.project_kv(lp["attn"], h)
+        q = L.apply_rope(q, q_pos, cfg.rope_theta)
+        k = L.apply_rope(k, q_pos, cfg.rope_theta)
+        attn_out = ops.flash_attention_bhsd(
+            q, k, v, causal=True, window=cfg.sliding_window
+        )
+        attn_out = torch.einsum("bshk,hkd->bsd", attn_out, lp["attn"]["wo"])
+        new_kv = (k, v)
+    else:
+        attn_out, new_kv = L.attention_block(
+            lp["attn"], h, cfg, q_pos, kv_cache=kv, cache_len=cache_len,
+        )
+    x = x + attn_out
+    h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+    x = x + L.mlp_block(lp["mlp"], h, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_kv, aux
+
+
+def _positions(s: int, device: torch.device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)
+
+
+def _tokens(tokens: Any, params: Params) -> torch.Tensor:
+    """Token ids as a long tensor on the parameters' device."""
+    device = params["embed"]["embedding"].device
+    return torch.as_tensor(tokens, device=device).long()
+
+
+# --------------------------------------------------------------------------
+# Entry points
+# --------------------------------------------------------------------------
+
+def forward(
+    params: Params, tokens: Any, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence logits (B, S, V) and the summed MoE aux loss (0 here)."""
+    tokens = _tokens(tokens, params)
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    q_pos = _positions(tokens.shape[1], x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(num_stacked(params["layers"])):
+        x, _, a = _layer_apply(layer_params(params["layers"], i), x, cfg, q_pos)
+        aux = aux + a
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x, cfg), aux
+
+
+def hidden_states(
+    params: Params, tokens: Any, cfg: ModelConfig, upto_layer: Optional[int] = None,
+) -> torch.Tensor:
+    """Hidden states after ``upto_layer`` layers (for affinity profiling)."""
+    tokens = _tokens(tokens, params)
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    q_pos = _positions(tokens.shape[1], x.device)
+    n = upto_layer if upto_layer is not None else cfg.num_layers
+    for i in range(n):
+        x, _, _ = _layer_apply(layer_params(params["layers"], i), x, cfg, q_pos)
+    return x
+
+
+def prefill(
+    params: Params, tokens: Any, cfg: ModelConfig
+) -> Tuple[torch.Tensor, KVCache]:
+    """Process a full prompt; return last-position logits + KV cache."""
+    tokens = _tokens(tokens, params)
+    s = tokens.shape[1]
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    q_pos = _positions(s, x.device)
+    ks, vs = [], []
+    for i in range(num_stacked(params["layers"])):
+        x, (k, v), _ = _layer_apply(
+            layer_params(params["layers"], i), x, cfg, q_pos, return_kv=True
+        )
+        ks.append(k)
+        vs.append(v)
+    x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg)
+    k_all, v_all = torch.stack(ks), torch.stack(vs)
+    # Sliding-window configs keep only the trailing window slots, laid out
+    # as a ring buffer (slot = position % window) to match decode_step.
+    if cfg.sliding_window is not None and s > cfg.sliding_window:
+        w = cfg.sliding_window
+        k_all = torch.roll(k_all[:, :, -w:], shifts=s % w, dims=2)
+        v_all = torch.roll(v_all[:, :, -w:], shifts=s % w, dims=2)
+    return logits[:, 0], KVCache(k=k_all, v=v_all)
+
+
+def decode_step(
+    params: Params,
+    token: Any,                 # (B,) newest token ids
+    cache: KVCache,
+    cache_len: int,             # number of tokens already cached
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step: logits (B, V) for the next position + the cache.
+
+    This token's K/V are written into ``cache`` in place, at slot
+    ``cache_len % capacity`` of every layer, and ``cache`` itself is
+    returned: the reference returns an updated copy instead, which for a
+    full-size cache would be a second cache-sized buffer per step."""
+    token = _tokens(token, params)
+    x = L.embed_tokens(params["embed"], token[:, None], cfg)  # (B,1,D)
+    q_pos = torch.full((1,), int(cache_len), dtype=torch.int32, device=x.device)
+    for i in range(num_stacked(params["layers"])):
+        x, _, _ = _layer_apply(
+            layer_params(params["layers"], i), x, cfg, q_pos,
+            kv=(cache.k[i], cache.v[i]), cache_len=int(cache_len),
+        )
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg)
+    return logits[:, 0], cache

@@ -9,6 +9,7 @@ from repro_torch.serving.batching import (
 )
 from repro_torch.serving.engine import (
     GroupExecution,
+    LMServer,
     MultitaskEngine,
     MultitaskRequest,
     MultitaskResponse,

@@ -8,9 +8,10 @@ skipped when its prerequisite's outcome says so).
 
 This slice serves one-shot batches: :meth:`MultitaskEngine.serve_batch`
 plans once and runs the planned groups in sequence — the reference's
-greedy one-shot session with no faults.  Sessions and their admission
-policies, streaming, intermittent power, adaptive gating, the mesh and the
-LM server wait for later slices.
+greedy one-shot session with no faults.  :class:`LMServer` runs batched
+prefill and greedy decode for the dense family.  Sessions and their
+admission policies, streaming, intermittent power, adaptive gating and the
+mesh wait for later slices.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from repro_torch.core.ordering import optimal_order, solve_suborder
 from repro_torch.core.types import (
     ExecutionStats, HardwareModel, TPU_V5E, TaskGateRecord,
 )
+from repro_torch.models.cache import KVCache
+from repro_torch.models.registry import ModelApi
 from repro_torch.serving.batching import (
     RequestGroup, RequestGroupScheduler, effective_order, normalize_subset,
 )
@@ -459,3 +462,53 @@ class MultitaskEngine:
 
     def serve(self, request: MultitaskRequest) -> MultitaskResponse:
         return self.serve_batch([request])[0]
+
+
+# --------------------------------------------------------------------------
+# LM serving
+# --------------------------------------------------------------------------
+
+class LMServer:
+    """Batched prefill + greedy decode (the dense family so far).
+
+    Runs on the device of ``params``; the prompt's prefill attends through
+    the flash kernel on CUDA, each decode token over the KV cache.
+    """
+
+    def __init__(self, model: ModelApi, params: Any):
+        self.model = model
+        self.params = params
+
+    def generate(self, prompts: Any, steps: int) -> np.ndarray:
+        """Greedy generation.  prompts: (B, S0) token ids.  Returns (B, steps)."""
+        _b, s0 = prompts.shape
+        total = s0 + steps
+        logits, cache = self.model.prefill(self.params, prompts)
+        # Grow the prefill cache to full capacity.
+        cache = _grow_cache(self.model, cache, total, s0)
+        out = []
+        tok = torch.argmax(logits, dim=-1)
+        cache_len = s0
+        for _ in range(steps):
+            out.append(tok.cpu().numpy().astype(np.int32))
+            logits, cache = self.model.decode_step(self.params, tok, cache, cache_len)
+            tok = torch.argmax(logits, dim=-1)
+            cache_len += 1
+        return np.stack(out, axis=1)
+
+
+def _grow_cache(model: ModelApi, cache: Any, total: int, filled: int) -> Any:
+    """Pad a prefill-sized KV cache out to ``total`` slots (zeros)."""
+    if not isinstance(cache, KVCache):
+        raise NotImplementedError(f"cache type {type(cache).__name__} is not ported yet")
+    if model.cfg.sliding_window is not None:
+        # An SWA ring never needs more than ``window`` slots; prefill's
+        # linear layout (positions < window) is already ring-consistent.
+        total = min(total, model.cfg.sliding_window)
+    t = cache.k.shape[2]
+    if t >= total:
+        return cache
+    pad = (0, 0, 0, 0, 0, total - t)  # (L, B, T, Hk, Dh): grow T only
+    return KVCache(
+        k=torch.nn.functional.pad(cache.k, pad), v=torch.nn.functional.pad(cache.v, pad)
+    )
