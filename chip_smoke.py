@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py
 
-1. Builds the port's CUDA kernels (the Pearson Gram and flash attention)
-   from the sources in this checkout, one ``nvcc`` each, started together,
-   and prints each build time.
+1. Builds the port's CUDA kernels (the Pearson Gram, flash attention and the
+   Mamba2 SSD scan) from the sources in this checkout, one ``nvcc`` each,
+   started together, and prints each build time.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones (fp32 and bf16, GQA, a sliding
-   window), timing kernel, plain version and one library call (the
-   yardstick only) with CUDA events.
+   window, head_dim 80; the SSD at both model shapes, a ragged length and
+   the reference sweep's shapes), timing kernel, plain version and, where
+   one exists, one library call (the yardstick only) with CUDA events.
 3. Drives Antler's main path on the paper's LeNet-5 at full width: affinity
    profiling of 5 random-initialised per-task networks on 512 probes,
    task-graph selection, Held-Karp and GA ordering, then
@@ -18,25 +19,34 @@
    8, sequences of 128 tokens, 256 random-token probes, 4 blocks of 2 layers.
 5. Drives ``LMServer.generate`` on the same configuration: 4 prompts of 512
    tokens, 16 greedy decode steps.
-6. Prints one ``{"kernels": [...]}`` line, then the device line last.
+6. Drives ``LMServer.generate`` on mamba2-780m at full width and depth (48
+   layers, bf16): 4 prompts of 2048 tokens, 32 greedy steps; then on
+   zamba2-2.7b at full width and depth (54 layers, bf16): 4 prompts of 1024
+   tokens, 16 steps.
+7. Runs the serve launcher (``repro_torch.launch.serve``) in-process on
+   mamba2-780m for a few steps; it prints its tokens/s line.
+8. Prints one ``{"kernels": [...]}`` line, then the device line last.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the script checks that the kernels ran where the path runs
 them (Pearson 15 times per profile; flash attention 30 times in the
 transformer profile, twice per executed block in serving, 8 times in the
-prefill), that served counters equal the cost model's prediction field for
-field, that served outputs match the per-block executor, that Antler beats
-Vanilla, and that the first decode step agrees with ``forward``.  Any failed
-check raises.
+prefill, 9 times in zamba2's; the SSD once per Mamba2 layer of a prefill,
+48 and 54, and never in decode), that served counters equal the cost
+model's prediction field for field, that served outputs match the
+per-block executor, that Antler beats Vanilla, and that the first decode
+step agrees with ``forward``.  Any failed check raises.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  TF32 is switched off for matmuls and cuDNN:
-the checks hold fp32 to 1e-5 and 2e-5.
+the checks hold fp32 to 1e-5, 2e-5 and 2e-4.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import statistics
 import subprocess
@@ -66,8 +76,10 @@ from repro_torch.kernels.pearson_affinity import (  # noqa: E402
     SOURCE as PEARSON_SOURCE, pearson_dissimilarity,
 )
 from repro_torch.kernels.ref import (  # noqa: E402
-    flash_attention_bhsd_ref, flash_attention_ref, pearson_dissimilarity_ref,
+    flash_attention_bhsd_ref, flash_attention_ref, pearson_dissimilarity_ref, ssd_scan_ref,
 )
+from repro_torch.kernels.ssd_scan import SOURCE as SSD_SOURCE, ssd_scan  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models.cnn import build_lenet5_blocks  # noqa: E402
 from repro_torch.models.multitask import (  # noqa: E402
     _split_layers, build_cnn_program, build_transformer_program,
@@ -99,7 +111,7 @@ TF_TOL = 5e-2  # bf16 activations: served vs per-block, decode vs forward
 # Flash shapes of the main paths, model layout (B, S, Hq, Hk, d), bf16 causal:
 # a serving group of 16, the LM prefill, the profile's probe batch.
 FLASH_MAIN = (("serve_group", 16, 128, 32, 8, 160), ("lm_prefill", 4, 512, 32, 8, 160),
-              ("profile", 256, 128, 32, 8, 160))
+              ("profile", 256, 128, 32, 8, 160), ("zamba2_prefill", 4, 1024, 32, 32, 80))
 # Ragged and windowed checks: (layout, B, S, T, Hq, Hk, d, causal, window).
 FLASH_RAGGED = (
     ("flat", 4, 70, 70, 1, 1, 32, True, None),
@@ -110,7 +122,26 @@ FLASH_RAGGED = (
     ("bhsd", 2, 300, 300, 4, 2, 64, True, 24),
     ("bhsd", 1, 200, 200, 4, 1, 128, False, 40),
     ("bhsd", 2, 150, 150, 32, 8, 160, True, 24),
+    ("bhsd", 4, 1024, 1024, 32, 32, 80, True, None),  # zamba2's prefill, fp32 too
 )
+
+# The SSM paths at full width and depth: (arch, batch, prompt, steps).
+MAMBA2 = ("mamba2-780m", 4, 2048, 32)
+ZAMBA2 = ("zamba2-2.7b", 4, 1024, 16)
+SSM_CHECK_BATCH = 2  # rows of the decode-vs-forward check
+LAUNCHER_STEPS = 4
+# SSD scan shapes (path, B, S, H, P, N, chunk, dtype): the two model
+# prefills (x, B and C views of one conv output, as in the model), a ragged
+# length, the reference sweep's shapes (tests/test_kernels.py).
+SSD_SHAPES = (
+    ("mamba2_prefill", 4, 2048, 48, 64, 128, 64, torch.bfloat16),
+    ("zamba2_prefill", 4, 1024, 80, 64, 64, 256, torch.bfloat16),
+    ("ragged", 2, 200, 4, 64, 128, 64, torch.float32),
+    ("sweep", 2, 24, 2, 4, 8, 8, torch.float32),
+    ("sweep", 2, 50, 3, 8, 4, 16, torch.float32),
+    ("sweep", 2, 64, 4, 16, 16, 32, torch.float32),
+)
+SSD_FP32_TOL, SSD_BF16_TOL = 2e-4, 5e-2  # abs and rel: the reference sweep's
 
 
 def check(ok: bool, what: str) -> None:
@@ -168,12 +199,14 @@ def pearson_bound(k: int, f: int) -> dict:
 
 def launch_counts() -> dict:
     return {"pearson_gram": pearson_dissimilarity.launches,
-            "flash_attention": flash_attention.launches}
+            "flash_attention": flash_attention.launches,
+            "ssd_scan": ssd_scan.launches}
 
 
 def reset_launch_counts() -> None:
     pearson_dissimilarity.launches = 0
     flash_attention.launches = 0
+    ssd_scan.launches = 0
 
 
 def free_memory() -> None:
@@ -201,7 +234,7 @@ def build_kernels() -> dict:
         _build.build(source)
         return time.perf_counter() - t0
 
-    sources = (PEARSON_SOURCE, FLASH_SOURCE)
+    sources = (PEARSON_SOURCE, FLASH_SOURCE, SSD_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {src: pool.submit(timed, src) for src in sources}
         return {src: f.result() for src, f in futures.items()}
@@ -517,6 +550,80 @@ def flash_phase(device: torch.device) -> dict:
 
 
 # --------------------------------------------------------------------------
+# The SSD scan
+# --------------------------------------------------------------------------
+
+def ssd_bound(b: int, s: int, h: int, p: int, n: int, q: int, dtype: torch.dtype) -> dict:
+    """Least time on the card for one chunked SSD: B nc [2 Qc N + H (2 Qc P
+    + 4 Q N P)] operations (causal pairs only, Qc = Q (Q + 1) / 2) at the
+    peak of the input type, against x, dt, a, B, C read once and y and the
+    final state (fp32) written once."""
+    nc, qc = -(-s // q), q * (q + 1) // 2
+    ops_count = b * nc * (2 * qc * n + h * (2 * qc * p + 4 * q * n * p))
+    peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else FP32_PEAK_FLOPS
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = es * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h + b * h * p * n)
+    ops_ms = ops_count / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "operations": ops_count, "bytes": nbytes}
+
+
+def ssd_inputs(rng, b, s, h, p, n, dtype, device):
+    """x, B and C as views of one (B, S, H P + 2 N) conv output, as the model
+    makes them; dt = softplus(normal) and a = -exp(normal) in fp32, the
+    reference sweep's distributions."""
+    conv = _randn(rng, (b, s, h * p + 2 * n), dtype, device)
+    xin, bb, cc = torch.split(conv, [h * p, n, n], dim=-1)
+    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), torch.float32, device))
+    a = -torch.exp(_randn(rng, (h,), torch.float32, device))
+    return xin.reshape(b, s, h, p), dt, a, bb, cc
+
+
+def ssd_phase(device: torch.device) -> dict:
+    """SSD kernel vs its plain version at every listed shape: y and the
+    final state within the tolerance (abs + rel), timed at every shape.  No
+    single PyTorch call computes the SSD, so there is no library time."""
+    rng = np.random.default_rng(3)
+    rows, max_err = [], 0.0
+    for path, b, s, h, p, n, q, dtype in SSD_SHAPES:
+        x, dt, a, bb, cc = ssd_inputs(rng, b, s, h, p, n, dtype, device)
+        y, fin = ops.ssd_scan(x, dt, a, bb, cc, q)
+        ry, rfin = ssd_scan_ref(x, dt, a, bb, cc, q)
+        torch.cuda.synchronize()
+        tol = SSD_BF16_TOL if dtype == torch.bfloat16 else SSD_FP32_TOL
+        what = f"ssd {path} B {b} S {s} H {h} P {p} N {n} chunk {q} {dtype}"
+        check(y.dtype == dtype and y.shape == x.shape and fin.shape == rfin.shape,
+              f"{what}: output dtype/shape")
+        for got, want, name in ((y.float(), ry.float(), "y"), (fin, rfin, "final state")):
+            check(bool(torch.isfinite(got).all()), f"{what}: non-finite {name}")
+            excess = float(((got - want).abs() - tol * (1 + want.abs())).max())
+            check(excess <= 0, f"{what}: {name} beyond {tol} abs + rel by {excess}")
+        err = float((y.float() - ry.float()).abs().max())
+        max_err = max(max_err, err)
+        big = s >= 1024
+        row = {
+            "kernel": "ssd_scan", "path": path, "shape": [b, s, h, p, n, q],
+            "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err": err, "max_abs_err_final": float((fin - rfin).abs().max()),
+            "max_abs_y": float(ry.float().abs().max()),
+            "kernel_ms": cuda_ms(lambda: ops.ssd_scan(x, dt, a, bb, cc, q), reps=20 if big else 50),
+            "plain_ms": cuda_ms(lambda: ssd_scan_ref(x, dt, a, bb, cc, q), reps=5 if big else 20,
+                                warmup=1 if big else 5),
+            "library_ms": None,
+            **ssd_bound(b, s, h, p, n, q, dtype),
+            "peak": ("bf16 tensor cores 989 TFLOP/s" if dtype == torch.bfloat16 else
+                     "fp32 CUDA cores 67 TFLOP/s") + ", HBM 3.35 TB/s (H100 SXM data sheet)",
+        }
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del x, dt, a, bb, cc, y, fin, ry, rfin
+        free_memory()
+    return {"rows": rows, "max_abs_err": max_err}
+
+
+# --------------------------------------------------------------------------
 # The transformer paths
 # --------------------------------------------------------------------------
 
@@ -616,10 +723,12 @@ def transformer_pipeline_phase(
 
 def lm_phase(
     device: torch.device, cfg, batch: int = LM_BATCH, prompt_len: int = LM_PROMPT,
-    steps: int = LM_STEPS,
+    steps: int = LM_STEPS, check_batch=None,
 ) -> dict:
-    """``LMServer.generate`` on ``transformer.init`` of ``cfg``; then the
-    first decode step against ``forward`` over the prompt plus its token."""
+    """``LMServer.generate`` on ``model.init`` of ``cfg``; then one prefill
+    and one decode step with their launch counts, and the first decode step
+    against ``forward`` over the prompt plus its token (on the first
+    ``check_batch`` rows, all by default)."""
     laps = Laps(device)
     reset_peak(device)
     gen_device = device if device.type == "cuda" else torch.device("cpu")
@@ -634,26 +743,36 @@ def lm_phase(
     sync(device)
     launches = launch_counts()
     laps.lap("generate")
+    generate_gb = peak_gb(device)
     check(tokens.shape == (batch, steps), f"generated shape {tokens.shape}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token ids out of range")
 
+    reset_launch_counts()
     logits0, cache = model.prefill(params, prompts)
+    sync(device)
+    prefill_launches = launch_counts()
     tok = torch.argmax(logits0, dim=-1)
     check(np.array_equal(tok.cpu().numpy(), tokens[:, 0]), "first token differs from generate")
     cache = _grow_cache(model, cache, prompt_len + steps, prompt_len)
+    reset_launch_counts()
     step_logits, _cache = model.decode_step(params, tok, cache, prompt_len)
-    full, _aux = model.forward(
-        params, torch.cat([torch.as_tensor(prompts, device=device).long(), tok[:, None]], 1))
+    sync(device)
+    decode_launches = launch_counts()
+    rows = batch if check_batch is None else check_batch
+    full, _aux = model.forward(params, torch.cat(
+        [torch.as_tensor(prompts[:rows], device=device).long(), tok[:rows, None]], 1))
     ref = full[:, -1].float()
-    err = float((step_logits.float() - ref).abs().max())
+    del full
+    err = float((step_logits[:rows].float() - ref).abs().max())
     scale = float(ref.abs().max())
     check(bool(torch.isfinite(step_logits).all()), "non-finite decode logits")
     check(err <= TF_TOL * scale,
           f"decode vs forward: max abs err {err} > {TF_TOL} x max |logit| {scale}")
     laps.lap("check")
     result = {"tokens": tokens, "launches": launches, "laps": laps.seconds,
-              "decode_vs_forward_err": err, "max_abs_logit": scale,
-              "mem_gb": peak_gb(device)}
+              "prefill_launches": prefill_launches, "decode_launches": decode_launches,
+              "decode_vs_forward_err": err, "max_abs_logit": scale, "check_rows": rows,
+              "generate_gb": generate_gb, "mem_gb": peak_gb(device)}
     if device.type == "cuda":
         result["prefill_ms"] = cuda_ms(lambda: model.prefill(params, prompts), reps=5, warmup=1)
         result["decode_step_ms"] = cuda_ms(
@@ -668,10 +787,60 @@ def lm_phase(
     return result
 
 
+def ssm_lm_phase(device: torch.device, cfg, batch: int, prompt_len: int, steps: int) -> dict:
+    """``lm_phase`` on an SSM or hybrid config, checking that a prefill
+    launches the SSD kernel once per Mamba2 layer and flash once per
+    shared-attention invocation, and that decode launches neither (on the
+    card; every count stays 0 on the CPU, where the plain versions run)."""
+    res = lm_phase(device, cfg, batch, prompt_len, steps, check_batch=SSM_CHECK_BATCH)
+    n_flash = cfg.num_layers // cfg.hybrid_attn_period if cfg.family == "hybrid" else 0
+    expected = {"pearson_gram": 0, "flash_attention": n_flash, "ssd_scan": cfg.num_layers}
+    if device.type != "cuda":
+        expected = dict.fromkeys(expected, 0)
+    for name, got in (("generate", res["launches"]), ("prefill", res["prefill_launches"])):
+        check(got == expected, f"{cfg.name} {name}: launches {got}, expected {expected} "
+              f"(one prefill: SSD once per Mamba2 layer, flash once per invocation)")
+    check(not any(res["decode_launches"].values()),
+          f"{cfg.name}: a decode step launched {res['decode_launches']}")
+    print(json.dumps({
+        "ssm_lm": {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch,
+                   "prompt": prompt_len, "steps": steps, "launches": res["launches"],
+                   "decode_launches": res["decode_launches"],
+                   "prefill_ms": res.get("prefill_ms"),
+                   "decode_step_ms": res.get("decode_step_ms"),
+                   "decode_vs_forward_err": res["decode_vs_forward_err"],
+                   "max_abs_logit": res["max_abs_logit"], "check_rows": res["check_rows"],
+                   "seconds": res["laps"], "peak_memory_gb_generate": res["generate_gb"],
+                   "peak_memory_gb": res["mem_gb"], "tokens_row0": res["tokens"][0].tolist()},
+    }), flush=True)
+    if "trace" in res:
+        print(json.dumps({"ssm_lm_trace": {"arch": cfg.name, **res["trace"]}}), flush=True)
+    return res
+
+
+def launcher_phase(arch: str, steps: int = LAUNCHER_STEPS, extra_args=()) -> dict:
+    """``python -m repro_torch.launch.serve --arch <arch> --steps <steps>``,
+    in-process (on the card, at the full config, unless ``extra_args`` say
+    otherwise): its tokens/s line is printed and checked, with the launches
+    of its one prefill."""
+    argv = ["--arch", arch, "--steps", str(steps), *extra_args]
+    buf = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        out = serve_launcher.main(argv)
+    launches = launch_counts()
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    check("tok/s" in text, f"the launcher printed no tokens/s line: {text!r}")
+    check(out.shape[1] == steps, f"launcher generated {out.shape}")
+    return {"launches": launches, "line": text.splitlines()[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -689,6 +858,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = kernel_phase(device)
     flash = flash_phase(device)
+    ssd = ssd_phase(device)
     print(json.dumps({"kernel_checks_seconds": time.perf_counter() - t0}), flush=True)
 
     # LeNet-5: profile -> select -> order -> serve.
@@ -748,10 +918,28 @@ def main() -> int:
                "peak_memory_gb": lm["mem_gb"], "tokens_row0": lm["tokens"][0].tolist()},
     }), flush=True)
     print(json.dumps({"lm_trace": lm["trace"]}), flush=True)
+    free_memory()
+
+    # mamba2-780m and zamba2-2.7b at full width and depth: LMServer prefill
+    # + greedy decode; then the serve launcher on mamba2-780m.
+    mamba = ssm_lm_phase(device, get_config(MAMBA2[0]), *MAMBA2[1:])
+    free_memory()
+    zamba = ssm_lm_phase(device, get_config(ZAMBA2[0]), *ZAMBA2[1:])
+    free_memory()
+    launcher = launcher_phase(MAMBA2[0])
+    check(launcher["launches"]["ssd_scan"] == get_config(MAMBA2[0]).num_layers,
+          f"launcher: SSD launched {launcher['launches']['ssd_scan']} times")
+    print(json.dumps({"launcher": launcher}), flush=True)
+    print(json.dumps({"smoke_seconds": time.perf_counter() - t_start}), flush=True)
 
     pearson_row = kernels["rows"][0]
     transformer_pearson_row = next(r for r in kernels["rows"] if r["K"] == TF_PROBES)
     flash_row = flash["rows"][0]
+    ssd_main = [r for r in ssd["rows"] if r["path"] in ("mamba2_prefill", "zamba2_prefill")]
+    ssd_by_path = {"mamba2_prefill": mamba["launches"]["ssd_scan"],
+                   "zamba2_prefill": zamba["launches"]["ssd_scan"],
+                   "launcher": launcher["launches"]["ssd_scan"]}
+    timed = ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{
         "name": "pearson_gram",
         "route": "cuda",
@@ -767,20 +955,20 @@ def main() -> int:
         "bound_by": pearson_row["bound_by"],
         "library_ms": pearson_row["library_ms"],
         "shape": [pearson_row["K"], pearson_row["F"]],
-        "by_path": {path: {"shape": [r["K"], r["F"]], **{k: r[k] for k in (
-            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
-            for path, r in (("lenet_profile", pearson_row),
-                            ("transformer_profile", transformer_pearson_row))},
+        "by_path": {path: {"shape": [r["K"], r["F"]], **{k: r[k] for k in timed}}
+                    for path, r in (("lenet_profile", pearson_row),
+                                    ("transformer_profile", transformer_pearson_row))},
     }, {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:113",
         "launches": (prof["flash_attention"] + serve["flash_attention"]
-                     + lm["launches"]["flash_attention"]),
+                     + lm["launches"]["flash_attention"] + zamba["launches"]["flash_attention"]),
         "launches_by_path": {"transformer_profile": prof["flash_attention"],
                              "transformer_serve": serve["flash_attention"],
-                             "lm_prefill": lm["launches"]["flash_attention"]},
+                             "lm_prefill": lm["launches"]["flash_attention"],
+                             "zamba2_prefill": zamba["launches"]["flash_attention"]},
         "max_abs_err": flash["max_abs_err"],
         "ms": flash_row["kernel_ms"],
         "plain_ms": flash_row["plain_ms"],
@@ -788,10 +976,23 @@ def main() -> int:
         "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"],
         "shape": flash_row["shape"],
-        "by_path": {r["path"]: {k: r[k] for k in (
-            "shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            for r in flash["rows"]},
-    }]}), flush=True)
+        "by_path": {r["path"]: {k: r[k] for k in ("shape", *timed)} for r in flash["rows"]},
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:100",
+        "launches": sum(ssd_by_path.values()),
+        "launches_by_path": ssd_by_path,
+        "max_abs_err": ssd["max_abs_err"],
+        "ms": ssd_main[0]["kernel_ms"],
+        "plain_ms": ssd_main[0]["plain_ms"],
+        "bound_ms": ssd_main[0]["bound_ms"],
+        "bound_by": ssd_main[0]["bound_by"],
+        "library_ms": None,
+        "shape": ssd_main[0]["shape"],
+        "by_path": {r["path"]: {k: r[k] for k in ("shape", *timed)} for r in ssd_main},
+    }], "launch_counts": launch_counts()}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

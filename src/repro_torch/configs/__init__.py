@@ -13,18 +13,19 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-# canonical id -> module name (the dense decoder family)
+# canonical id -> module name (the dense decoder, SSM and hybrid families)
 _ARCHS = {
     "granite-34b": "granite_34b",
     "granite-20b": "granite_20b",
     "nemotron-4-340b": "nemotron_4_340b",
     "mistral-nemo-12b": "mistral_nemo_12b",
+    "mamba2-780m": "mamba2_780m",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 # The rest of the reference's zoo, whose families come with later slices.
 _NOT_YET_PORTED = (
     "whisper-medium", "chameleon-34b", "qwen2-moe-a2.7b", "mixtral-8x22b",
-    "mamba2-780m", "zamba2-2.7b",
 )
 
 

@@ -18,9 +18,10 @@
 // copy.  Query head h reads KV head h / (Hq / Hk): GQA without repeating K/V.
 //
 // Bound on an H100: 4 * (allowed q-k pairs) * d operations per head against
-// q, k, v and o read or written once.  At the main path's shapes (S = 128 or
-// 512, d = 160, bf16, GQA 32/8) that is ~50-210 operations a byte, below the
-// card's ~295 at the bf16 tensor-core peak, so the bytes bound it; the
+// q, k, v and o read or written once.  At the main paths' shapes (S = 128 or
+// 512, d = 160, bf16, GQA 32/8; zamba2-2.7b's prefill, S = 1024, d = 80,
+// 32/32 heads) that is ~50-260 operations a byte, below the card's ~295 at
+// the bf16 tensor-core peak, so the bytes bound it; the
 // kernel, on the CUDA cores, is far from either.  Design, simple and right
 // first:
 //   * one block of 256 threads per (batch*head, 64-query tile), batch*head
@@ -240,6 +241,7 @@ int dispatch_dim(const Args& a, int batch, int d, cudaStream_t stream) {
     case 16: return launch<T, 16>(a, batch, stream);
     case 32: return launch<T, 32>(a, batch, stream);
     case 64: return launch<T, 64>(a, batch, stream);
+    case 80: return launch<T, 80>(a, batch, stream);
     case 128: return launch<T, 128>(a, batch, stream);
     case 160: return launch<T, 160>(a, batch, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,8 @@
 """Flash attention: online-softmax attention, causal and/or sliding-window.
 
-The attention of every layer of the dense transformer family, on full
-sequences (the multitask program's blocks and the LM server's prefill).  On
+The attention of every layer of the dense transformer family and the
+hybrid family's shared attention block, on full sequences (the multitask
+program's blocks, the models' ``forward`` and the LM server's prefill).  On
 CUDA tensors it launches the hand-written kernel in
 ``csrc/flash_attention.cu``, which replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention`` and the ``jnp.repeat``
@@ -10,8 +11,9 @@ of its GQA wrapper.  On CPU tensors it runs the plain version,
 route.
 
 Bound on an H100: 4 * (allowed query-key pairs) * d operations per head
-against q, k, v and o moved once — at the main path's shapes (S = 128 or 512,
-d = 160, bf16, GQA 32/8) the bytes bound it under the bf16 tensor-core peak.
+against q, k, v and o moved once — at the main paths' shapes (S = 128 or 512,
+d = 160, bf16, GQA 32/8; S = 1024, d = 80, 32/32 heads for zamba2-2.7b) the
+bytes bound it under the bf16 tensor-core peak.
 The kernel computes in fp32 on the CUDA cores, keeps the score tile, the
 running max and sum and the accumulator on chip in fp32, maps query head h
 to KV head h / (Hq / Hk) instead of repeating K/V, reads both the model
@@ -30,7 +32,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 128, 160)
+HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

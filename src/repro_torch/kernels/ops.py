@@ -1,13 +1,14 @@
 """Public wrappers around the port's kernels."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_bhsd_kernel
 from repro_torch.kernels.pearson_affinity import pearson_dissimilarity
 from repro_torch.kernels.ref import flash_attention_bhsd_ref
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 
 
 def standardize_rows(feats: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -41,3 +42,15 @@ def flash_attention_bhsd(
     if q.device.type == "cpu":
         return flash_attention_bhsd_ref(q, k, v, causal=causal, window=window)
     return flash_attention_bhsd_kernel(q, k, v, causal=causal, window=window)
+
+
+def ssd_scan(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+    b_in: torch.Tensor, c_in: torch.Tensor, chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 chunked SSD (``repro/kernels/ops.py::ssd_scan``): ``x``
+    (B, S, H, P), ``dt`` (B, S, H) fp32, ``a`` (H,) fp32, ``b_in``/``c_in``
+    (B, S, N); returns (y (B, S, H, P) in ``x``'s dtype, final state
+    (B, H, P, N) fp32).  A CUDA input launches the SSD kernel, which reads
+    x, B and C through their strides; a CPU input runs the plain version."""
+    return _ssd_scan(x, dt, a, b_in, c_in, chunk)

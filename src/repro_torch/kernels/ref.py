@@ -6,7 +6,7 @@ on the card.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,3 +64,22 @@ def flash_attention_bhsd_ref(
     vf = v.transpose(1, 2).reshape(b * hk, -1, d)
     of = flash_attention_ref(qf, kf, vf, causal=causal, window=window)
     return of.reshape(b, hq, s, d).transpose(1, 2)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+    b_in: torch.Tensor, c_in: torch.Tensor, chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD in plain PyTorch from a zero state: the port's
+    :func:`repro_torch.models.ssm.ssd_chunked`, which the SSM model module
+    owns (imported here at call time: that module imports the kernels)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    return ssd_chunked(x, dt, a, b_in, c_in, chunk)
+
+
+def ssd_sequential(x, dt, a, b_in, c_in):
+    """The per-step recurrence, the oracle of the chunked form."""
+    from repro_torch.models.ssm import ssd_sequential_ref
+
+    return ssd_sequential_ref(x, dt, a, b_in, c_in)

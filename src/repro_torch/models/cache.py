@@ -1,12 +1,12 @@
-"""Decode-time KV caches, the PyTorch port of the attention part of
-``repro.models.cache``.
+"""Decode-time caches, the PyTorch port of ``repro.models.cache``: the KV
+cache of the attention families, the SSM cache of Mamba2 and the hybrid
+cache of Zamba2.
 
 A sliding-window config keeps a ring buffer of ``window`` slots, which is
 what makes long-context decode feasible for SWA architectures (the cache is
 O(window), not O(seq)).  Where the reference describes a cache abstractly
 with ``ShapeDtypeStruct``s, the port uses tensors on the ``meta`` device.
-The SSM, hybrid and enc-dec caches come with their families; the sharding
-spec with the mesh.
+The enc-dec cache comes with its family; the sharding specs with the mesh.
 """
 from __future__ import annotations
 
@@ -59,4 +59,69 @@ def kv_cache_zeros(
     return KVCache(
         k=torch.zeros(s.k.shape, dtype=s.k.dtype, device=device),
         v=torch.zeros(s.v.shape, dtype=s.v.dtype, device=device),
+    )
+
+
+@dataclasses.dataclass
+class SSMCache:
+    """Mamba2 decode state: conv ring + SSD state, stacked over layers.
+
+    ``conv``: (L, B, W-1, conv_dim) last inputs for the causal conv.
+    ``state``: (L, B, H, P, N) SSD recurrent state (fp32).
+    """
+
+    conv: torch.Tensor
+    state: torch.Tensor
+
+
+def ssm_cache_shape(cfg: ModelConfig, batch: int, layers: Optional[int] = None) -> SSMCache:
+    layers = layers if layers is not None else cfg.num_layers
+    conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state
+    return SSMCache(
+        conv=torch.empty(
+            (layers, batch, cfg.ssm_conv_width - 1, conv_dim),
+            dtype=cfg.activation_dtype(), device="meta",
+        ),
+        state=torch.empty(
+            (layers, batch, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state),
+            dtype=torch.float32, device="meta",
+        ),
+    )
+
+
+def ssm_cache_zeros(
+    cfg: ModelConfig, batch: int, layers: Optional[int] = None, *, device: DeviceLike = None,
+) -> SSMCache:
+    """A zero SSM cache on ``device`` (``cuda`` unless the caller names another)."""
+    device = resolve_device(device)
+    s = ssm_cache_shape(cfg, batch, layers)
+    return SSMCache(conv=torch.zeros_like(s.conv, device=device),
+                    state=torch.zeros_like(s.state, device=device))
+
+
+@dataclasses.dataclass
+class HybridCache:
+    """Zamba2 decode state: SSM caches for every Mamba2 layer + KV caches for
+    each invocation of the globally-shared attention block."""
+
+    ssm: SSMCache
+    kv: KVCache
+
+
+def hybrid_cache_shape(cfg: ModelConfig, batch: int, seq_len: int) -> HybridCache:
+    n_inv = cfg.num_layers // cfg.hybrid_attn_period
+    return HybridCache(
+        ssm=ssm_cache_shape(cfg, batch, layers=cfg.num_layers),
+        kv=kv_cache_shape(cfg, batch, seq_len, layers=n_inv),
+    )
+
+
+def hybrid_cache_zeros(
+    cfg: ModelConfig, batch: int, seq_len: int, *, device: DeviceLike = None,
+) -> HybridCache:
+    """A zero hybrid cache on ``device`` (``cuda`` unless the caller names another)."""
+    n_inv = cfg.num_layers // cfg.hybrid_attn_period
+    return HybridCache(
+        ssm=ssm_cache_zeros(cfg, batch, layers=cfg.num_layers, device=device),
+        kv=kv_cache_zeros(cfg, batch, seq_len, layers=n_inv, device=device),
     )

@@ -269,10 +269,16 @@ def _tree_from_numpy(tree: Any, device: torch.device) -> Any:
 def params_from_reference(
     cfg: ModelConfig, params: Mapping[str, Any], *, device: DeviceLike = None
 ) -> Params:
-    """The reference ``transformer.init`` tree (numpy leaves) as the port's
-    params: the same layouts, stacked layers included, so it carries over
-    leaf for leaf."""
-    T._check_family(cfg)
+    """The reference's ``init`` tree (numpy leaves) of a dense, SSM or hybrid
+    model, or of one of its modules, as the port's params: the same layouts
+    — stacked layers, the hybrid's two-level (n_inv, period, ...) Mamba2
+    stack and its optional ``inv_lora`` included — so it carries over leaf
+    for leaf."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; repro_torch runs the dense, "
+            "ssm and hybrid families"
+        )
     return _tree_from_numpy(params, resolve_device(device))
 
 

@@ -11,12 +11,14 @@ architecture:
   decode_step(params, token, cache, n)   -> (logits, cache)
   cache_shape(batch, seq_len)            -> cache of meta tensors
 
-Unlike the reference, which returns an updated copy, ``decode_step`` writes
-the token's K/V into ``cache`` in place (slot ``n % capacity`` of every
-layer) and returns that same object.
+Unlike the reference, which returns an updated copy, ``decode_step``
+updates ``cache`` in place (the token's K/V at slot ``n % capacity`` of
+every attention layer, every Mamba2 layer's conv window and SSD state) and
+returns that same object.
 
 The reference's sharding members (``param_specs``, ``cache_spec``) come
-with the mesh.  The dense family is ported; the others raise.
+with the mesh.  The dense, SSM and hybrid families are ported; the others
+raise.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.models import cache as C
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, ssm, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -51,9 +53,34 @@ def _transformer_api(cfg: ModelConfig) -> ModelApi:
     )
 
 
+def _ssm_api(cfg: ModelConfig) -> ModelApi:
+    return ModelApi(
+        cfg=cfg,
+        init=lambda generator, device=None: ssm.init(generator, cfg, device),
+        forward=lambda p, tokens: ssm.forward(p, tokens, cfg),
+        prefill=lambda p, tokens: ssm.prefill(p, tokens, cfg),
+        decode_step=lambda p, tok, cache, n: ssm.decode_step(p, tok, cache, n, cfg),
+        cache_shape=lambda batch, seq_len: C.ssm_cache_shape(cfg, batch),
+    )
+
+
+def _hybrid_api(cfg: ModelConfig) -> ModelApi:
+    return ModelApi(
+        cfg=cfg,
+        init=lambda generator, device=None: hybrid.init(generator, cfg, device),
+        forward=lambda p, tokens: hybrid.forward(p, tokens, cfg),
+        prefill=lambda p, tokens: hybrid.prefill(p, tokens, cfg),
+        decode_step=lambda p, tok, cache, n: hybrid.decode_step(p, tok, cache, n, cfg),
+        cache_shape=lambda batch, seq_len: C.hybrid_cache_shape(cfg, batch, seq_len),
+    )
+
+
+_FAMILIES = {"dense": _transformer_api, "ssm": _ssm_api, "hybrid": _hybrid_api}
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family == "dense":
-        return _transformer_api(cfg)
-    if cfg.family in ("vlm", "moe", "ssm", "hybrid", "encdec"):
+    if cfg.family in _FAMILIES:
+        return _FAMILIES[cfg.family](cfg)
+    if cfg.family in ("vlm", "moe", "encdec"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -28,7 +28,7 @@ from repro_torch.core.ordering import optimal_order, solve_suborder
 from repro_torch.core.types import (
     ExecutionStats, HardwareModel, TPU_V5E, TaskGateRecord,
 )
-from repro_torch.models.cache import KVCache
+from repro_torch.models.cache import HybridCache, KVCache, SSMCache
 from repro_torch.models.registry import ModelApi
 from repro_torch.serving.batching import (
     RequestGroup, RequestGroupScheduler, effective_order, normalize_subset,
@@ -469,10 +469,12 @@ class MultitaskEngine:
 # --------------------------------------------------------------------------
 
 class LMServer:
-    """Batched prefill + greedy decode (the dense family so far).
+    """Batched prefill + greedy decode (the dense, SSM and hybrid families).
 
-    Runs on the device of ``params``; the prompt's prefill attends through
-    the flash kernel on CUDA, each decode token over the KV cache.
+    Runs on the device of ``params``.  On CUDA the prompt's prefill attends
+    through the flash kernel and runs each Mamba2 SSD through the SSD
+    kernel; each decode token attends over the KV cache and steps the SSM
+    recurrence.
     """
 
     def __init__(self, model: ModelApi, params: Any):
@@ -484,7 +486,7 @@ class LMServer:
         _b, s0 = prompts.shape
         total = s0 + steps
         logits, cache = self.model.prefill(self.params, prompts)
-        # Grow the prefill cache to full capacity.
+        # Grow the prefill cache to full capacity (KV families only).
         cache = _grow_cache(self.model, cache, total, s0)
         out = []
         tok = torch.argmax(logits, dim=-1)
@@ -497,18 +499,29 @@ class LMServer:
         return np.stack(out, axis=1)
 
 
-def _grow_cache(model: ModelApi, cache: Any, total: int, filled: int) -> Any:
-    """Pad a prefill-sized KV cache out to ``total`` slots (zeros)."""
-    if not isinstance(cache, KVCache):
-        raise NotImplementedError(f"cache type {type(cache).__name__} is not ported yet")
-    if model.cfg.sliding_window is not None:
-        # An SWA ring never needs more than ``window`` slots; prefill's
-        # linear layout (positions < window) is already ring-consistent.
-        total = min(total, model.cfg.sliding_window)
-    t = cache.k.shape[2]
+def _grow_kv(kv: KVCache, total: int) -> KVCache:
+    """Pad a KV cache's T axis out to ``total`` slots (zeros)."""
+    t = kv.k.shape[2]
     if t >= total:
-        return cache
+        return kv
     pad = (0, 0, 0, 0, 0, total - t)  # (L, B, T, Hk, Dh): grow T only
     return KVCache(
-        k=torch.nn.functional.pad(cache.k, pad), v=torch.nn.functional.pad(cache.v, pad)
+        k=torch.nn.functional.pad(kv.k, pad), v=torch.nn.functional.pad(kv.v, pad)
     )
+
+
+def _grow_cache(model: ModelApi, cache: Any, total: int, filled: int) -> Any:
+    """Grow a prefill-sized cache to ``total`` positions: a KV cache (or the
+    KV part of a hybrid cache) gets zero slots; an SSM cache, a fixed-size
+    summary, stays as it is."""
+    if isinstance(cache, KVCache):
+        if model.cfg.sliding_window is not None:
+            # An SWA ring never needs more than ``window`` slots; prefill's
+            # linear layout (positions < window) is already ring-consistent.
+            total = min(total, model.cfg.sliding_window)
+        return _grow_kv(cache, total)
+    if isinstance(cache, SSMCache):
+        return cache
+    if isinstance(cache, HybridCache):
+        return HybridCache(ssm=cache.ssm, kv=_grow_kv(cache.kv, total))
+    raise NotImplementedError(f"cache type {type(cache).__name__} is not ported yet")

@@ -8,15 +8,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch._device import tree_map
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import TaskGraph, TaskGraphExecutor
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.pearson_affinity import pearson_dissimilarity
 from repro_torch.kernels.ref import (
-    flash_attention_bhsd_ref, flash_attention_ref, pearson_dissimilarity_ref,
+    flash_attention_bhsd_ref, flash_attention_ref, pearson_dissimilarity_ref, ssd_scan_ref,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.multitask import build_cnn_program, build_transformer_program
+from repro_torch.models.registry import get_model
+from repro_torch.serving import LMServer
 
 pytestmark = pytest.mark.cuda
 
@@ -78,6 +82,7 @@ FLASH_CASES = [
     (2, 2, 40, 40, 128, False, None),
     (8, 2, 200, 200, 160, True, 24),
     (3, 1, 1, 65, 160, False, None),
+    (8, 8, 130, 130, 80, True, None),
 ]
 
 
@@ -149,3 +154,106 @@ def test_default_device_transformer_program_runs_on_the_card(cuda):
     for t in (0, 1):
         assert fused[t].shape == (4, 1, 4)
         torch.testing.assert_close(fused[t], blocks[t], rtol=0, atol=1e-5)
+
+
+# (batch, s, h, p, n, chunk): the model shapes (mamba2-780m, zamba2-2.7b) at
+# short lengths, a ragged length, the smoke configs' and the reference
+# sweep's shapes.
+SSD_CASES = [
+    (2, 300, 4, 64, 128, 64), (2, 600, 3, 64, 64, 256), (2, 200, 4, 64, 128, 64),
+    (2, 45, 4, 32, 16, 32), (2, 24, 2, 4, 8, 8), (2, 50, 3, 8, 4, 16), (2, 64, 4, 16, 16, 32),
+]
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, device, seed):
+    """x, B and C as views of one conv output, as the model makes them;
+    dt = softplus(normal) and a = -exp(normal) in fp32."""
+    rng = np.random.default_rng(seed)
+    conv = _randn((b, s, h * p + 2 * n), dtype, device, seed)
+    xin, bb, cc = torch.split(conv, [h * p, n, n], dim=-1)
+    dt = torch.nn.functional.softplus(
+        torch.as_tensor(rng.standard_normal((b, s, h)).astype(np.float32), device=device))
+    a = -torch.exp(torch.as_tensor(rng.standard_normal(h).astype(np.float32), device=device))
+    return xin.reshape(b, s, h, p), dt, a, bb, cc
+
+
+def _ssd_float64(x, dt, a, bb, cc):
+    """The sequential recurrence in float64 on the CPU: exact enough to
+    measure an fp32 implementation's own rounding error."""
+    x, dt, a, bb, cc = (t.double().cpu() for t in (x, dt, a, bb, cc))
+    state = torch.zeros(x.shape[0], x.shape[2], x.shape[3], bb.shape[-1], dtype=torch.float64)
+    ys = []
+    for t in range(x.shape[1]):
+        upd = (dt[:, t, :, None] * x[:, t])[..., None] * bb[:, t, None, None, :]
+        state = state * torch.exp(dt[:, t] * a)[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cc[:, t]))
+    return torch.stack(ys, dim=1), state
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_kernel_matches_plain_version(cuda, b, s, h, p, n, chunk, dtype):
+    """y and the final state against the plain version: from bf16 inputs
+    within 5e-2 abs and rel; in fp32 within 2e-4 abs and rel (the reference
+    sweep's), plus where the plain version itself is off the float64
+    recurrence.  Both take the chunk's cumulative sum of dt * a in fp32, in
+    other orders; it rounds at |cum| 2^-24, which at chunk 256 (|cum| in the
+    hundreds) costs up to ~6e-4 on outputs of ~170 and so can exceed 2e-4 on
+    an output that cancels to near 0."""
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, dtype, cuda, seed=s + n)
+    before = ssd_scan.launches
+    y, fin = ops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape and fin.dtype == torch.float32
+    ry, rfin = ssd_scan_ref(x, dt, a, bb, cc, chunk)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y.float(), ry.float(), rtol=5e-2, atol=5e-2)
+        torch.testing.assert_close(fin, rfin, rtol=5e-2, atol=5e-2)
+        return
+    exact = _ssd_float64(x, dt, a, bb, cc)
+    for got, plain, truth in zip((y, fin), (ry, rfin), exact):
+        got, plain = got.double().cpu(), plain.double().cpu()
+        bound = 2e-4 * (1 + plain.abs()) + (plain - truth).abs()
+        assert bool(((got - plain).abs() <= bound).all()), float(((got - plain).abs() - bound).max())
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, a, bb, cc = _ssd_inputs(1, 16, 2, 16, 16, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError, match="ssd_scan takes"):  # P = 8 with N = 32
+        ops.ssd_scan(torch.zeros(1, 16, 2, 8, device=cuda), dt, a,
+                     torch.zeros(1, 16, 32, device=cuda), torch.zeros(1, 16, 32, device=cuda), 16)
+    with pytest.raises(ValueError, match="ssd_scan takes"):  # P = 48
+        ops.ssd_scan(torch.zeros(1, 16, 2, 48, device=cuda), dt, a, bb, cc, 16)
+    with pytest.raises(ValueError, match="ssd_scan takes"):  # chunk 24
+        ops.ssd_scan(x, dt, a, bb, cc, 24)
+    with pytest.raises(ValueError, match="one device"):
+        ops.ssd_scan(x, dt.cpu(), a, bb, cc, 16)
+    with pytest.raises(ValueError, match="one device"):
+        ops.ssd_scan(x.cpu(), dt, a, bb, cc, 16)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dt.bfloat16(), a, bb, cc, 16)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x.bfloat16(), dt, a, bb, cc, 16)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x.half(), dt, a, bb.half(), cc.half(), 16)
+
+
+@pytest.mark.parametrize("arch,launches", [("mamba2-780m", (4, 0)), ("zamba2-2.7b", (4, 2))])
+def test_default_device_lm_server_runs_each_family_on_the_card(cuda, arch, launches):
+    """Smoke configs at 4 layers on the default device: one prefill launches
+    the SSD kernel once per Mamba2 layer (and flash once per shared-attention
+    invocation); decode launches neither; tokens equal the CPU run's."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config(arch), num_layers=4)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    assert params["embed"]["embedding"].device.type == "cuda"
+    prompts = np.random.default_rng(0).integers(0, 1000, (2, 70)).astype(np.int32)
+    before = (ssd_scan.launches, flash_attention.launches)
+    out = LMServer(model, params).generate(prompts, 6)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches - before[0], flash_attention.launches - before[1]) == launches
+    ref = LMServer(model, tree_map(lambda t: t.cpu(), params)).generate(prompts, 6)
+    np.testing.assert_array_equal(out, ref)

@@ -24,8 +24,9 @@ from repro_torch.kernels import ref as p_ref
 from repro_torch.kernels.flash_attention import HEAD_DIMS, _check_rows, flash_attention
 
 MODES = [(True, None), (False, None), (True, 24)]
-# (s, t, d): the reference sweep, then the zoo's d = 160 (mistral-nemo-12b).
-SHAPES = [(32, 32, 16), (70, 70, 32), (48, 96, 64), (40, 40, 160)]
+# (s, t, d): the reference sweep, then the zoo's d = 160 (mistral-nemo-12b)
+# and d = 80 (zamba2-2.7b's shared attention).
+SHAPES = [(32, 32, 16), (70, 70, 32), (48, 96, 64), (40, 40, 160), (66, 66, 80)]
 CASES = [
     (s, t, d, causal, window)
     for (s, t, d) in SHAPES for (causal, window) in MODES
@@ -149,6 +150,6 @@ def test_kernel_source_and_head_dims():
     src = (_build.CSRC / "flash_attention.cu").read_text()
     for d in HEAD_DIMS:
         assert f"case {d}: return launch<T, {d}>" in src
-    assert 160 in HEAD_DIMS
+    assert 160 in HEAD_DIMS and 80 in HEAD_DIMS
     path = _build.library_path("flash_attention.cu")
     assert path.parent == _build.BUILD_DIR and path.name.startswith("flash_attention-")

@@ -43,6 +43,7 @@ from repro_torch.serving import engine as p_engine
 P = TP_POLICY
 FP32 = dict(rtol=2e-5, atol=2e-5)
 DENSE = ("mistral-nemo-12b", "granite-34b", "granite-20b", "nemotron-4-340b")
+SSM_FAMILIES = ("mamba2-780m", "zamba2-2.7b")  # tested in tests/test_torch_ssm.py
 
 
 def _np_tree(tree):
@@ -74,7 +75,7 @@ def _close(port, ref, tol=FP32):
 # Configs, registry, cache shapes
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + SSM_FAMILIES)
 def test_configs_equal_reference(arch):
     for get in ("get_config", "get_smoke_config"):
         ref = dataclasses.asdict(getattr(r_configs, get)(arch))
@@ -86,8 +87,8 @@ def test_configs_equal_reference(arch):
 
 
 def test_registry_lists_ported_archs_and_refuses_others():
-    assert set(p_configs.list_archs()) == set(DENSE)
-    for arch in set(r_configs.list_archs()) - set(DENSE):
+    assert set(p_configs.list_archs()) == set(DENSE + SSM_FAMILIES)
+    for arch in set(r_configs.list_archs()) - set(DENSE + SSM_FAMILIES):
         with pytest.raises(KeyError, match="not yet ported"):
             p_configs.get_config(arch)
     with pytest.raises(KeyError, match="unknown"):
