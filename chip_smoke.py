@@ -4,12 +4,14 @@
 
 1. Builds the port's CUDA kernels (the Pearson Gram, flash attention and the
    Mamba2 SSD scan) from the sources in this checkout, one ``nvcc`` each,
-   started together, and prints each build time.
+   started together, and prints each build time and what ``ptxas -v`` said
+   of each kernel (registers, shared memory, spills).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones (fp32 and bf16, GQA, a sliding
    window, head_dim 80; the SSD at both model shapes, a ragged length and
-   the reference sweep's shapes), timing kernel, plain version and, where
-   one exists, one library call (the yardstick only) with CUDA events.
+   the reference sweep's shapes), checks that two Pearson calls give the
+   same bits, and times kernel, plain version and, where one exists, one
+   library call (the yardstick only) with CUDA events.
 3. Drives Antler's main path on the paper's LeNet-5 at full width: affinity
    profiling of 5 random-initialised per-task networks on 512 probes,
    task-graph selection, Held-Karp and GA ordering, then
@@ -48,7 +50,6 @@ import dataclasses
 import gc
 import io
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -150,20 +151,36 @@ def check(ok: bool, what: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` CUDA-event-timed runs."""
+    """Mean milliseconds of ``fn`` over ``reps`` calls made back to back
+    between two CUDA events, after ``warmup`` calls: the host queues the
+    next launch while the card runs this one, so a call's host time shows
+    only where it exceeds its device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Host milliseconds per call of ``fn`` over ``reps`` calls made back to
+    back, without waiting for the card: where this exceeds the device time,
+    ``cuda_ms`` measures the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
 
 
 def sync(device: torch.device) -> None:
@@ -188,12 +205,15 @@ class Laps:
 
 
 def pearson_bound(k: int, f: int) -> dict:
-    """Least time on the card: 2*K*K*F fp32 FLOPs vs K*F + K*K fp32 bytes."""
-    ops_ms = 2.0 * k * k * f / FP32_PEAK_FLOPS * 1e3
+    """Least time on the card: K*(K+1)*F fp32 FLOPs (the upper triangle of
+    the symmetric Z Z^T, diagonal included) vs K*F + K*K fp32 bytes.  Also
+    the bound of the full product, 2*K*K*F FLOPs, which earlier runs used."""
+    ops_ms = 1.0 * k * (k + 1) * f / FP32_PEAK_FLOPS * 1e3
     bytes_ms = 4.0 * (k * f + k * k) / HBM_BYTES_PER_S * 1e3
     return {
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_ms_full_product": max(2.0 * k * k * f / FP32_PEAK_FLOPS * 1e3, bytes_ms),
     }
 
 
@@ -250,11 +270,13 @@ def kernel_phase(device: torch.device) -> dict:
         )
         z = ops.standardize_rows(feats).contiguous()
         out = pearson_dissimilarity(z)
+        again = pearson_dissimilarity(z)
         plain = pearson_dissimilarity_ref(z)
         torch.cuda.synchronize()
         err = float((out - plain).abs().max())
         check(err <= FP32_TOL, f"pearson fp32 {k}x{f}: max abs err {err} > {FP32_TOL}")
         check(torch.equal(out, out.T), f"pearson fp32 {k}x{f}: output not symmetric")
+        check(torch.equal(out, again), f"pearson fp32 {k}x{f}: two calls differ")
 
         fb = feats.to(torch.bfloat16)
         out_bf = ops.pairwise_pearson_dissimilarity(fb)
@@ -266,11 +288,13 @@ def kernel_phase(device: torch.device) -> dict:
         one = torch.ones((), device=device)
         row = {
             "kernel": "pearson_gram", "K": k, "F": f,
-            "max_abs_err": err, "max_abs_err_bf16": err_bf,
+            "max_abs_err": err, "max_abs_err_bf16": err_bf, "bit_identical": True,
             "kernel_ms": cuda_ms(lambda: pearson_dissimilarity(z)),
+            "kernel_host_ms": host_ms(lambda: pearson_dissimilarity(z)),
             "plain_ms": cuda_ms(lambda: pearson_dissimilarity_ref(z)),
             # One library call computing 1 - Z Z^T: the yardstick only.
             "library_ms": cuda_ms(lambda: torch.addmm(one, z, z.T, alpha=-1.0)),
+            "library_host_ms": host_ms(lambda: torch.addmm(one, z, z.T, alpha=-1.0)),
             **pearson_bound(k, f),
             "peak": "fp32 CUDA cores 67 TFLOP/s, HBM 3.35 TB/s (H100 SXM data sheet)",
         }
@@ -421,13 +445,18 @@ def time_groups(result: dict, reps: int = 20, warmup: int = 2) -> list:
     return out
 
 
+# Device kernel names of the port's kernels (both passes of the Pearson Gram).
+PORT_KERNELS = ("pearson_partial_kernel", "pearson_reduce_kernel", "flash_bf16_kernel",
+                "flash_fp32_kernel", "ssd_scan_kernel")
+
+
 def device_breakdown(fn, timed_ms: float, top: int = 6) -> dict:
     """``torch.profiler`` over one warm call of ``fn``: device time by kernel
-    name (the top ones), the device total, and the host window around the
-    call with the profiler on (which slows the host).  ``busy`` is the
-    device total over ``timed_ms``, the call's CUDA-event time without the
-    profiler: the device's busy share, an upper bound where kernels
-    overlap."""
+    name (the top ones, and the port's own kernels), the device total, and
+    the host window around the call with the profiler on (which slows the
+    host).  ``busy`` is the device total over ``timed_ms``, the call's
+    CUDA-event time without the profiler: the device's busy share, an upper
+    bound where kernels overlap."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -445,12 +474,19 @@ def device_breakdown(fn, timed_ms: float, top: int = 6) -> dict:
             by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
     device_ms = sum(us for _c, us in by_name.values()) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
+    port = {}
+    for name, (c, us) in by_name.items():
+        kernel = next((k for k in PORT_KERNELS if k in name), None)
+        if kernel:
+            calls, ms = port.get(kernel, (0, 0.0))
+            port[kernel] = (calls + c, ms + us / 1e3)
     return {
         "window_ms": window_ms, "timed_ms": timed_ms, "device_ms": device_ms,
         "busy": device_ms / timed_ms,
         "kernels": sum(c for c, _us in by_name.values()),
         "top": [{"name": name[:80], "calls": c, "ms": us / 1e3}
                 for name, (c, us) in ranked[:top]],
+        "port_kernels": {k: {"calls": c, "ms": ms} for k, (c, ms) in port.items()},
     }
 
 
@@ -511,10 +547,13 @@ def flash_phase(device: torch.device) -> dict:
             "B": b, "S": s, "Hq": hq, "Hk": hk, "d": d, "dtype": "bfloat16",
             "max_abs_err": err,
             "kernel_ms": cuda_ms(lambda: ops.flash_attention_bhsd(q, k, v), reps=20),
+            "kernel_host_ms": host_ms(lambda: ops.flash_attention_bhsd(q, k, v), reps=20),
             "plain_ms": cuda_ms(lambda: flash_attention_bhsd_ref(q, k, v), reps=10),
             # One library call computing the same attention: the yardstick only.
             "library_ms": cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
                                   reps=20),
+            "library_host_ms": host_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                                    enable_gqa=True), reps=20),
             **flash_bound(q, k, True, None),
             "peak": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s (H100 SXM data sheet)",
         }
@@ -854,6 +893,8 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
     for src, seconds in build_kernels().items():
         print(f"built {src} in {seconds:.1f} s", flush=True)
+        for line in _build.ptxas_report(src):
+            print(f"  ptxas {src}: {line}", flush=True)
 
     t0 = time.perf_counter()
     kernels = kernel_phase(device)

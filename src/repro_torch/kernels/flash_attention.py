@@ -14,15 +14,21 @@ Bound on an H100: 4 * (allowed query-key pairs) * d operations per head
 against q, k, v and o moved once — at the main paths' shapes (S = 128 or 512,
 d = 160, bf16, GQA 32/8; S = 1024, d = 80, 32/32 heads for zamba2-2.7b) the
 bytes bound it under the bf16 tensor-core peak.
-The kernel computes in fp32 on the CUDA cores, keeps the score tile, the
-running max and sum and the accumulator on chip in fp32, maps query head h
-to KV head h / (Hq / Hk) instead of repeating K/V, reads both the model
-layout (B, S, H, d) and the flattened (B*H, S, d) layout through strides
-without a copy, and skips KV tiles that the mask removes entirely.
+bf16 runs on the tensor cores: ``wgmma`` for Q K^T and for P V (P rounded
+to bf16 in registers), a persistent grid whose blocks walk work items while
+TMA keeps the next K/V tile (and the next item's Q) in flight, the running
+max and sum and the output accumulator in fp32 registers.  fp32 runs on the
+CUDA cores, since TF32 cannot meet its 2e-5.  Both map query head h to KV
+head h / (Hq / Hk) instead of repeating K/V, read the model layout
+(B, S, H, d) and the flattened (B*H, S, d) layout through strides without a
+copy, and skip KV tiles that the mask removes entirely.  TMA needs a
+16-byte aligned start and strides of whole 16 bytes, so a bf16 view that
+has neither is copied to a fresh tensor first (no entry point makes one).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -36,6 +42,7 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@functools.lru_cache(maxsize=None)  # argtypes are set once
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.flash_attention_fwd
@@ -69,6 +76,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[i
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself if the bf16 kernel's TMA can read it (a 16-byte aligned
+    start, every stride but the last a multiple of 8 elements), else a
+    contiguous copy.  fp32 tensors pass unchanged."""
+    if x.dtype != torch.bfloat16:
+        return x
+    if x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:-1]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _check_rows(s: int, t: int, window: Optional[int]) -> None:
     """Every query row must keep at least one key.  Row ``i`` keeps none when
     ``t == 0`` or, under a window, when ``i >= t + window - 1`` (reachable
@@ -95,7 +113,7 @@ def _launch(
     lib = _library()
     d = q.shape[-1]
     flat = [int(x) for st in strides for x in st]
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -128,6 +146,7 @@ def flash_attention(
     bhk, t, _ = k.shape
     if bhk == 0 or bh % bhk != 0:
         raise ValueError(f"BH {bh} is not a multiple of BHk {bhk}")
+    q, k, v = (_aligned(x) for x in (q, k, v))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     # Batch = the KV slices, heads = the query slices sharing one of them.
     rep = bh // bhk
@@ -155,6 +174,7 @@ def flash_attention_bhsd_kernel(
     bk, t, hk, _ = k.shape
     if bk != b or hk == 0 or hq % hk != 0:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not group")
+    q, k, v = (_aligned(x) for x in (q, k, v))
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = [(x.stride(0), x.stride(1), x.stride(2)) for x in (q, k, v, o)]
     _launch(q, k, v, o, b, hq, hk, s, t, strides, causal, window)

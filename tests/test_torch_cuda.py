@@ -34,7 +34,10 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("k,f", [(16, 64), (37, 100), (64, 300), (512, 1568), (130, 7), (256, 655360)])
+# (300, 5000) and (200, 10001): several splits of F, F not a multiple of
+# 256; 10001 % 4 != 0 takes the 4-byte copies.
+@pytest.mark.parametrize("k,f", [(16, 64), (37, 100), (64, 300), (512, 1568), (130, 7), (256, 655360),
+                                 (300, 5000), (200, 10001)])
 def test_kernel_matches_plain_version(cuda, k, f):
     """fp32 to 1e-5 (the reference's tolerance), exactly symmetric."""
     feats = np.random.default_rng(k + f).standard_normal((k, f)).astype(np.float32)
@@ -45,6 +48,17 @@ def test_kernel_matches_plain_version(cuda, k, f):
     assert pearson_dissimilarity.launches == before + 1
     assert torch.equal(out, out.T)
     torch.testing.assert_close(out, pearson_dissimilarity_ref(z), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,f", [(256, 655360), (512, 1568)])
+def test_kernel_is_bit_identical_across_calls(cuda, k, f):
+    """No atomics and a fixed split order: two calls give the same bits."""
+    feats = np.random.default_rng(k).standard_normal((k, f)).astype(np.float32)
+    z = ops.standardize_rows(torch.as_tensor(feats, device=cuda)).contiguous()
+    first = pearson_dissimilarity(z)
+    second = pearson_dissimilarity(z)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -83,6 +97,11 @@ FLASH_CASES = [
     (8, 2, 200, 200, 160, True, 24),
     (3, 1, 1, 65, 160, False, None),
     (8, 8, 130, 130, 80, True, None),
+    # T of 3 or more KV tiles at d 80 and 160: the K/V ring turns over.
+    (4, 4, 250, 250, 80, True, None),
+    (4, 2, 200, 300, 80, False, None),
+    (8, 2, 300, 300, 160, False, None),
+    (4, 4, 260, 260, 160, True, 100),
 ]
 
 
@@ -116,6 +135,28 @@ def test_flash_kernel_model_layout(cuda, hq, hk):
     assert flash_attention.launches == before + 1
     torch.testing.assert_close(out.float(), flash_attention_bhsd_ref(q, k, v, window=50).float(),
                                rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("d,causal", [(160, False), (80, True)])
+def test_flash_kernel_model_layout_ragged_kv(cuda, d, causal):
+    """Model layout with T ragged (201 keys: 3 full tiles and 9 keys) and
+    T != S, GQA 8/2, bf16."""
+    q = _randn((2, 100, 8, d), torch.bfloat16, cuda, 6)
+    k = _randn((2, 201, 2, d), torch.bfloat16, cuda, 7)
+    v = _randn((2, 201, 2, d), torch.bfloat16, cuda, 8)
+    out = ops.flash_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), flash_attention_bhsd_ref(q, k, v, causal=causal).float(),
+                               rtol=0, atol=2e-2)
+
+
+def test_flash_kernel_copies_unaligned_bf16_views(cuda):
+    """A bf16 view whose rows are not 16-byte aligned is copied, not refused."""
+    buf = _randn((4, 70, 33), torch.bfloat16, cuda, 9)
+    q, k, v = buf[..., 1:33], buf[..., :32], buf[..., 1:33]
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), flash_attention_ref(q, k, v).float(), rtol=0, atol=2e-2)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):

@@ -21,7 +21,7 @@ from repro.models import layers as r_layers
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as p_ops
 from repro_torch.kernels import ref as p_ref
-from repro_torch.kernels.flash_attention import HEAD_DIMS, _check_rows, flash_attention
+from repro_torch.kernels.flash_attention import HEAD_DIMS, _aligned, _check_rows, flash_attention
 
 MODES = [(True, None), (False, None), (True, 24)]
 # (s, t, d): the reference sweep, then the zoo's d = 160 (mistral-nemo-12b)
@@ -153,3 +153,19 @@ def test_kernel_source_and_head_dims():
     assert 160 in HEAD_DIMS and 80 in HEAD_DIMS
     path = _build.library_path("flash_attention.cu")
     assert path.parent == _build.BUILD_DIR and path.name.startswith("flash_attention-")
+
+
+def test_aligned_copies_only_unaligned_bf16_rows():
+    """The bf16 kernel's TMA reads rows from 16-byte boundaries: an aligned
+    bf16 tensor goes in as it is, a view with rows off 16 bytes is copied
+    (same values), and fp32, which the CUDA-core kernel reads element by
+    element, is never copied."""
+    buf = torch.arange(4 * 70 * 33, dtype=torch.float32).reshape(4, 70, 33)
+    aligned = buf[..., :32].contiguous().bfloat16()
+    assert _aligned(aligned) is aligned
+    view = buf.bfloat16()[..., 1:33]
+    copy = _aligned(view)
+    assert copy is not view and copy.is_contiguous() and torch.equal(copy, view)
+    assert copy.data_ptr() % 16 == 0
+    fp32_view = buf[..., 1:33]
+    assert _aligned(fp32_view) is fp32_view

@@ -18,7 +18,9 @@ from repro.core import affinity as r_aff
 from repro.kernels import ops as r_ops
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as p_ops
-from repro_torch.kernels.pearson_affinity import pearson_dissimilarity
+from repro_torch.kernels.pearson_affinity import (
+    CHUNK, TARGET_BLOCKS, pearson_dissimilarity, split_plan,
+)
 from repro_torch.kernels.ref import pearson_dissimilarity_ref
 
 SHAPES = [(16, 64), (37, 100), (64, 300)]
@@ -84,3 +86,49 @@ def test_non_cpu_inputs_are_checked_before_any_launch(bad, error, monkeypatch):
     monkeypatch.setattr(_build, "load", lambda *_a: pytest.fail("kernel built"))
     with pytest.raises(error):
         pearson_dissimilarity(bad())
+
+
+PLAN_SHAPES = [(256, 655360), (512, 1568), (512, 784), (512, 64), (37, 100), (130, 7),
+               (64, 300), (300, 5000), (200, 10001), (2048, 1568), (1, 0)]
+
+
+@pytest.mark.parametrize("k,f", PLAN_SHAPES)
+def test_split_plan_covers_the_features_in_order(k, f):
+    """The splits tile [0, F) exactly, in order, each starting on a chunk
+    boundary and all but the last a whole number of chunks long."""
+    plan = split_plan(k, f)
+    ranges = plan.ranges(f)
+    assert len(ranges) == plan.splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == f
+    for (_a, stop), (start, _b) in zip(ranges, ranges[1:]):
+        assert stop == start
+    for start, stop in ranges[:-1]:
+        assert start % CHUNK == 0 and stop - start == plan.span and plan.span % CHUNK == 0
+    assert ranges[-1][0] % CHUNK == 0 and 0 <= ranges[-1][1] - ranges[-1][0] <= plan.span
+    tiles = -(-k // 64)
+    assert plan.pairs == tiles * (tiles + 1) // 2
+    assert plan.blocks <= max(TARGET_BLOCKS, plan.pairs)
+
+
+def test_split_plan_depends_on_shape_alone(monkeypatch):
+    """No query of the card: the same (K, F) gives the same plan whatever
+    device is present, so the summation order and the bits do not depend on
+    the card."""
+    def no_card(*_a, **_k):
+        raise AssertionError("split_plan asked the device")
+
+    for name in ("device_count", "get_device_properties", "current_device", "is_available"):
+        monkeypatch.setattr(torch.cuda, name, no_card)
+    plans = [split_plan(k, f) for k, f in PLAN_SHAPES]
+    assert plans == [split_plan(k, f) for k, f in PLAN_SHAPES]
+    assert len({split_plan(256, 655360), split_plan(512, 1568)}) == 2
+
+
+def test_split_plan_fills_the_card_at_the_main_shapes():
+    """At least two blocks per SM of a 132-SM H100 at the transformer
+    profile's shape; more than one split at the LeNet path's, whose F holds
+    7 chunks, and as many splits as it has chunks."""
+    big = split_plan(256, 655360)
+    assert big.blocks >= 2 * 132
+    small = split_plan(512, 1568)
+    assert small.splits == 7 and small.span == CHUNK
