@@ -8,10 +8,13 @@
    of each kernel (registers, shared memory, spills).
 2. Holds each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones (fp32 and bf16, GQA, a sliding
-   window, head_dim 80; the SSD at both model shapes, a ragged length and
-   the reference sweep's shapes), checks that two Pearson calls give the
-   same bits, and times kernel, plain version and, where one exists, one
-   library call (the yardstick only) with CUDA events.
+   window, head_dim 80; the SSD at both model shapes, a ragged length in
+   bf16 at mamba2's widths and in fp32, and the reference sweep's shapes),
+   checks that two Pearson calls and two bf16 SSD calls give the same bits,
+   and times kernel, plain version and, where one exists, one library call
+   (the yardstick only) with CUDA events; a bf16 SSD row also gives each of
+   its three kernels' device time from one profiler window, the bytes each
+   must move and its scratch bytes.
 3. Drives Antler's main path on the paper's LeNet-5 at full width: affinity
    profiling of 5 random-initialised per-task networks on 512 probes,
    task-graph selection, Held-Karp and GA ordering, then
@@ -79,7 +82,10 @@ from repro_torch.kernels.pearson_affinity import (  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     flash_attention_bhsd_ref, flash_attention_ref, pearson_dissimilarity_ref, ssd_scan_ref,
 )
-from repro_torch.kernels.ssd_scan import SOURCE as SSD_SOURCE, ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    SOURCE as SSD_SOURCE, kernel_bytes as ssd_kernel_bytes, scratch_bytes as ssd_scratch_bytes,
+    ssd_scan,
+)
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models.cnn import build_lenet5_blocks  # noqa: E402
 from repro_torch.models.multitask import (  # noqa: E402
@@ -133,10 +139,12 @@ SSM_CHECK_BATCH = 2  # rows of the decode-vs-forward check
 LAUNCHER_STEPS = 4
 # SSD scan shapes (path, B, S, H, P, N, chunk, dtype): the two model
 # prefills (x, B and C views of one conv output, as in the model), a ragged
-# length, the reference sweep's shapes (tests/test_kernels.py).
+# length at mamba2's widths (bf16) and at four heads (fp32), the reference
+# sweep's shapes (tests/test_kernels.py).
 SSD_SHAPES = (
     ("mamba2_prefill", 4, 2048, 48, 64, 128, 64, torch.bfloat16),
     ("zamba2_prefill", 4, 1024, 80, 64, 64, 256, torch.bfloat16),
+    ("ragged_bf16", 2, 200, 48, 64, 128, 64, torch.bfloat16),
     ("ragged", 2, 200, 4, 64, 128, 64, torch.float32),
     ("sweep", 2, 24, 2, 4, 8, 8, torch.float32),
     ("sweep", 2, 50, 3, 8, 4, 16, torch.float32),
@@ -447,7 +455,10 @@ def time_groups(result: dict, reps: int = 20, warmup: int = 2) -> list:
 
 # Device kernel names of the port's kernels (both passes of the Pearson Gram).
 PORT_KERNELS = ("pearson_partial_kernel", "pearson_reduce_kernel", "flash_bf16_kernel",
-                "flash_fp32_kernel", "ssd_scan_kernel")
+                "flash_fp32_kernel", "ssd_scan_kernel", "ssd_chunk_state_kernel",
+                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
+# The bf16 SSD's three kernels, in launch order.
+SSD_BF16_KERNELS = PORT_KERNELS[-3:]
 
 
 def device_breakdown(fn, timed_ms: float, top: int = 6) -> dict:
@@ -623,7 +634,10 @@ def ssd_inputs(rng, b, s, h, p, n, dtype, device):
 def ssd_phase(device: torch.device) -> dict:
     """SSD kernel vs its plain version at every listed shape: y and the
     final state within the tolerance (abs + rel), timed at every shape.  No
-    single PyTorch call computes the SSD, so there is no library time."""
+    single PyTorch call computes the SSD, so there is no library time.  A
+    bf16 row also checks that two calls give the same bits, and gives the
+    device time of each of the three bf16 kernels from one profiler window,
+    the bytes each must move and the scratch they pass through."""
     rng = np.random.default_rng(3)
     rows, max_err = [], 0.0
     for path, b, s, h, p, n, q, dtype in SSD_SHAPES:
@@ -641,6 +655,11 @@ def ssd_phase(device: torch.device) -> dict:
             check(excess <= 0, f"{what}: {name} beyond {tol} abs + rel by {excess}")
         err = float((y.float() - ry.float()).abs().max())
         max_err = max(max_err, err)
+        bf16 = dtype == torch.bfloat16
+        if bf16:
+            y2, fin2 = ops.ssd_scan(x, dt, a, bb, cc, q)
+            check(torch.equal(y, y2) and torch.equal(fin, fin2), f"{what}: two calls differ")
+            del y2, fin2
         big = s >= 1024
         row = {
             "kernel": "ssd_scan", "path": path, "shape": [b, s, h, p, n, q],
@@ -655,6 +674,16 @@ def ssd_phase(device: torch.device) -> dict:
             "peak": ("bf16 tensor cores 989 TFLOP/s" if dtype == torch.bfloat16 else
                      "fp32 CUDA cores 67 TFLOP/s") + ", HBM 3.35 TB/s (H100 SXM data sheet)",
         }
+        if bf16:
+            trace = device_breakdown(lambda: ops.ssd_scan(x, dt, a, bb, cc, q), row["kernel_ms"])
+            moved = ssd_kernel_bytes(b, s, h, p, n, q)
+            row.update({
+                "bit_identical": True,
+                "scratch_bytes": ssd_scratch_bytes(b, s, h, p, n, q),
+                "sub_kernels": {k: {"ms": trace["port_kernels"].get(k, {}).get("ms"),
+                                    "bytes": moved[k]} for k in SSD_BF16_KERNELS},
+                "busy": trace["busy"],
+            })
         print(json.dumps(row), flush=True)
         rows.append(row)
         del x, dt, a, bb, cc, y, fin, ry, rfin

@@ -9,7 +9,7 @@
 //           + (C_i . state) exp(cum_i);
 //   * state <- state exp(cum_Q) + sum_j B_j (x) dt_j x_j exp(cum_Q - cum_j);
 //   * the state is zero at chunk 0 and is written out, fp32, after the last
-//     chunk; all arithmetic is fp32 and y is stored in x's dtype.
+//     chunk; y is stored in x's dtype.
 // exp(cum_i - cum_j) overflows for j > i (cum falls by up to |a| dt a
 // step), so the upper triangle is discarded with a select, never by
 // multiplying with a 0/1 mask (inf * 0 = NaN).  A ragged last chunk is
@@ -26,29 +26,56 @@
 // state written once.  At the model shapes (mamba2-780m: Q 64, N 128, 48
 // heads; zamba2-2.7b: Q 256, N 64, 80 heads; bf16) that is ~130 operations a
 // byte, under the card's ~295 at the bf16 tensor-core peak, so the bytes
-// bound it.  Design, simple and right first:
-//   * the Pallas grid step holds all H heads and an (H, P, N) VMEM state
-//     (1.5 MB at mamba2's shape), which no SM holds; here one block of 256
-//     threads owns one (batch, head), walks its chunks in order and keeps
-//     its (P, N) fp32 state in shared memory.  No block depends on another;
-//   * a chunk is cut into sub-tiles of T = min(Q, 64) rows.  For each query
-//     tile I: the inter-chunk term C_I . state, then for each key tile
-//     J <= I the score tile C_I B_J^T (4x4 register micro-tiles over a
-//     16 x 16 thread grid), times the decay and dt_j, into shared memory,
-//     then L . x_J.  The diagonal tile J = I, still in shared memory, adds
-//     its share of the chunk's state update into registers; the state in
-//     shared memory is updated once the chunk's queries have read it;
-//   * the cumulative sum is one warp's scan (serial runs of Q/32, then
-//     shuffles); C and B tiles are staged transposed with a padded leading
-//     dim, loads masked at the ragged edge, fp32 FMAs on the CUDA cores,
-//     expf (not __expf) throughout.
-// C_I B_J^T is recomputed by every head of a batch row; tensor cores,
-// sharing it across heads and a pipelined ring are later work.
+// bound it.
+//
+// bf16: three kernels on the tensor cores, in the order of the plain
+// version's phases (models/ssm.py::ssd_chunked; arXiv:2405.21060 section 7).
+// Only the (P, N) state chain is serial; the chunk-local work is parallel
+// over (batch, chunk, head):
+//   1. ssd_chunk_state_kernel, a block per (batch, chunk, group of heads):
+//      the chunk's cumsum of dt * a (stored, with exp(cum_Q)) and its own
+//      state S_c = (x o dt exp(cum_Q - cum))^T B by wgmma, stored fp32;
+//   2. ssd_state_pass_kernel, a thread per (batch, head, state element):
+//      h_c = h_{c-1} exp(cum_Q,c-1) + S_{c-1} in fp32, storing the state
+//      entering each chunk for phase 3 and the final state;
+//   3. ssd_chunk_scan_kernel, a block per (batch, chunk, 64-row query
+//      tile, group of heads): C B^T once for the whole group, then per
+//      head y = exp(cum_i) C h_c^T + L x by wgmma, L = select(j <= i,
+//      exp(cum_i - cum_j)) C B^T dt_j from phase 1's stored cum.
+// TMA brings every x, B, C and state tile into shared memory in the
+// 128-byte swizzle (hopper_tma_wgmma.cuh), through rings over the heads of
+// a block (two stages in the chunk-state kernel, one per warpgroup in the
+// chunk-scan kernel), so one head's loads overlap another's products.
+// The computed operands (x o g, L and h_c) are bf16 hi + lo pairs, two
+// products each: one bf16 rounding of any of them alone puts y beyond the
+// 5e-2 abs + rel tolerance at the model shapes (an error of ~2^-9 |term|
+// on outputs that cancel to near 0), the pair keeps ~16 bits.  x, B and C
+// are bf16 already and go in as they are.  Every sum is in a fixed order
+// and no atomics are used: two calls give the same bits.
+//
+// fp32: the CUDA-core kernel ssd_scan_kernel, since TF32 cannot meet the
+// fp32 tolerance of 2e-4.  One block of 256 threads owns one (batch, head),
+// walks its chunks in order with its (P, N) fp32 state in shared memory,
+// and cuts a chunk into 64-row sub-tiles: per query tile I, the
+// inter-chunk term, then the score tiles C_I B_J^T for J <= I (4x4
+// register micro-tiles over a 16 x 16 thread grid) times the decay and
+// dt_j, then L . x_J; the diagonal tile adds its share of the state update.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <initializer_list>
+
+#include "hopper_tma_wgmma.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// fp32 on the CUDA cores
+// ---------------------------------------------------------------------------
+namespace f32 {
 
 constexpr int kTile = 64;        // rows of a sub-tile of the chunk
 constexpr int kThreads = 256;    // 16 x 16 threads
@@ -71,13 +98,9 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as a cast in PyTorch
-}
 
 template <int P, int N>
 constexpr size_t smem_bytes() {
@@ -346,16 +369,603 @@ int launch(const Args& a, int batch, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: three kernels in the order of ssd_chunked's phases
+// ---------------------------------------------------------------------------
+namespace bf16 {
+
+using namespace hopper;
+
+constexpr int kRows = 64;                 // rows of a tile: one wgmma M, one TMA box
+constexpr int kThreads = 128;             // one warpgroup
+constexpr int kPassThreads = 256;         // ssd_state_pass_kernel
+constexpr int kMaxSmem = 232448;          // a block's dynamic shared memory on the H100
+constexpr int kStashBytes = 32 * kThreads * 4;  // one 64 x 64 fp32 score tile
+constexpr int kOutLd = 36;  // padded row of a warp's 32-column slice of S_c
+
+// The wgmma N of a product whose output has `d` columns: 16 at least.
+__host__ __device__ constexpr int wg_n(int d) { return d < 16 ? 16 : d; }
+
+struct Args {
+  int batch, s, h, p, n, chunk;
+  int nc;      // chunks
+  int nt;      // 64-row tiles of a chunk: ceil(chunk / 64)
+  int g1, g3;  // heads per block of the chunk-state and chunk-scan kernels
+  int nh;      // row length of the h scratch: N rounded up to 8
+  const float* dt;
+  long long dt_sb, dt_ss, dt_sh;
+  const float* a;
+  __nv_bfloat16* y;     // (B, S, H, P) contiguous
+  float* fin;           // (B, H, P, N)
+  float* states;        // (B, nc, H, P, N) S_c, fp32
+  float* cum;           // (B, nc, H, Q) inclusive cumsum of dt * a
+  float* decay;         // (B, nc, H) exp(cum_Q)
+  __nv_bfloat16* h_hi;  // (B, nc, H, P, nh) state entering each chunk, hi part
+  __nv_bfloat16* h_lo;  // the same, lo = bf16(h - hi)
+};
+
+// 1024-byte aligned start: the swizzle repeats every 1024 bytes.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - smem_u32(p) % 1024) % 1024);
+}
+
+// v ~ hi + lo with hi = bf16(v) and lo = v - hi, which the caller rounds to
+// bf16 when it packs it: 16 bits of mantissa.
+__device__ __forceinline__ void split(float v, float& hi, float& lo) {
+  hi = __bfloat162float(__float2bfloat16(v));
+  lo = v - hi;
+}
+
+// Phase 1.  Block = (batch row, chunk, group of g1 heads), one warpgroup.
+// The chunk's B rows arrive once by TMA; each head's x rows arrive by TMA
+// into a 2-stage ring, one head ahead.  Per head: the chunk's inclusive
+// cumsum of dt * a (one warp, a fixed order), stored with exp(cum_Q); then
+// S_c = (x o g)^T B with g_j = dt_j exp(cum_Q - cum_j): A = (x o g)^T, P x Q,
+// built in registers from the swizzled x tile and split into bf16 hi + lo;
+// B = the B rows read MN-major.  S_c is stored fp32.
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_state_kernel(const Args a, const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap b_map) {
+  constexpr int kN = wg_n(N);
+  constexpr int kAcc = kN / 2;
+  using TX = Tile<P>;
+  using TB = Tile<N>;
+  constexpr int kStages = 2;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* b_s = align1024(smem_raw);             // nt tiles of B
+  unsigned char* x_s = b_s + a.nt * TB::kBytes;         // kStages x nt tiles of x
+  const int kr = a.nt * kRows;                          // rows held per head
+  float* dt_s = reinterpret_cast<float*>(x_s + kStages * a.nt * TX::kBytes);  // [g1][kr]
+  float* cum_s = dt_s + a.g1 * kr;                      // [g1][kr]
+  __shared__ __align__(16) float out_s[4 * 16 * kOutLd];  // each warp's 16 rows of S_c
+  __shared__ uint64_t b_bar, x_bar[kStages];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int groups = (a.h + a.g1 - 1) / a.g1;
+  const int grp = blockIdx.x % groups;
+  const int bc = blockIdx.x / groups;
+  const int bi = bc / a.nc;
+  const int c = bc % a.nc;
+  const int h0 = grp * a.g1;
+  const int nheads = min(a.g1, a.h - h0);
+  const int q = a.chunk;
+  const int s0 = c * q;
+
+  auto load_x = [&](int k) {
+    const int st = k % kStages;
+    mbar_expect(&x_bar[st], a.nt * TX::kBytes);
+    for (int t = 0; t < a.nt; ++t)
+      tma_tile<P>(x_s + (st * a.nt + t) * TX::kBytes, &x_map, &x_bar[st], s0 + kRows * t,
+                  h0 + k, bi);
+  };
+  if (tid == 0) {
+    mbar_init(&b_bar);
+    for (int i = 0; i < kStages; ++i) mbar_init(&x_bar[i]);
+    mbar_fence_init();
+    mbar_expect(&b_bar, a.nt * TB::kBytes);
+    for (int t = 0; t < a.nt; ++t)
+      tma_tile<N>(b_s + t * TB::kBytes, &b_map, &b_bar, s0 + kRows * t, 0, bi);
+    for (int k = 0; k < min(kStages, nheads); ++k) load_x(k);
+  }
+
+  // The cumulative sums, one warp per head: serial runs of ceil(Q / 32)
+  // steps, then a shuffle scan of the runs' totals.  dt is read as zero past
+  // S (the ragged chunk); rows past Q (a chunk under 64 rows) have g = 0.
+  for (int k = warp; k < nheads; k += kThreads / 32) {
+    const int h = h0 + k;
+    const float a_h = a.a[h];
+    float* dts = dt_s + k * kr;
+    float* cum = cum_s + k * kr;
+    const float* dt = a.dt + bi * a.dt_sb + h * a.dt_sh;
+    for (int l = lane; l < kr; l += 32) {
+      const int si = s0 + l;
+      dts[l] = (l < q && si < a.s) ? dt[si * a.dt_ss] : 0.0f;
+    }
+    __syncwarp();
+    const int per = (q + 31) / 32;
+    const int lo = min(lane * per, q);
+    const int hi = min(lo + per, q);
+    float run = 0.0f;
+    for (int i = lo; i < hi; ++i) {
+      run += dts[i] * a_h;
+      cum[i] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.0f;
+    for (int i = lo; i < hi; ++i) cum[i] += excl;
+    __syncwarp();
+    const float cum_end = cum[q - 1];
+    float* cum_out = a.cum + ((static_cast<long long>(bi) * a.nc + c) * a.h + h) * q;
+    for (int l = lane; l < kr; l += 32) {
+      float g = 0.0f;
+      if (l < q) {
+        g = dts[l] * expf(cum_end - cum[l]);
+        cum_out[l] = cum[l];
+      }
+      dts[l] = g;  // dts now holds g
+    }
+    if (lane == 0) a.decay[(static_cast<long long>(bi) * a.nc + c) * a.h + h] = expf(cum_end);
+  }
+  __syncthreads();
+  mbar_wait(&b_bar, 0);
+
+  const int g = lane / 4;
+  const int qd = lane % 4;
+  const int p0 = 16 * warp + g;  // this thread's rows of S_c: p0, p0 + 8
+  for (int k = 0; k < nheads; ++k) {
+    const int st = k % kStages;
+    const int h = h0 + k;
+    mbar_wait(&x_bar[st], (k / kStages) & 1);
+    const float* gk = dt_s + k * kr;
+    float acc[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
+    for (int t = 0; t < a.nt; ++t) {
+      const unsigned char* xt = x_s + (st * a.nt + t) * TX::kBytes;
+      uint32_t fh[4][4], fl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // columns j, j + 1 and j + 8, j + 9
+          const int r = 16 * kk + 2 * qd + 8 * half;  // row of the x tile
+          const float g0 = gk[kRows * t + r];
+          const float g1 = gk[kRows * t + r + 1];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {  // rows p0 and p0 + 8
+            const int pp = p0 + 8 * rr;
+            const float v0 = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                                 xt + swizzled(r, pp))) * g0;
+            const float v1 = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                                 xt + swizzled(r + 1, pp))) * g1;
+            float h0v, l0v, h1v, l1v;
+            split(v0, h0v, l0v);
+            split(v1, h1v, l1v);
+            fh[kk][2 * half + rr] = pack_bf16(h0v, h1v);
+            fl[kk][2 * half + rr] = pack_bf16(l0v, l1v);
+          }
+        }
+      }
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // Rows 16 kk .. 16 kk + 15 of tile t: two 8-row groups of 1024 bytes.
+        // Rows past the chunk have g = 0: their A columns are zero.
+        const uint64_t db = make_desc(b_s + t * TB::kBytes + kk * 2048, TB::kAtomBytes, 1024);
+        wgmma_rs<kN>(acc, fh[kk], db);
+        wgmma_rs<kN>(acc, fl[kk], db);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+
+    // acc[4 i + e]: row p0 + 8 (e >> 1), column 8 i + 2 qd + (e & 1).  Each
+    // warp stages its 16 rows, 32 columns at a time, in its own slice of
+    // shared memory, then stores whole 128-byte rows with 16-byte stores.
+    float* out = a.states + ((static_cast<long long>(bi) * a.nc + c) * a.h + h) * P * N;
+    float* stage = out_s + warp * 16 * kOutLd;
+#pragma unroll
+    for (int cb = 0; cb < (kN + 31) / 32; ++cb) {
+#pragma unroll
+      for (int i = 4 * cb; i < min(4 * cb + 4, kAcc / 4); ++i) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          *reinterpret_cast<float2*>(stage + (g + 8 * rr) * kOutLd + 8 * (i - 4 * cb) + 2 * qd) =
+              make_float2(acc[4 * i + 2 * rr], acc[4 * i + 2 * rr + 1]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 4 * r + lane / 8;
+        const int col = 4 * (lane % 8);
+        const int pp = 16 * warp + row;
+        const int n = 32 * cb + col;
+        if (pp < P && n < N)
+          *reinterpret_cast<float4*>(out + pp * N + n) =
+              *reinterpret_cast<const float4*>(stage + row * kOutLd + col);
+      }
+      __syncwarp();
+    }
+    __syncthreads();  // every thread is done with this stage before it refills
+    if (tid == 0 && k + kStages < nheads) load_x(k + kStages);
+  }
+}
+
+// Phase 2.  Block = (batch row, head, 1024 state elements); a thread walks
+// the chunks in order with four consecutive elements of one row of the (P,
+// N) state in fp32: h_0 = 0, h_c = h_{c-1} exp(cum_Q,c-1) + S_{c-1}.  The
+// state entering each chunk is stored as bf16 hi + lo (phase 3's operand);
+// the chain itself stays fp32, and the final state is stored fp32.
+__global__ void __launch_bounds__(kPassThreads)
+ssd_state_pass_kernel(const Args a) {
+  const int pn = a.p * a.n;  // N is a multiple of 4: four elements share a row
+  const int e = 4 * (blockIdx.y * kPassThreads + threadIdx.x);
+  if (e >= pn) return;
+  const int bi = blockIdx.x / a.h;
+  const int h = blockIdx.x % a.h;
+  const int p = e / a.n;
+  const int n = e % a.n;
+  const long long first = static_cast<long long>(bi) * a.nc * a.h + h;  // (bi, chunk 0, h)
+  const float4* __restrict__ s_in = reinterpret_cast<const float4*>(a.states + first * pn + e);
+  const float* __restrict__ dec = a.decay + first;
+  const long long h_off = first * a.p * a.nh + p * a.nh + n;
+  uint2* __restrict__ hi = reinterpret_cast<uint2*>(a.h_hi + h_off);
+  uint2* __restrict__ lo = reinterpret_cast<uint2*>(a.h_lo + h_off);
+  const long long s_step = static_cast<long long>(a.h) * pn / 4;       // in float4
+  const long long h_step = static_cast<long long>(a.h) * a.p * a.nh / 4;  // in 4 x bf16
+  float st[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+  for (int c = 0; c < a.nc; ++c) {
+    float vh[4], vl[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(st[i], vh[i], vl[i]);
+    hi[c * h_step] = make_uint2(pack_bf16(vh[0], vh[1]), pack_bf16(vh[2], vh[3]));
+    lo[c * h_step] = make_uint2(pack_bf16(vl[0], vl[1]), pack_bf16(vl[2], vl[3]));
+    const float4 sv = s_in[c * s_step];
+    const float d = dec[c * a.h];
+    st[0] = fmaf(st[0], d, sv.x);
+    st[1] = fmaf(st[1], d, sv.y);
+    st[2] = fmaf(st[2], d, sv.z);
+    st[3] = fmaf(st[3], d, sv.w);
+  }
+  *reinterpret_cast<float4*>(a.fin + (static_cast<long long>(bi) * a.h + h) * pn + e) =
+      make_float4(st[0], st[1], st[2], st[3]);
+}
+
+// Phase 3.  Block = (batch row, chunk, 64-row query tile I, group of g3
+// heads), two warpgroups; the heaviest query tiles are numbered first.  The
+// C rows of I and the B rows of the key tiles J <= I arrive once by TMA;
+// the score tiles C_I B_J^T (wgmma, fp32; warpgroup w computes the tiles
+// J = w, w + 2) are computed once and kept in shared memory, over the B
+// rows they were computed from, in the accumulator layout that both
+// warpgroups share, for every head of the group.  Warpgroup w takes heads
+// w, w + 2, ...; each head's x rows of the key tiles and its entering state
+// h_c (hi and lo) arrive by TMA into the warpgroup's stage of the ring,
+// while the other warpgroup computes.  Per head:
+//   acc  = C_I (h_hi + h_lo)^T        (wgmma, both operands K-major)
+//   acc *= exp(cum_i)                  (rows, on the accumulators)
+//   acc += L_IJ x_J, J <= I            (wgmma, L from registers in bf16 hi + lo,
+//                                       x MN-major)
+// with L_ij = select(j <= i, exp(cum_i - cum_j)) C_i.B_j dt_j, and cum the
+// values phase 1 stored; y is stored once in bf16.
+template <int P, int N>
+__global__ void __launch_bounds__(2 * kThreads)
+ssd_chunk_scan_kernel(const Args a, const __grid_constant__ CUtensorMap x_map,
+                      const __grid_constant__ CUtensorMap b_map,
+                      const __grid_constant__ CUtensorMap c_map,
+                      const __grid_constant__ CUtensorMap hi_map,
+                      const __grid_constant__ CUtensorMap lo_map) {
+  constexpr int kP = wg_n(P);
+  constexpr int kAcc = kP / 2;
+  constexpr int kNk = (N + 15) / 16;  // k-steps over the state dim
+  using TX = Tile<P>;
+  using TB = Tile<N>;
+  static_assert(TB::kBytes <= kStashBytes, "a score tile stashes over its B rows");
+
+  const int kr = a.nt * kRows;
+  const int stage_bytes = a.nt * TX::kBytes + 2 * TB::kBytes;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* c_s = align1024(smem_raw);              // C rows of I
+  unsigned char* b_s = c_s + TB::kBytes;                 // nt tiles of B, then the stash
+  float* stash = reinterpret_cast<float*>(b_s);          // [nt][32][128]
+  unsigned char* ring = b_s + a.nt * kStashBytes;        // 2 x {nt x tiles, h_hi, h_lo}
+  float* cum_s = reinterpret_cast<float*>(ring + 2 * stage_bytes);  // [g3][kr]
+  float* dt_s = cum_s + a.g3 * kr;                       // [g3][kr]
+  __shared__ uint64_t cb_bar, ring_bar[2];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kThreads;
+  const int ltid = tid % kThreads;  // thread of the warpgroup
+  const int warp = ltid / 32;
+  const int lane = tid % 32;
+  const int groups = (a.h + a.g3 - 1) / a.g3;
+  const int per_tile = a.batch * a.nc * groups;
+  const int it = a.nt - 1 - blockIdx.x / per_tile;
+  const int rest = blockIdx.x % per_tile;
+  const int grp = rest % groups;
+  const int bc = rest / groups;
+  const int bi = bc / a.nc;
+  const int c = bc % a.nc;
+  const int h0 = grp * a.g3;
+  const int nheads = min(a.g3, a.h - h0);
+  const int q = a.chunk;
+  const int s0 = c * q;
+  const int rows = min(q, a.s - s0);  // valid rows of this chunk
+  const int nk = it + 1;              // key tiles J <= I
+
+  // Head k into stage k % 2, the stage of warpgroup k % 2.
+  auto load_head = [&](int k) {
+    const int st = k % 2;
+    unsigned char* dst = ring + st * stage_bytes;
+    mbar_expect(&ring_bar[st], nk * TX::kBytes + 2 * TB::kBytes);
+    for (int t = 0; t < nk; ++t)
+      tma_tile<P>(dst + t * TX::kBytes, &x_map, &ring_bar[st], s0 + kRows * t, h0 + k, bi);
+    unsigned char* hs = dst + a.nt * TX::kBytes;
+    tma_tile<N>(hs, &hi_map, &ring_bar[st], 0, h0 + k, bi * a.nc + c);
+    tma_tile<N>(hs + TB::kBytes, &lo_map, &ring_bar[st], 0, h0 + k, bi * a.nc + c);
+  };
+  if (tid == 0) {
+    mbar_init(&cb_bar);
+    for (int i = 0; i < 2; ++i) mbar_init(&ring_bar[i]);
+    mbar_fence_init();
+    mbar_expect(&cb_bar, (1 + nk) * TB::kBytes);
+    tma_tile<N>(c_s, &c_map, &cb_bar, s0 + kRows * it, 0, bi);
+    for (int t = 0; t < nk; ++t)
+      tma_tile<N>(b_s + t * TB::kBytes, &b_map, &cb_bar, s0 + kRows * t, 0, bi);
+    for (int k = 0; k < min(2, nheads); ++k) load_head(k);
+  }
+  __syncthreads();  // the barriers are initialised
+  // Phase 1's cumsums and dt of the group's heads (zero past the chunk).
+  for (int l = tid; l < nheads * nk * kRows; l += 2 * kThreads) {
+    const int k = l / (nk * kRows);
+    const int j = l % (nk * kRows);
+    const int h = h0 + k;
+    const long long row = (static_cast<long long>(bi) * a.nc + c) * a.h + h;
+    cum_s[k * kr + j] = j < q ? a.cum[row * q + j] : 0.0f;
+    dt_s[k * kr + j] = j < rows ? a.dt[bi * a.dt_sb + (s0 + j) * a.dt_ss + h * a.dt_sh] : 0.0f;
+  }
+  mbar_wait(&cb_bar, 0);
+
+  // Score tiles C_I B_J^T into registers (at most two per warpgroup), then,
+  // once every B row is read, into the stash: stash[(J * 32 + e) * 128 + ltid].
+  float sc[2][32];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int jt = wg + 2 * u;
+    if (jt < nk) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[u][i] = 0.0f;
+      fence_regs(sc[u]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kNk; ++kk) {
+        const int off = (kk / 4) * TB::kAtomBytes + (kk % 4) * 32;  // atom, then 16 columns
+        wgmma_ss<64>(sc[u], make_desc(c_s + off, 16, 1024),
+                     make_desc(b_s + jt * TB::kBytes + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc[u]);
+    }
+  }
+  __syncthreads();  // every B row is read; cum_s and dt_s are written
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int jt = wg + 2 * u;
+    if (jt < nk) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) stash[(jt * 32 + e) * kThreads + ltid] = sc[u][e];
+    }
+  }
+  __syncthreads();  // the stash is complete
+
+  const int g = lane / 4;
+  const int qd = lane % 4;
+  const int r0 = kRows * it + 16 * warp + g;  // this thread's rows in the chunk: r0, r0 + 8
+  const unsigned char* xs = ring + wg * stage_bytes;
+  const unsigned char* hs = xs + a.nt * TX::kBytes;
+  for (int k = wg; k < nheads; k += 2) {
+    const int h = h0 + k;
+    const float* cum = cum_s + k * kr;
+    const float* dt = dt_s + k * kr;
+    mbar_wait(&ring_bar[wg], (k / 2) & 1);
+
+    float acc[kAcc];  // y of this head's 64 rows
+    // L_IJ in registers, bf16 hi + lo, in the wgmma A-fragment layout.
+    auto build_l = [&](int jt, uint32_t (&fh)[4][4], uint32_t (&fl)[4][4]) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {  // keys 8 i .. 8 i + 7 of tile J
+        float lh[4], ll[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = r0 + 8 * (e >> 1);
+          const int j = kRows * jt + 8 * i + 2 * qd + (e & 1);
+          const float sc = stash[(jt * 32 + 4 * i + e) * kThreads + ltid];
+          // A select: exp overflows above the diagonal.
+          const float v = (j <= ri && ri < rows) ? __expf(cum[ri] - cum[j]) * sc * dt[j] : 0.0f;
+          split(v, lh[e], ll[e]);
+        }
+        // Keys 8 i .. 8 i + 7 are k-step i / 2, half i % 2.
+        fh[i / 2][2 * (i % 2) + 0] = pack_bf16(lh[0], lh[1]);
+        fh[i / 2][2 * (i % 2) + 1] = pack_bf16(lh[2], lh[3]);
+        fl[i / 2][2 * (i % 2) + 0] = pack_bf16(ll[0], ll[1]);
+        fl[i / 2][2 * (i % 2) + 1] = pack_bf16(ll[2], ll[3]);
+      }
+    };
+    // acc += L_IJ x_J, started and committed; the caller waits.
+    auto start_lx = [&](int jt, const uint32_t (&fh)[4][4], const uint32_t (&fl)[4][4]) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = make_desc(xs + jt * TX::kBytes + kk * 2048, TX::kAtomBytes, 1024);
+        wgmma_rs<kP>(acc, fh[kk], db);
+        wgmma_rs<kP>(acc, fl[kk], db);
+      }
+      wgmma_commit();
+    };
+
+    // The inter-chunk term, computed while L_I0 is built; then its row
+    // scale exp(cum_i).
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int part = 0; part < 2; ++part) {
+#pragma unroll
+      for (int kk = 0; kk < kNk; ++kk) {
+        const int off = (kk / 4) * TB::kAtomBytes + (kk % 4) * 32;
+        wgmma_ss<kP>(acc, make_desc(c_s + off, 16, 1024),
+                     make_desc(hs + part * TB::kBytes + off, 16, 1024), part + kk > 0);
+      }
+    }
+    wgmma_commit();
+    uint32_t ah[4][4], al[4][4], bh[4][4], bl[4][4];
+    build_l(0, ah, al);
+    wgmma_wait_all();
+    fence_regs(acc);
+    const float e0 = expf(cum[r0]);
+    const float e1 = expf(cum[r0 + 8]);
+#pragma unroll
+    for (int i = 0; i < kAcc / 4; ++i) {
+      acc[4 * i + 0] *= e0;
+      acc[4 * i + 1] *= e0;
+      acc[4 * i + 2] *= e1;
+      acc[4 * i + 3] *= e1;
+    }
+    fence_regs(acc);
+
+    // The intra-chunk term over the key tiles J <= I: the next tile's L is
+    // built while this tile's products run.
+    for (int jt = 0; jt < nk; jt += 2) {
+      start_lx(jt, ah, al);
+      if (jt + 1 < nk) build_l(jt + 1, bh, bl);
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (jt + 1 < nk) {
+        start_lx(jt + 1, bh, bl);
+        if (jt + 2 < nk) build_l(jt + 2, ah, al);
+        wgmma_wait_all();
+        fence_regs(acc);
+      }
+    }
+
+    // acc[4 i + e]: row r0 + 8 (e >> 1), column 8 i + 2 qd + (e & 1).
+    __nv_bfloat16* y = a.y + (static_cast<long long>(bi) * a.s + s0) * a.h * P +
+                       static_cast<long long>(h) * P;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int ri = r0 + 8 * rr;
+      if (ri >= rows) continue;
+#pragma unroll
+      for (int i = 0; i < kAcc / 4; ++i) {
+        const int pp = 8 * i + 2 * qd;
+        if (pp < P)
+          *reinterpret_cast<__nv_bfloat162*>(y + static_cast<long long>(ri) * a.h * P + pp) =
+              __floats2bfloat162_rn(acc[4 * i + 2 * rr], acc[4 * i + 2 * rr + 1]);
+      }
+    }
+    // This warpgroup is done with its stage before it refills.
+    asm volatile("bar.sync %0, %1;\n" :: "r"(1 + wg), "r"(kThreads) : "memory");
+    if (ltid == 0 && k + 2 < nheads) load_head(k + 2);
+  }
+}
+
+// Dynamic shared memory of each kernel, 1 KB of alignment included.
+template <int P, int N>
+size_t state_smem(const Args& a) {
+  return 1024 + static_cast<size_t>(a.nt) * (Tile<N>::kBytes + 2 * Tile<P>::kBytes) +
+         2 * sizeof(float) * a.g1 * a.nt * kRows;
+}
+
+template <int P, int N>
+size_t scan_smem(const Args& a) {
+  return 1024 + static_cast<size_t>(Tile<N>::kBytes) + static_cast<size_t>(a.nt) * kStashBytes +
+         2 * static_cast<size_t>(a.nt * Tile<P>::kBytes + 2 * Tile<N>::kBytes) +
+         2 * sizeof(float) * a.g3 * a.nt * kRows;
+}
+
+template <int P, int N>
+int launch(Args a, const void* x, long long x_sb, long long x_ss, long long x_sh,
+           const void* b, long long b_sb, long long b_ss,
+           const void* c, long long c_sb, long long c_ss, cudaStream_t stream) {
+  const dim3 pass_grid(a.batch * a.h, (a.p * a.n + 4 * kPassThreads - 1) / (4 * kPassThreads));
+  if (a.nc == 0) {  // an empty sequence: the final state is zero
+    ssd_state_pass_kernel<<<pass_grid, kPassThreads, 0, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  CUtensorMap x_map, b_map, c_map, hi_map, lo_map;
+  const long long h_rows = static_cast<long long>(a.p) * a.nh;
+  int err = make_map(&x_map, x, a.batch, a.s, a.h, P, x_sb, x_ss, x_sh);
+  if (err == 0) err = make_map(&b_map, b, a.batch, a.s, 1, N, b_sb, b_ss, 0);
+  if (err == 0) err = make_map(&c_map, c, a.batch, a.s, 1, N, c_sb, c_ss, 0);
+  if (err == 0)
+    err = make_map(&hi_map, a.h_hi, a.batch * a.nc, P, a.h, N, a.h * h_rows, a.nh, h_rows);
+  if (err == 0)
+    err = make_map(&lo_map, a.h_lo, a.batch * a.nc, P, a.h, N, a.h * h_rows, a.nh, h_rows);
+  if (err != 0) return err;
+
+  const size_t smem1 = state_smem<P, N>(a);
+  const size_t smem3 = scan_smem<P, N>(a);
+  if (smem1 > static_cast<size_t>(kMaxSmem) || smem3 > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(ssd_chunk_state_kernel<P, N>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem1));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ssd_chunk_scan_kernel<P, N>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem3));
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const int groups1 = (a.h + a.g1 - 1) / a.g1;
+  const int groups3 = (a.h + a.g3 - 1) / a.g3;
+  ssd_chunk_state_kernel<P, N><<<a.batch * a.nc * groups1, kThreads, smem1, stream>>>(
+      a, x_map, b_map);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_state_pass_kernel<<<pass_grid, kPassThreads, 0, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ssd_chunk_scan_kernel<P, N><<<a.batch * a.nc * a.nt * groups3, 2 * kThreads, smem3, stream>>>(
+      a, x_map, b_map, c_map, hi_map, lo_map);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bf16
+
 // The (P, N) pairs taken: the model shapes, the smoke configs' and the
 // reference sweep's.  kernels/ssd_scan.py lists the same pairs.
 #define SSD_SHAPES(X)                                                    \
   X(64, 128) X(64, 64) X(32, 16)                                         \
   X(4, 4) X(4, 8) X(4, 16) X(8, 4) X(8, 8) X(8, 16) X(16, 4) X(16, 8) X(16, 16)
 
-template <typename T>
-int dispatch_shape(const Args& a, int batch, int p, int n, cudaStream_t stream) {
+int dispatch_f32(const f32::Args& a, int batch, int p, int n, cudaStream_t stream) {
 #define SSD_CASE(P_, N_) \
-  if (p == P_ && n == N_) return launch<T, P_, N_>(a, batch, stream);
+  if (p == P_ && n == N_) return f32::launch<float, P_, N_>(a, batch, stream);
+  SSD_SHAPES(SSD_CASE)
+#undef SSD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch_bf16(const bf16::Args& a, const void* x, long long x_sb, long long x_ss,
+                  long long x_sh, const void* b, long long b_sb, long long b_ss,
+                  const void* c, long long c_sb, long long c_ss, cudaStream_t stream) {
+#define SSD_CASE(P_, N_)                                                                  \
+  if (a.p == P_ && a.n == N_)                                                             \
+    return bf16::launch<P_, N_>(a, x, x_sb, x_ss, x_sh, b, b_sb, b_ss, c, c_sb, c_ss, stream);
   SSD_SHAPES(SSD_CASE)
 #undef SSD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -365,24 +975,61 @@ int dispatch_shape(const Args& a, int batch, int p, int n, cudaStream_t stream) 
 
 // dtype 0 = fp32, 1 = bf16 (x, B, C and y); dt and a are fp32.  Strides are
 // in elements: x (batch, seq, head), dt (batch, seq, head), B and C (batch,
-// seq).  Launches on `stream` and returns cudaGetLastError() (0 = launched);
-// an unsupported dtype, (P, N) or chunk returns cudaErrorInvalidValue
-// without launching.
+// seq).  bf16 needs x, B and C 16-byte aligned with every stride a multiple
+// of 8 (TMA), and scratch from the caller, each contiguous: states (B, nc,
+// H, P, N) fp32, h_hi and h_lo (B, nc, H, P, round_up(N, 8)) bf16, cum (B,
+// nc, H, Q) and decay (B, nc, H) fp32; g1 and g3 are the heads per block of
+// the chunk-state and chunk-scan kernels.  fp32 ignores the scratch.
+// Launches on `stream` and returns the first error of its launches (0 =
+// launched); an unsupported dtype, shape, chunk or alignment returns
+// cudaErrorInvalidValue without launching, a refused tensor map 1000 + its
+// CUresult.
 extern "C" int ssd_scan_fwd(
     const void* x, const void* dt, const void* a, const void* b, const void* c,
     void* y, void* fin, int dtype, int batch, int s, int h, int p, int n, int chunk,
     long long x_sb, long long x_ss, long long x_sh,
     long long dt_sb, long long dt_ss, long long dt_sh,
     long long b_sb, long long b_ss, long long c_sb, long long c_ss,
+    void* states, void* h_hi, void* h_lo, void* cum, void* decay, int g1, int g3,
     void* stream) {
-  if (batch <= 0 || h <= 0 || s < 0 || chunk <= 0 || chunk > kMaxChunk ||
-      (chunk > kTile && chunk % kTile != 0))
+  if (batch <= 0 || h <= 0 || s < 0 || chunk <= 0 || chunk > f32::kMaxChunk ||
+      (chunk > f32::kTile && chunk % f32::kTile != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args args{x, static_cast<const float*>(dt), static_cast<const float*>(a), b, c, y,
-            static_cast<float*>(fin), h, s, chunk,
-            x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_shape<float>(args, batch, p, n, st);
-  if (dtype == 1) return dispatch_shape<__nv_bfloat16>(args, batch, p, n, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    f32::Args args{x, static_cast<const float*>(dt), static_cast<const float*>(a), b, c, y,
+                   static_cast<float*>(fin), h, s, chunk,
+                   x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, b_sb, b_ss, c_sb, c_ss};
+    return dispatch_f32(args, batch, p, n, st);
+  }
+  if (dtype != 1 || g1 <= 0 || g3 <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* ptr : {x, b, c})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (long long v : {x_sb, x_ss, x_sh, b_sb, b_ss, c_sb, c_ss})
+    if (v % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  bf16::Args args{};
+  args.batch = batch;
+  args.s = s;
+  args.h = h;
+  args.p = p;
+  args.n = n;
+  args.chunk = chunk;
+  args.nc = (s + chunk - 1) / chunk;
+  args.nt = (chunk + bf16::kRows - 1) / bf16::kRows;
+  args.g1 = g1;
+  args.g3 = g3;
+  args.nh = (n + 7) / 8 * 8;
+  args.dt = static_cast<const float*>(dt);
+  args.dt_sb = dt_sb;
+  args.dt_ss = dt_ss;
+  args.dt_sh = dt_sh;
+  args.a = static_cast<const float*>(a);
+  args.y = static_cast<__nv_bfloat16*>(y);
+  args.fin = static_cast<float*>(fin);
+  args.states = static_cast<float*>(states);
+  args.cum = static_cast<float*>(cum);
+  args.decay = static_cast<float*>(decay);
+  args.h_hi = static_cast<__nv_bfloat16*>(h_hi);
+  args.h_lo = static_cast<__nv_bfloat16*>(h_lo);
+  return dispatch_bf16(args, x, x_sb, x_ss, x_sh, b, b_sb, b_ss, c, c_sb, c_ss, st);
 }

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  The
 library lands in ``build/repro_torch/`` at the repository root, named by a
-hash of its source, so an edited source rebuilds and an unchanged one is
+hash of its source and of the shared headers (``csrc/*.cuh``), so an edited
+source or header rebuilds and an unchanged one is
 reused; what ``ptxas -v`` said of each kernel (registers, shared memory,
 spills) is kept beside it.  Nothing is built at import: the first launch
 builds.  A failed build raises.
@@ -45,8 +46,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives: named by a hash
+    of the source, the headers in ``csrc/`` it may include, and the flags."""
     text = (CSRC / source).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 

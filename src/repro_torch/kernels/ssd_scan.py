@@ -1,8 +1,8 @@
 """The Mamba2 chunked SSD scan (state-space duality, arXiv:2405.21060).
 
 Every full-sequence SSD of the SSM and hybrid families (their ``forward``
-and ``prefill``).  On CUDA tensors it launches the hand-written kernel in
-``csrc/ssd_scan.cu``, which replaces the Pallas TPU kernel
+and ``prefill``).  On CUDA tensors it launches the hand-written kernels in
+``csrc/ssd_scan.cu``, which replace the Pallas TPU kernel
 ``repro/kernels/ssd_scan.py::ssd_scan``.  On CPU tensors it runs the plain
 version, :func:`~repro_torch.kernels.ref.ssd_scan_ref` (the port's
 ``models/ssm.py::ssd_chunked``); there is no other route.
@@ -10,16 +10,28 @@ version, :func:`~repro_torch.kernels.ref.ssd_scan_ref` (the port's
 Bound on an H100: ``B * nc * [2 Qc N + H (2 Qc P + 4 Q N P)]`` operations
 (``Qc = Q (Q + 1) / 2``, causal pairs only) against x, dt, B and C read once
 and y and the final state written once.  At the model shapes (bf16) the
-bytes bound it under the bf16 tensor-core peak.  The kernel gives one block
-to each (batch, head), walks the chunks in order with the (P, N) fp32 state
-in shared memory, and computes the intra-chunk term as causal 64 x 64 tiles
-on the CUDA cores in fp32.  x, B and C are read through their (batch, seq)
-strides, so the model's views of one conv output go in without a copy.
+bytes bound it under the bf16 tensor-core peak.
+
+bf16 runs as three kernels on the tensor cores, in the order of
+``ssd_chunked``'s phases: the chunks' own states and cumulative sums
+(parallel over batch, chunk and head), the fp32 recurrence over chunks, then
+y from C·Bᵀ (computed once per block for a group of heads), the stored
+cumulative sums and the state entering each chunk.  They pass their results
+through scratch that this wrapper allocates (:func:`scratch_shapes`); the
+heads per block come from :func:`head_groups`.  fp32 runs the CUDA-core
+kernel, one block per (batch, head) walking the chunks in order.  x, B and
+C are read through their (batch, seq) strides, so the model's views of one
+conv output go in without a copy; the bf16 kernels read them by TMA, which
+needs a 16-byte aligned start and strides of whole 16 bytes, so a bf16 view
+that lacks them is first copied to a padded layout (:func:`tma_ready`; the
+model's views never are).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -34,17 +46,106 @@ SHAPES = ((64, 128), (64, 64), (32, 16)) + tuple(
 )
 CHUNKS = (8, 16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROWS = 64  # rows of a bf16 tile: one wgmma M, one TMA box
+# Blocks the bf16 chunk kernels aim for: four per SM of the H100's 132.
+TARGET_BLOCKS = 4 * 132
+MAX_GROUP = 8  # heads per block; the shared memory of the largest shapes allows 8
 
 
+@functools.lru_cache(maxsize=None)  # argtypes are set once
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.ssd_scan_fwd
     fn.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
-        + [ctypes.c_void_p]
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib
+
+
+def _group(units: int, heads: int) -> int:
+    """The most heads per block (at most :data:`MAX_GROUP`) that still gives
+    ``units`` x ceil(heads / group) >= :data:`TARGET_BLOCKS` blocks; 1 where
+    none does."""
+    g = MAX_GROUP
+    while g > 1 and units * -(-heads // g) < TARGET_BLOCKS:
+        g //= 2
+    return g
+
+
+def head_groups(batch: int, s: int, heads: int, chunk: int) -> Tuple[int, int]:
+    """Heads per block of the bf16 chunk-state kernel (a block per batch row,
+    chunk and head group) and of the chunk-scan kernel (a block per batch
+    row, chunk, 64-row query tile and head group).  More heads per block
+    share more loads (the chunk's B rows; its C·Bᵀ tiles), fewer give more
+    blocks to fill the card.  A function of the shapes alone."""
+    nc = -(-s // chunk)
+    nt = -(-chunk // ROWS)
+    return _group(batch * nc, heads), _group(batch * nc * nt, heads)
+
+
+def scratch_shapes(
+    batch: int, s: int, heads: int, p: int, n: int, chunk: int,
+) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The bf16 path's scratch, each (shape, dtype): every chunk's own state
+    S_c (fp32), the state entering every chunk as bf16 hi + lo (rows of N
+    rounded up to 8 elements, TMA's 16 bytes), the chunks' cumulative sums of
+    dt * a and their decays exp(cum_Q) (fp32).  The entering states have
+    buffers of their own rather than overwriting S_c: the state pass then
+    needs no block-wide read-before-write, at the cost of the memory."""
+    nc = -(-s // chunk)
+    nh = -(-n // 8) * 8
+    return {
+        "states": ((batch, nc, heads, p, n), torch.float32),
+        "h_hi": ((batch, nc, heads, p, nh), torch.bfloat16),
+        "h_lo": ((batch, nc, heads, p, nh), torch.bfloat16),
+        "cum": ((batch, nc, heads, chunk), torch.float32),
+        "decay": ((batch, nc, heads), torch.float32),
+    }
+
+
+def _nbytes(shape: Tuple[int, ...], dtype: torch.dtype) -> int:
+    return math.prod(shape) * dtype.itemsize
+
+
+def scratch_bytes(batch: int, s: int, heads: int, p: int, n: int, chunk: int) -> int:
+    """Bytes of :func:`scratch_shapes`."""
+    return sum(_nbytes(*v) for v in scratch_shapes(batch, s, heads, p, n, chunk).values())
+
+
+def kernel_bytes(batch: int, s: int, heads: int, p: int, n: int, chunk: int) -> Dict[str, int]:
+    """Bytes each bf16 kernel must move, each input read once and each output
+    written once, scratch included: the chunk-state kernel reads x, dt, a
+    and B and writes S_c, cum and decay; the state pass reads S_c and decay
+    and writes the entering states and the final state; the chunk-scan
+    kernel reads x, dt, B, C, cum and the entering states and writes y."""
+    size = {k: _nbytes(*v) for k, v in scratch_shapes(batch, s, heads, p, n, chunk).items()}
+    xy = 2 * batch * s * heads * p  # x read, or y written
+    dt = 4 * batch * s * heads
+    bc = 2 * batch * s * n  # B or C
+    entering = size["h_hi"] + size["h_lo"]
+    return {
+        "ssd_chunk_state_kernel": xy + dt + 4 * heads + bc + size["states"] + size["cum"]
+        + size["decay"],
+        "ssd_state_pass_kernel": size["states"] + size["decay"] + entering
+        + 4 * batch * heads * p * n,
+        "ssd_chunk_scan_kernel": 2 * xy + dt + 2 * bc + size["cum"] + entering,
+    }
+
+
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where TMA can read it (a 16-byte aligned start, every
+    stride but the last a multiple of 8 elements), else a copy into a buffer
+    whose last dim is rounded up to 8 elements, returned as a view of the
+    original shape (the padding is never read)."""
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:-1]):
+        return t
+    last = t.shape[-1]
+    buf = torch.empty((*t.shape[:-1], -(-last // 8) * 8), dtype=t.dtype, device=t.device)
+    view = buf[..., :last]
+    view.copy_(t)
+    return view
 
 
 def check_devices(*tensors: torch.Tensor) -> None:
@@ -114,14 +215,21 @@ def ssd_scan(
     fin = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     if bsz * h == 0:
         return y, fin
+    scratch, g1, g3 = [], 0, 0
+    if x.dtype == torch.bfloat16:
+        x, b_in, c_in = (tma_ready(t) for t in (x, b_in, c_in))
+        scratch = [torch.empty(shape, dtype=dtype, device=x.device)
+                   for shape, dtype in scratch_shapes(bsz, s, h, p, n, chunk).values()]
+        g1, g3 = head_groups(bsz, s, h, chunk)
     lib = _library()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
             y.data_ptr(), fin.data_ptr(), _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk,
             x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
-            b_in.stride(0), b_in.stride(1), c_in.stride(0), c_in.stride(1), stream,
+            b_in.stride(0), b_in.stride(1), c_in.stride(0), c_in.stride(1),
+            *([t.data_ptr() for t in scratch] or [0] * 5), g1, g3, stream,
         )
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")

@@ -259,6 +259,40 @@ def test_ssd_kernel_matches_plain_version(cuda, b, s, h, p, n, chunk, dtype):
         assert bool(((got - plain).abs() <= bound).all()), float(((got - plain).abs() - bound).max())
 
 
+# bf16 at full model width: shorter than one chunk (the serve launcher's
+# 16-token prompts), ragged over 4 chunks of 256, and 32 chunks of 64.
+SSD_BF16_MODEL_CASES = [
+    (2, 16, 48, 64, 128, 64), (1, 1000, 80, 64, 64, 256), (2, 2048, 48, 64, 128, 64),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_BF16_MODEL_CASES)
+def test_ssd_bf16_kernel_at_model_width(cuda, b, s, h, p, n, chunk):
+    """The three bf16 kernels at the models' widths: y and the final state
+    within 5e-2 abs and rel of the plain version, one launch counted."""
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, torch.bfloat16, cuda, seed=s + h)
+    before = ssd_scan.launches
+    y, fin = ops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape and fin.dtype == torch.float32
+    ry, rfin = ssd_scan_ref(x, dt, a, bb, cc, chunk)
+    torch.testing.assert_close(y.float(), ry.float(), rtol=5e-2, atol=5e-2)
+    torch.testing.assert_close(fin, rfin, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(4, 2048, 48, 64, 128, 64), (4, 1024, 80, 64, 64, 256)])
+def test_ssd_bf16_kernel_is_bit_identical_across_calls(cuda, b, s, h, p, n, chunk):
+    """No atomics and fixed summation orders: two calls at the model
+    prefills' shapes give the same bits in y and the final state."""
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, torch.bfloat16, cuda, seed=h)
+    first = ops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+    second = ops.ssd_scan(x, dt, a, bb, cc, chunk=chunk)
+    torch.cuda.synchronize()
+    for one, two in zip(first, second):
+        assert torch.equal(one, two)
+
+
 def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
     x, dt, a, bb, cc = _ssd_inputs(1, 16, 2, 16, 16, torch.float32, cuda, seed=0)
     with pytest.raises(ValueError, match="ssd_scan takes"):  # P = 8 with N = 32

@@ -193,3 +193,93 @@ def test_kernel_refuses_cpu_tensors_directly():
     x, dt, a, bb, cc = _t(*_inputs(1, 8, 2, 4, 4, seed=10))
     with pytest.raises(ValueError, match="cuda"):
         p_ssd._check(x, dt, a, bb, cc, 8)
+
+
+@pytest.mark.parametrize("batch,s,h,chunk,groups", [
+    (4, 2048, 48, 64, (8, 8)),    # mamba2-780m's prefill
+    (4, 1024, 80, 256, (2, 8)),   # zamba2-2.7b's prefill
+    (2, 16, 48, 64, (1, 1)),      # the serve launcher's prompts: too few blocks at any group
+    (2, 24, 2, 8, (1, 1)),
+])
+def test_head_groups_fill_the_card(batch, s, h, chunk, groups):
+    """Heads per block of the bf16 chunk kernels: the most (at most 8) that
+    still give each kernel TARGET_BLOCKS blocks, else 1; shapes alone."""
+    assert p_ssd.head_groups(batch, s, h, chunk) == groups
+    nc, nt = -(-s // chunk), -(-chunk // p_ssd.ROWS)
+    for units, g in zip((batch * nc, batch * nc * nt), groups):
+        assert 1 <= g <= p_ssd.MAX_GROUP
+        if g > 1:
+            assert units * -(-h // g) >= p_ssd.TARGET_BLOCKS
+            assert units * -(-h // (2 * g)) < p_ssd.TARGET_BLOCKS or 2 * g > p_ssd.MAX_GROUP
+
+
+def test_scratch_shapes_and_bytes():
+    """At mamba2's prefill S_c alone is 4·32·48·64·128·4 B = 201 MB; the
+    entering states are bf16 hi + lo with rows of N rounded up to 8."""
+    sh = p_ssd.scratch_shapes(4, 2048, 48, 64, 128, 64)
+    assert sh["states"] == ((4, 32, 48, 64, 128), torch.float32)
+    assert sh["h_hi"] == sh["h_lo"] == ((4, 32, 48, 64, 128), torch.bfloat16)
+    assert sh["cum"] == ((4, 32, 48, 64), torch.float32)
+    assert sh["decay"] == ((4, 32, 48), torch.float32)
+    states = 4 * 32 * 48 * 64 * 128 * 4
+    assert states == 201_326_592
+    assert p_ssd.scratch_bytes(4, 2048, 48, 64, 128, 64) == (
+        2 * states + 4 * 32 * 48 * 64 * 4 + 4 * 32 * 48 * 4)
+    ragged = p_ssd.scratch_shapes(2, 50, 3, 8, 4, 16)  # 4 chunks, the last ragged; N 4 -> 8
+    assert ragged["states"][0] == (2, 4, 3, 8, 4)
+    assert ragged["h_hi"][0] == (2, 4, 3, 8, 8)
+
+
+def test_kernel_bytes_count_inputs_outputs_and_scratch():
+    """Each kernel's bytes: its inputs read once and outputs written once,
+    scratch included; together more than the SSD's own bound counts."""
+    b, s, h, p, n, q = 4, 1024, 80, 64, 64, 256
+    got = p_ssd.kernel_bytes(b, s, h, p, n, q)
+    x, dt, bc = 2 * b * s * h * p, 4 * b * s * h, 2 * b * s * n
+    nc = s // q
+    states, entering = 4 * b * nc * h * p * n, 4 * b * nc * h * p * n
+    cum, decay = 4 * b * nc * h * q, 4 * b * nc * h
+    assert got == {
+        "ssd_chunk_state_kernel": x + dt + 4 * h + bc + states + cum + decay,
+        "ssd_state_pass_kernel": states + decay + entering + 4 * b * h * p * n,
+        "ssd_chunk_scan_kernel": 2 * x + dt + 2 * bc + cum + entering,
+    }
+    own = 2 * x + 2 * bc + dt + 4 * h + 4 * b * h * p * n  # x, B, C, dt, a in; y, state out
+    assert sum(got.values()) > own
+
+
+def test_tma_ready_passes_aligned_views_and_pads_the_rest():
+    """The model's views of one conv output go to TMA as they are; a view
+    TMA cannot read (P = 4: an 8-byte head stride) is copied into rows
+    padded to 8 elements, with the same values."""
+    conv = torch.zeros(2, 16, 48 * 64 + 2 * 128, dtype=torch.bfloat16)
+    xin, bb, cc = torch.split(conv, [48 * 64, 128, 128], dim=-1)
+    x = xin.reshape(2, 16, 48, 64)
+    assert conv.data_ptr() % 16 == 0  # PyTorch's allocators align to 64 bytes at least
+    for t in (x, bb, cc):
+        assert p_ssd.tma_ready(t) is t
+    small = torch.arange(2 * 5 * 3 * 4, dtype=torch.float32).reshape(2, 5, 3, 4).bfloat16()
+    ready = p_ssd.tma_ready(small)
+    assert ready is not small and torch.equal(ready, small)
+    assert ready.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in ready.stride()[:-1])
+
+
+def test_kernel_source_has_the_three_bf16_kernels_and_its_header():
+    """The bf16 path's three kernels are in the source, the shared Hopper
+    header it includes exists, and the library's name follows the header."""
+    src = (_build.CSRC / p_ssd.SOURCE).read_text()
+    for name in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel",
+                 "ssd_scan_kernel"):
+        assert f"{name}(" in src
+    assert '#include "hopper_tma_wgmma.cuh"' in src
+    assert (_build.CSRC / "hopper_tma_wgmma.cuh").is_file()
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path(p_ssd.SOURCE)
+    header = tmp_path / "hopper_tma_wgmma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path(p_ssd.SOURCE) != before
