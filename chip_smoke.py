@@ -19,9 +19,18 @@
    profiling of 5 random-initialised per-task networks on 512 probes,
    task-graph selection, Held-Karp and GA ordering, then
    ``MultitaskEngine.serve_batch`` on 48 requests over several task subsets.
+   The same engine then serves the same requests through
+   ``engine.session`` under each of the four admission policies (greedy,
+   window, affinity, SLO-aware), arriving in bursts on a simulated clock,
+   and once more under scripted faults at the "plan", "load" and "dispatch"
+   sites (a group retried, a group served by the unfused rung).  Then the
+   quickstart (``repro_torch.examples.quickstart``) runs its five steps at
+   its reference sizes: 200 SGD steps, the profile, selection, ordering and
+   Antler against Vanilla; then the block profiler on the card.
 4. Drives the same path on a transformer backbone: mistral-nemo-12b at full
    width (d_model 5120, GQA 32/8, head_dim 160, bf16), its 40 layers cut to
-   8, sequences of 128 tokens, 256 random-token probes, 4 blocks of 2 layers.
+   8, sequences of 128 tokens, 256 random-token probes, 4 blocks of 2 layers;
+   then the same sessions as the LeNet engine's.
 5. Drives ``LMServer.generate`` on the same configuration: 4 prompts of 512
    tokens, 16 greedy decode steps.
 6. Drives ``LMServer.generate`` on mamba2-780m at full width and depth (48
@@ -34,13 +43,20 @@
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the script checks that the kernels ran where the path runs
-them (Pearson 15 times per profile; flash attention 30 times in the
-transformer profile, twice per executed block in serving, 8 times in the
-prefill, 9 times in zamba2's; the SSD once per Mamba2 layer of a prefill,
-48 and 54, and never in decode), that served counters equal the cost
-model's prediction field for field, that served outputs match the
-per-block executor, that Antler beats Vanilla, and that the first decode
-step agrees with ``forward``.  Any failed check raises.
+them (Pearson 15 times per profile, the quickstart's included; flash
+attention 30 times in the transformer profile, twice per executed block in
+serving and in every session, 8 times in the prefill, 9 times in zamba2's;
+the SSD once per Mamba2 layer of a prefill, 48 and 54, and never in
+decode), that served counters equal the cost model's prediction field for
+field (every session's too, faults included), that served outputs match
+the per-block executor, that every session request succeeds, that faulted
+outputs match the fault-free session's, that the quickstart's loss falls,
+that Antler beats Vanilla, and that the first decode step agrees with
+``forward``.  Any failed check raises.  Each session prints a JSON line:
+admission rounds, groups, planning seconds, its wall seconds to the end of
+the drain, admission waits (simulated seconds), weight bytes loaded, the
+device's busy share over the session, and how many rounds were planned
+while the card still had queued work.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  TF32 is switched off for matmuls and cuDNN:
@@ -72,6 +88,8 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core.affinity import affinity_matrix, profile_task  # noqa: E402
 from repro_torch.core.tradeoff import select_task_graph  # noqa: E402
 from repro_torch.data import MultitaskDataset, train_test_split  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.examples.quickstart import branch_point_taps  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     SOURCE as FLASH_SOURCE, flash_attention,
@@ -93,7 +111,11 @@ from repro_torch.models.multitask import (  # noqa: E402
     transformer_block_costs,
 )
 from repro_torch.models.registry import get_model  # noqa: E402
-from repro_torch.serving import LMServer, MultitaskEngine, MultitaskRequest  # noqa: E402
+from repro_torch.core.profiler import profile_program_blocks  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    AffinityPolicy, FaultInjector, GreedyBatchPolicy, LMServer, MultitaskEngine,
+    MultitaskRequest, RetryPolicy, SloAwarePolicy, WindowPolicy,
+)
 from repro_torch.serving.engine import _grow_cache  # noqa: E402
 
 N_TASKS, N_CLASSES, N_BRANCH_POINTS = 5, 4, 3
@@ -314,18 +336,6 @@ def kernel_phase(device: torch.device) -> dict:
     }
 
 
-def branch_point_taps(program, task: int, x: torch.Tensor):
-    """Representations at the branch points (after blocks 0..D-1) of one
-    task's path, flattened per sample — the quickstart's profiling taps."""
-    taps, h = [], x
-    for d, node in enumerate(program.graph.path(task)):
-        if d == N_BRANCH_POINTS:
-            break
-        h = program.block_fns[d](program.node_params[node], h)
-        taps.append(h.reshape(h.shape[0], -1))
-    return taps
-
-
 def check_affinity(aff: np.ndarray) -> None:
     check(aff.shape == (N_BRANCH_POINTS, N_TASKS, N_TASKS), f"affinity shape {aff.shape}")
     check(bool(np.isfinite(aff).all()), "affinity has non-finite entries")
@@ -348,6 +358,27 @@ def select_and_order(aff: np.ndarray, costs, hw, laps: Laps, label: str):
     return sel, exact
 
 
+def check_group_outputs(engine, groups, responses_of, device, tol: float, label: str) -> float:
+    """Every served output matches the per-block executor on its group;
+    ``responses_of(group)`` gives the group's responses in slot order.
+    Returns the max abs error."""
+    reference = TaskGraphExecutor(engine.program, fused=False)
+    max_err = 0.0
+    for group in groups:
+        outs, _stats = reference.run_batch(
+            group.xs.to(device), engine.group_order(group), valid=group.valid
+        )
+        for slot, response in enumerate(responses_of(group)):
+            got = response.outputs
+            check(set(got) == set(engine.group_order(group)), f"{label}slot {slot} tasks")
+            for t, y in got.items():
+                check(tuple(y.shape) == (1, N_CLASSES), f"output shape {tuple(y.shape)}")
+                check(bool(torch.isfinite(y).all()), "non-finite output")
+                max_err = max(max_err, float((y - outs[t][slot]).abs().max()))
+    check(max_err <= tol, f"{label}served vs per-block max abs err {max_err}")
+    return max_err
+
+
 def check_served(engine, plan, requests, responses, predicted, device, tol: float,
                  label: str) -> float:
     """Served counters equal the prediction field for field, and every served
@@ -356,21 +387,8 @@ def check_served(engine, plan, requests, responses, predicted, device, tol: floa
           f"{label}served counters {engine.last_batch_stats} != predicted {predicted}")
     check(len({engine.normalized_subset(r.tasks) for r in requests}) >= 4,
           "fewer than 4 task subsets requested")
-    reference = TaskGraphExecutor(engine.program, fused=False)
-    max_err = 0.0
-    for group in plan:
-        outs, _stats = reference.run_batch(
-            group.xs.to(device), engine.group_order(group), valid=group.valid
-        )
-        for slot, i in enumerate(group.indices):
-            got = responses[i].outputs
-            check(set(got) == set(engine.group_order(group)), f"request {i} tasks")
-            for t, y in got.items():
-                check(tuple(y.shape) == (1, N_CLASSES), f"output shape {tuple(y.shape)}")
-                check(bool(torch.isfinite(y).all()), "non-finite output")
-                max_err = max(max_err, float((y - outs[t][slot]).abs().max()))
-    check(max_err <= tol, f"{label}served vs per-block max abs err {max_err}")
-    return max_err
+    return check_group_outputs(
+        engine, plan, lambda g: [responses[i] for i in g.indices], device, tol, label)
 
 
 def check_beats_vanilla(program, x: torch.Tensor, order, hw, label: str) -> None:
@@ -453,6 +471,236 @@ def time_groups(result: dict, reps: int = 20, warmup: int = 2) -> list:
     return out
 
 
+# --------------------------------------------------------------------------
+# Sessions: the four admission policies and scripted faults
+# --------------------------------------------------------------------------
+
+# The phase's requests arrive in bursts on a simulated clock: BURST requests
+# every BURST_DT seconds, one ``step`` after each burst, a ``drain`` at the
+# end.  Every fourth request carries a deadline DEADLINE_IN after its
+# arrival, far enough that none expires; the SLO policy counts it urgent
+# once its slack is below SLACK.
+BURST, BURST_DT, DEADLINE_IN, SLACK = 8, 0.1, 10.0, 9.8
+SESSION_POLICIES = {
+    "greedy": GreedyBatchPolicy(),
+    "window": WindowPolicy(max_wait=0.15, max_group_size=16),
+    "affinity": AffinityPolicy(max_group_size=16, min_pending=12, max_wait=0.3),
+    "slo": SloAwarePolicy(max_group_size=16, min_pending=12, max_wait=0.3,
+                          slack_threshold=SLACK, starvation_wait=0.25),
+}
+# Scripted faults for the chaos session (invocation indices per site, with
+# RetryPolicy()'s two retries): three "plan" faults in a row send one group
+# to the unfused rung; the lone "load" and "dispatch" faults are retried.
+CHAOS_SCRIPT = {"plan": {1, 2, 3}, "load": {6}, "dispatch": {12}}
+
+
+class SimClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def serve_session(engine, requests, policy, fault_injector=None):
+    """One session over ``requests`` from a cold executor, on a simulated
+    clock, with no backoff sleeps.  Returns the session, the responses (in
+    request order), each response keyed by the id of its submitted request,
+    the groups the admission rounds planned, the seconds from the first
+    submit to the drain's end (device synchronised), and for each round
+    after the first whether the card still had queued work when its planning
+    began (planning overlapping execution)."""
+    engine.executor.reset()
+    engine.fault_injector = fault_injector
+    groups, busy_at_plan = [], []
+    plan = engine.plan_groups
+    cuda = engine.device.type == "cuda"
+
+    def recorded(reqs):
+        if cuda and groups:
+            busy_at_plan.append(not torch.cuda.current_stream(engine.device).query())
+        out = plan(reqs)
+        groups.extend(out)
+        return out
+
+    engine.plan_groups = recorded
+    clock = SimClock()
+    session = engine.session(policy=policy, clock=clock, sleep=lambda _s: None,
+                             retry=RetryPolicy())
+    try:
+        sync(engine.device)
+        t0 = time.perf_counter()
+        futures, submitted = [], []
+        for i, r in enumerate(requests):
+            if i and i % BURST == 0:
+                session.step()
+                clock.t += BURST_DT
+            submitted.append(MultitaskRequest(
+                x=r.x, tasks=r.tasks, tenant=("a", "b", "c")[i % 3],
+                deadline=clock.t + DEADLINE_IN if i % 4 == 0 else None))
+            futures.append(session.submit(submitted[-1]))
+        session.step()
+        clock.t += BURST_DT
+        session.drain()
+        sync(engine.device)
+        seconds = time.perf_counter() - t0
+    finally:
+        del engine.plan_groups
+        engine.fault_injector = None
+    check(all(f.done() for f in futures), "a session future is not terminal")
+    for f in futures:
+        check(f.error() is None, f"session request {f.seq} failed: {f.error()!r}")
+    responses = [f.result() for f in futures]
+    by_request = {id(r): resp for r, resp in zip(submitted, responses)}
+    return session, responses, by_request, groups, seconds, busy_at_plan
+
+
+def check_session(engine, session, by_request, groups, device, tol, label) -> float:
+    """Counters equal the prediction field for field; outputs equal the
+    per-block executor's on each planned group."""
+    check(session.stats == session.predicted,
+          f"{label}session counters {session.stats} != predicted {session.predicted}")
+    return check_group_outputs(
+        engine, groups, lambda g: [by_request[id(r)] for r in g.requests], device, tol,
+        label)
+
+
+def session_phase(engine, requests, device, tol: float, label: str,
+                  layers_per_block=None) -> dict:
+    """The phase's requests through ``engine.session`` under each policy;
+    launch counts are set to 0 just before each session and read just after.
+    Prints one JSON line per policy."""
+    out = {}
+    for name, policy in SESSION_POLICIES.items():
+        reset_launch_counts()
+        session, responses, by_request, groups, seconds, busy_at_plan = serve_session(
+            engine, requests, policy)
+        launches = launch_counts()
+        err = check_session(engine, session, by_request, groups, device, tol,
+                            f"{label}{name} ")
+        if layers_per_block is not None and device.type == "cuda":
+            check(launches["flash_attention"] == layers_per_block * session.stats.blocks_executed,
+                  f"{label}{name}: flash launched {launches['flash_attention']} times, "
+                  f"expected {layers_per_block} x {session.stats.blocks_executed} blocks")
+        row = {
+            "engine": label.strip(), "policy": name,
+            "requests": len(responses), "admission_rounds": session.admission_rounds,
+            "groups": session.groups_executed, "plan_seconds": session.plan_seconds,
+            "drain_seconds": seconds,
+            "mean_admission_wait_sim_s": session.mean_admission_wait,
+            "max_admission_wait_sim_s": session.max_admission_wait,
+            "weight_bytes_loaded": session.stats.weight_bytes_loaded,
+            "blocks_executed": session.stats.blocks_executed,
+            "launches": launches, "max_abs_err": err,
+            "rounds_planned_while_card_busy": sum(busy_at_plan),
+            "rounds_after_first": len(busy_at_plan),
+        }
+        if device.type == "cuda":
+            # The checked run above was the warm-up.
+            trace = device_breakdown(lambda: serve_session(engine, requests, policy),
+                                     seconds * 1e3, warm=False, cpu=False)
+            check(trace["device_ms"] > 0, f"{label}{name}: the profiler saw no device time")
+            row.update(busy=trace["busy"], device_ms=trace["device_ms"],
+                       kernels=trace["kernels"], profiled_window_ms=trace["window_ms"])
+        print(json.dumps({"session": row}), flush=True)
+        out[name] = {"row": row, "responses": responses}
+    ratio = (out["affinity"]["row"]["weight_bytes_loaded"]
+             / out["window"]["row"]["weight_bytes_loaded"])
+    print(json.dumps({"session_weight_bytes_ratio": {
+        "engine": label.strip(), "affinity_over_window": ratio}}), flush=True)
+    return out
+
+
+def chaos_phase(engine, requests, clean_responses, device, tol: float, label: str,
+                policy_name: str = "window") -> dict:
+    """One session under ``CHAOS_SCRIPT``: at least one group retried on the
+    primary path and one served by the unfused rung, the injector's counts
+    as scripted, counters equal to the prediction, outputs allclose to the
+    fault-free session's under the same policy."""
+    injector = FaultInjector(script=CHAOS_SCRIPT)
+    reset_launch_counts()
+    session, responses, by_request, groups, seconds, _busy = serve_session(
+        engine, requests, SESSION_POLICIES[policy_name], injector)
+    launches = launch_counts()
+    check_session(engine, session, by_request, groups, device, tol, f"{label}chaos ")
+    check(engine.executor.fused, f"{label}chaos: the unfused rung left fused dispatch off")
+    expected = {site: len(idx) for site, idx in CHAOS_SCRIPT.items()}
+    got = {site: injector.injected[site] for site in CHAOS_SCRIPT}
+    check(got == expected, f"{label}chaos: injected {got}, scripted {expected}")
+    retried = sum(r.retries > 0 and r.degraded is None for r in responses)
+    degraded = sum(r.degraded == "unfused" for r in responses)
+    check(retried >= 1, f"{label}chaos: no response was retried on the primary path")
+    check(degraded >= 1, f"{label}chaos: no response was served by the unfused rung")
+    check(session.degraded_runs >= 1 and session.group_retries >= 3,
+          f"{label}chaos: {session.degraded_runs} degraded runs, "
+          f"{session.group_retries} retries")
+    max_err = 0.0
+    for got_r, clean_r in zip(responses, clean_responses):
+        check(set(got_r.outputs) == set(clean_r.outputs), f"{label}chaos: tasks differ")
+        for t, y in got_r.outputs.items():
+            max_err = max(max_err, float((y - clean_r.outputs[t]).abs().max()))
+    check(max_err <= tol, f"{label}chaos vs fault-free max abs err {max_err}")
+    row = {"engine": label.strip(), "policy": policy_name,
+           "injected": got, "invocations": dict(injector.invocations),
+           "responses_retried": retried, "responses_unfused": degraded,
+           "group_retries": session.group_retries, "degraded_runs": session.degraded_runs,
+           "groups": session.groups_executed, "drain_seconds": seconds,
+           "launches": launches, "max_abs_err_vs_fault_free": max_err}
+    print(json.dumps({"session_chaos": row}), flush=True)
+    return row
+
+
+# --------------------------------------------------------------------------
+# The quickstart
+# --------------------------------------------------------------------------
+
+def quickstart_phase(device: torch.device) -> dict:
+    """``repro_torch.examples.quickstart`` on ``device`` at its reference
+    sizes; launch counts set to 0 just before and read just after.  Then the
+    block profiler on the card."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = quickstart.main([], device=device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    losses, aff = out["losses"], out["aff"]
+    check(losses[-1] < losses[0], f"quickstart: joint loss did not fall ({losses[0]} -> "
+          f"{losses[-1]})")
+    expected = N_TASKS * N_BRANCH_POINTS if device.type == "cuda" else 0
+    check(launches["pearson_gram"] == expected,
+          f"quickstart: pearson launched {launches['pearson_gram']} times, expected {expected}")
+    check(bool(np.isfinite(aff).all()), "quickstart: non-finite affinity")
+    check(np.allclose(aff, aff.transpose(0, 2, 1), atol=1e-6), "quickstart: affinity asymmetric")
+    check(out["ga"].cost >= out["exact"].cost - 1e-12, "quickstart: GA beat the exact solver")
+    hw = quickstart.get_hardware(quickstart.HARDWARE)
+    check(out["vanilla"].seconds(hw) > out["antler"].seconds(hw),
+          "quickstart: Vanilla not slower than Antler")
+    check(out["vanilla_report"].seconds > out["antler_report"].seconds,
+          "quickstart: modelled Vanilla not slower than Antler")
+
+    # The block profiler on the trained program's architecture.
+    prog = build_cnn_program(TaskGraph.fully_shared(N_TASKS, N_BRANCH_POINTS),
+                             [N_CLASSES] * N_TASKS,
+                             generator=torch.Generator().manual_seed(0), device=device)
+    probe = torch.as_tensor(np.zeros((64, 28, 28, 1), np.float32), device=device)
+    profiled = profile_program_blocks(prog, probe, MSP430)
+    _i, _a, table, _f = build_lenet5_blocks()
+    for p, t in zip(profiled, table):
+        check((p.weight_bytes, p.act_bytes) == (t.weight_bytes, t.act_bytes),
+              f"profiled bytes {p} != the LeNet-5 table's {t}")
+        check(bool(np.isfinite(p.flops)) and p.flops > 0, f"profiled flops {p.flops}")
+    row = {"seconds": seconds, "first_loss": losses[0], "final_loss": losses[-1],
+           "launches": launches, "selected": out["selection"].selected.graph.partitions,
+           "exact_order": list(out["exact"].order), "ga_order": list(out["ga"].order),
+           "exact_cost": out["exact"].cost, "ga_cost": out["ga"].cost,
+           "antler_blocks": out["antler"].blocks_executed,
+           "vanilla_blocks": out["vanilla"].blocks_executed,
+           "profiled_block_ms_per_sample": [p.flops / MSP430.peak_flops * 1e3 for p in profiled]}
+    print(json.dumps({"quickstart": row}), flush=True)
+    return row
+
+
 # Device kernel names of the port's kernels (both passes of the Pearson Gram).
 PORT_KERNELS = ("pearson_partial_kernel", "pearson_reduce_kernel", "flash_bf16_kernel",
                 "flash_fp32_kernel", "ssd_scan_kernel", "ssd_chunk_state_kernel",
@@ -461,20 +709,25 @@ PORT_KERNELS = ("pearson_partial_kernel", "pearson_reduce_kernel", "flash_bf16_k
 SSD_BF16_KERNELS = PORT_KERNELS[-3:]
 
 
-def device_breakdown(fn, timed_ms: float, top: int = 6) -> dict:
-    """``torch.profiler`` over one warm call of ``fn``: device time by kernel
-    name (the top ones, and the port's own kernels), the device total, and
-    the host window around the call with the profiler on (which slows the
-    host).  ``busy`` is the device total over ``timed_ms``, the call's
-    CUDA-event time without the profiler: the device's busy share, an upper
-    bound where kernels overlap."""
+def device_breakdown(fn, timed_ms: float, top: int = 6, warm: bool = True,
+                     cpu: bool = True) -> dict:
+    """``torch.profiler`` over one call of ``fn`` (after a warm-up call unless
+    ``warm`` is off): device time by kernel name (the top ones, and the
+    port's own kernels), the device total, and the host window around the
+    call with the profiler on (which slows the host).  ``busy`` is the
+    device total over ``timed_ms``, the call's time without the profiler:
+    the device's busy share, an upper bound where kernels overlap.  ``cpu``
+    off traces the device alone, which keeps the trace of a call with tens
+    of thousands of kernels cheap to read."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     window_ms = (time.perf_counter() - t0) * 1e3
@@ -944,8 +1197,19 @@ def main() -> int:
     print(json.dumps({"pipeline_seconds": result["laps"]}), flush=True)
     for row in time_groups(result):
         print(json.dumps({"group": row}), flush=True)
-    del result
+    # The same engine and requests through sessions: the four policies, then
+    # scripted faults.
+    t0 = time.perf_counter()
+    lenet_sessions = session_phase(result["engine"], result["requests"], device,
+                                   PIPELINE_TOL, "lenet ")
+    chaos_phase(result["engine"], result["requests"], lenet_sessions["window"]["responses"],
+                device, PIPELINE_TOL, "lenet ")
+    del result, lenet_sessions
     free_memory()
+    # The quickstart's five steps at its reference sizes.
+    qs_row = quickstart_phase(device)
+    print(json.dumps({"lenet_session_and_quickstart_seconds": time.perf_counter() - t0}),
+          flush=True)
 
     # mistral-nemo-12b, 8 layers: profile -> select -> order -> serve.
     device_breakdown(torch.cuda.synchronize, 1.0)  # the profiler's first session pays its start-up
@@ -971,7 +1235,16 @@ def main() -> int:
     for row in tf["groups"]:
         print(json.dumps({"transformer_group": row}), flush=True)
     print(json.dumps({"transformer_group_trace": tf["trace"]}), flush=True)
-    del tf
+    # The same engine and requests through sessions, then scripted faults.
+    t0 = time.perf_counter()
+    tf_sessions = session_phase(tf["engine"], tf["requests"], device, TF_TOL,
+                                f"{ARCH} ", layers_per_block)
+    tf_chaos = chaos_phase(tf["engine"], tf["requests"], tf_sessions["window"]["responses"],
+                           device, TF_TOL, f"{ARCH} ")
+    print(json.dumps({"transformer_session_seconds": time.perf_counter() - t0}), flush=True)
+    session_flash = {name: v["row"]["launches"]["flash_attention"]
+                     for name, v in tf_sessions.items()}
+    del tf, tf_sessions
     free_memory()
 
     # mistral-nemo-12b, 8 layers: LMServer prefill + greedy decode.
@@ -1015,9 +1288,11 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/pearson_gram.cu",
         "replaces": "src/repro/kernels/pearson_affinity.py:71",
-        "launches": lenet_launches["pearson_gram"] + prof["pearson_gram"],
+        "launches": (lenet_launches["pearson_gram"] + prof["pearson_gram"]
+                     + qs_row["launches"]["pearson_gram"]),
         "launches_by_path": {"lenet_profile": lenet_launches["pearson_gram"],
-                             "transformer_profile": prof["pearson_gram"]},
+                             "transformer_profile": prof["pearson_gram"],
+                             "quickstart_profile": qs_row["launches"]["pearson_gram"]},
         "max_abs_err": kernels["max_abs_err"],
         "ms": pearson_row["kernel_ms"],
         "plain_ms": pearson_row["plain_ms"],
@@ -1034,9 +1309,14 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:113",
         "launches": (prof["flash_attention"] + serve["flash_attention"]
+                     + sum(session_flash.values())
+                     + tf_chaos["launches"]["flash_attention"]
                      + lm["launches"]["flash_attention"] + zamba["launches"]["flash_attention"]),
         "launches_by_path": {"transformer_profile": prof["flash_attention"],
                              "transformer_serve": serve["flash_attention"],
+                             **{f"transformer_session_{name}": n
+                                for name, n in session_flash.items()},
+                             "transformer_session_chaos": tf_chaos["launches"]["flash_attention"],
                              "lm_prefill": lm["launches"]["flash_attention"],
                              "zamba2_prefill": zamba["launches"]["flash_attention"]},
         "max_abs_err": flash["max_abs_err"],

@@ -1,7 +1,7 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -30,6 +30,13 @@ def tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return tree
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensor leaves of a params tree, in :func:`tree_map`'s order."""
+    leaves: List[torch.Tensor] = []
+    tree_map(leaves.append, tree)
+    return leaves
 
 
 def first_tensor(tree) -> Optional[torch.Tensor]:

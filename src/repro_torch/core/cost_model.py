@@ -395,6 +395,7 @@ class PlanPredictor:
                 f"resume has {len(self._resident)} slots, expected {depth}"
             )
         self.stats = ExecutionStats()
+        self.groups = 0  # groups appended so far
 
     @property
     def residency(self) -> Tuple[Optional[NodeId], ...]:
@@ -423,5 +424,6 @@ class PlanPredictor:
         )
         delta.tasks_skipped += int(extra_tasks_skipped)
         self.stats = self.stats.merge(delta)
+        self.groups += 1
         return delta
 

@@ -16,13 +16,15 @@ and parameters:
 * :func:`transformer_program_from_reference` /
   :func:`params_from_reference` — the JAX transformer program's and model's
   weights, carried over;
-* :func:`multitask_forward` — the uncached forward of every task.
-
-Joint training waits for a later slice.
+* :func:`multitask_forward` — the uncached forward of every task;
+* :func:`program_trainable_params` / :func:`program_with_params` /
+  :func:`multitask_loss` — the joint multitask training surface (gradients
+  come from autograd; shared nodes appear once, so their gradients
+  accumulate across the tasks that use them).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -314,6 +316,20 @@ def program_trainable_params(program: MultitaskProgram) -> Params:
     }
 
 
+def program_with_params(program: MultitaskProgram, flat: Params) -> MultitaskProgram:
+    """``program`` with the parameters of ``flat`` (the layout
+    :func:`program_trainable_params` returns), e.g. after training."""
+    node_params = {k: flat["nodes"][repr(k)] for k in program.node_params}
+    return MultitaskProgram(
+        graph=program.graph,
+        block_fns=program.block_fns,
+        node_params=node_params,
+        head_fns=program.head_fns,
+        head_params=list(flat["heads"]),
+        block_costs=program.block_costs,
+    )
+
+
 def multitask_forward(
     program: MultitaskProgram, flat: Params, x: torch.Tensor
 ) -> List[torch.Tensor]:
@@ -336,3 +352,24 @@ def multitask_forward(
             memo[k] = h
         outs.append(program.head_fns[t](flat["heads"][t], h))
     return outs
+
+
+def multitask_loss(
+    program: MultitaskProgram,
+    flat: Params,
+    x: torch.Tensor,
+    labels: torch.Tensor,  # (num_tasks, B) integer labels
+    task_weights: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean over tasks of each task's mean NLL (fp32 log-softmax), or the
+    ``task_weights``-weighted mean."""
+    logits = multitask_forward(program, flat, x)
+    losses = []
+    for t, lg in enumerate(logits):
+        logp = torch.log_softmax(lg.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[t].long()[:, None]).mean()
+        losses.append(nll)
+    stacked = torch.stack(losses)
+    if task_weights is not None:
+        return torch.sum(stacked * task_weights) / torch.sum(task_weights)
+    return stacked.mean()

@@ -6,17 +6,24 @@ executor, serving batched requests that each want some subset of the task
 set.  Conditional constraints become runtime gates (a dependent task is
 skipped when its prerequisite's outcome says so).
 
-This slice serves one-shot batches: :meth:`MultitaskEngine.serve_batch`
-plans once and runs the planned groups in sequence — the reference's
-greedy one-shot session with no faults.  :class:`LMServer` runs batched
-prefill and greedy decode for the dense family.  Sessions and their
-admission policies, streaming, intermittent power, adaptive gating and the
-mesh wait for later slices.
+Long-lived serving goes through :meth:`MultitaskEngine.session` (a
+:class:`~repro_torch.serving.session.ServingSession`: admission under a
+scheduling policy, futures, deadlines, backpressure, and group recovery
+with rollback, retries and the unfused rung); ``serve`` / ``serve_batch``
+are one-shot sessions.  A :class:`~repro_torch.serving.reliability.\
+FaultInjector` can fire at the ``"plan"``, ``"load"`` and ``"dispatch"``
+boundaries.  :class:`LMServer` runs batched prefill and greedy decode.
+Weight streaming, intermittent power, adaptive gating and the mesh wait for
+later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
+import warnings
+from typing import (
+    TYPE_CHECKING, Any, Callable, Dict, FrozenSet, List, Optional, Sequence,
+    Tuple,
+)
 
 import numpy as np
 import torch
@@ -35,15 +42,32 @@ from repro_torch.serving.batching import (
 )
 from repro_torch.serving.policies import EnginePolicy
 
+if TYPE_CHECKING:  # session imports engine; keep the runtime import lazy
+    from repro_torch.serving.policies import SchedulingPolicy
+    from repro_torch.serving.reliability import FaultInjector
+    from repro_torch.serving.session import ServingSession
+
 
 @dataclasses.dataclass
 class MultitaskRequest:
-    """One inference request: an input (numpy or tensor) and the tasks it
-    wants.  The reference's SLO fields (deadline, priority, tenant) belong
-    to the session layer and come with it."""
+    """One inference request: an input (numpy or tensor), the tasks it
+    wants, and its SLOs.
+
+    The SLO fields are metadata the *session* layer acts on; the engine's
+    execution path ignores them.  ``deadline`` is an absolute time on the
+    session's clock by which the request must have been admitted for
+    planning (a pump finding it overdue fails its future with
+    :class:`~repro_torch.serving.reliability.DeadlineExceeded`).
+    ``priority`` orders load shedding (higher wins) when a bounded session
+    queue overflows.  ``tenant`` labels the request for per-tenant quota and
+    admission-wait accounting.
+    """
 
     x: Any
     tasks: Optional[Sequence[int]] = None  # None = all tasks
+    deadline: Optional[float] = None       # session-clock absolute seconds
+    priority: int = 0                      # higher survives shedding longer
+    tenant: Optional[str] = None           # quota / wait-accounting label
 
 
 @dataclasses.dataclass
@@ -57,7 +81,10 @@ class MultitaskResponse:
     ``warm_weight_bytes_saved`` is the group's weight bytes not loaded
     because of cross-group residency alone.  ``order`` is the engine's
     global task order; ``effective_order`` the sequence the request's group
-    actually ran.
+    actually ran.  ``retries`` counts the failed attempts before the one
+    that produced this response; ``degraded`` names the recovery rung that
+    succeeded (``"unfused"``: the per-block dispatch), ``None`` for the
+    primary path.
     """
 
     outputs: Dict[int, torch.Tensor]
@@ -67,6 +94,8 @@ class MultitaskResponse:
     group_size: int = 1
     warm_weight_bytes_saved: float = 0.0
     effective_order: Tuple[int, ...] = ()
+    retries: int = 0
+    degraded: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -117,6 +146,11 @@ class MultitaskEngine:
     keywords override its fields.  None of them change results, only how
     much gets loaded.  The engine runs on the program's device: each planned
     group moves there once.
+
+    Long-lived serving goes through :meth:`session`; ``serve`` /
+    ``serve_batch`` are thin wrappers that run a one-shot session.
+    ``fault_injector`` (settable at any time) fires at the ``"plan"``,
+    ``"load"`` and ``"dispatch"`` boundaries of group execution.
     """
 
     def __init__(
@@ -131,6 +165,7 @@ class MultitaskEngine:
         warm_start: Optional[bool] = None,
         group_ordering: Optional[bool] = None,
         policy: Optional[EnginePolicy] = None,
+        fault_injector: Optional["FaultInjector"] = None,
     ):
         self.program = program
         self.device = program.device
@@ -187,8 +222,10 @@ class MultitaskEngine:
                 "gate would read an output its order produces later"
             )
         self.executor = TaskGraphExecutor(program)
-        # Cumulative counters of the most recent serve_batch call; with no
-        # gates these equal predicted_group_stats(plan_groups(requests))
+        self.fault_injector = fault_injector
+        # Cumulative counters of the most recent serve_batch call (its
+        # one-shot session's stats); with no gates and the default greedy
+        # scheduling these equal predicted_group_stats(plan_groups(requests))
         # computed before that call.
         self.last_batch_stats = ExecutionStats()
 
@@ -209,6 +246,20 @@ class MultitaskEngine:
     ) -> Optional[FrozenSet[int]]:
         """A request's task subset in the scheduler's bucket-key form."""
         return normalize_subset(tasks, self.program.graph.num_tasks)
+
+    def session(
+        self,
+        policy: Optional["SchedulingPolicy"] = None,
+        clock: Optional[Callable[[], float]] = None,
+        **kwargs: Any,
+    ) -> "ServingSession":
+        """Open a :class:`~repro_torch.serving.session.ServingSession` on
+        this engine (``policy`` defaults to ``self.policy.scheduling``).
+        Extra keyword arguments — ``max_pending``, ``overload``, ``retry``,
+        ``sleep``, … — forward to the session constructor."""
+        from repro_torch.serving.session import ServingSession
+
+        return ServingSession(self, policy=policy, clock=clock, **kwargs)
 
     # ------------------------------------------------------------- planning
     def _build_plan_constraints(
@@ -347,6 +398,14 @@ class MultitaskEngine:
         return predictor.stats
 
     # ------------------------------------------------------------ execution
+    def _inject(self, site: str, **context: Any) -> None:
+        """Fault-injection hook: delegates to :attr:`fault_injector` when
+        armed; a no-op otherwise.  Sites sit at boundaries where an injected
+        exception is indistinguishable from a real one to the session's
+        rollback/retry machinery."""
+        if self.fault_injector is not None:
+            self.fault_injector.check(site, **context)
+
     def _run_group(
         self, group: RequestGroup, eff: Sequence[int]
     ) -> Tuple[List[Dict[int, torch.Tensor]], ExecutionStats,
@@ -374,6 +433,7 @@ class MultitaskEngine:
             if fired == 0:
                 trace.append(TaskGateRecord(task=t, weight=0, offered=v))
                 continue
+            self._inject("dispatch", task=t, group_tasks=group.tasks)
             out = ex.run_task_batch(t, group.xs, stats, weight=fired)
             trace.append(dataclasses.replace(ex.last_gate_record, offered=v))
             for i in range(v):
@@ -382,14 +442,17 @@ class MultitaskEngine:
         return per_request, stats, trace
 
     def _execute_group(self, group: RequestGroup) -> GroupExecution:
-        """Run one planned group.
+        """Run one planned group; the session's execution primitive.
 
         Handles the warm/cold group boundary (keep residency and drop
         activations, or full reset), moves the group's inputs to the
         program's device, executes, and predicts the group's counters from
-        the executor's residency right before execution, conditioned on
-        the realized gate trace.
+        the executor's residency right before execution (read after the
+        ``"plan"`` fault site and the boundary, so a retried attempt
+        predicts from the rolled-back residency), conditioned on the
+        realized gate trace.
         """
+        self._inject("plan", group_tasks=group.tasks, valid=group.valid)
         if self.warm_start:
             self.executor.clear_activations()
         else:
@@ -397,6 +460,7 @@ class MultitaskEngine:
         group = dataclasses.replace(group, xs=group.xs.to(self.device))
         eff = self.group_order(group)
         resume = self.executor.residency_state() if self.warm_start else None
+        self._inject("load", group_tasks=group.tasks, resume=resume)
         per_request, stats, trace = self._run_group(group, eff)
         predicted = self.cost_model.predicted_stats(
             eff, batch_size=group.valid, resume=resume, gate_trace=trace,
@@ -435,33 +499,52 @@ class MultitaskEngine:
             for slot in range(group.valid)
         ]
 
-    # ---------------------------------------------------- one-shot serving
+    # ---------------------------------------------------- one-shot wrappers
+    def _serve_via_session(
+        self, requests: Sequence[MultitaskRequest]
+    ) -> List[MultitaskResponse]:
+        """One-shot session: submit everything, drain, collect in order."""
+        session = self.session()
+        futures = [session.submit(r) for r in requests]
+        session.drain()
+        self.last_batch_stats = session.stats
+        return [f.result() for f in futures]
+
     def serve_batch(
         self, requests: Sequence[MultitaskRequest]
     ) -> List[MultitaskResponse]:
         """Serve many requests via grouped batched execution.
 
-        Plans once with :meth:`plan_groups` and runs the groups in sequence
-        with :meth:`_execute_group` — the reference's one-shot greedy
-        session (``GreedyBatchPolicy``) with no faults, until the session
-        layer is ported.  Each group runs the block-cached executor once
-        with every block batched over the group, so weight loads amortise
-        across its requests; a warm engine keeps residency between groups.
-        ``last_batch_stats`` holds the call's cumulative counters.
-        Responses come back in submission order.
+        A thin wrapper over a one-shot :meth:`session`: every request is
+        submitted, then the session drains under the engine's scheduling
+        policy (the default :class:`GreedyBatchPolicy` admits the whole list
+        as one planning batch).  The scheduler buckets requests into
+        homogeneous padded groups (and, with group ordering on, sequences
+        them by warm boundary cost); each group runs the block-cached
+        executor once with every block batched over the group, so weight
+        loads amortise across its requests.  A warm engine keeps residency
+        between groups.  ``last_batch_stats`` holds the session's cumulative
+        counters.  Responses come back in submission order; a request whose
+        group failed raises its :class:`RequestError` here.
         """
-        responses: List[Optional[MultitaskResponse]] = [None] * len(requests)
-        stats = ExecutionStats()
-        for group in self.plan_groups(requests):
-            execution = self._execute_group(group)
-            stats = stats.merge(execution.stats)
-            for i, response in zip(group.indices, self._group_responses(execution)):
-                responses[i] = response
-        self.last_batch_stats = stats
-        return responses
+        return self._serve_via_session(requests)
 
     def serve(self, request: MultitaskRequest) -> MultitaskResponse:
         return self.serve_batch([request])[0]
+
+    def serve_many(
+        self, requests: Sequence[MultitaskRequest]
+    ) -> List[MultitaskResponse]:
+        """Deprecated alias of :meth:`serve_batch`: the same one-shot
+        session, with a warning so callers move to ``serve_batch`` or an
+        explicit :meth:`session`."""
+        warnings.warn(
+            "MultitaskEngine.serve_many is deprecated; use serve_batch() or "
+            "a ServingSession (engine.session()) instead",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return self._serve_via_session(list(requests))
 
 
 # --------------------------------------------------------------------------

@@ -332,3 +332,50 @@ def test_default_device_lm_server_runs_each_family_on_the_card(cuda, arch, launc
     assert (ssd_scan.launches - before[0], flash_attention.launches - before[1]) == launches
     ref = LMServer(model, tree_map(lambda t: t.cpu(), params)).generate(prompts, 6)
     np.testing.assert_array_equal(out, ref)
+
+
+def test_session_recovers_from_scripted_faults_on_the_card(cuda):
+    """A LeNet-5 engine on the card serves a session under scripted faults:
+    one group retried on the primary path, one served by the unfused rung;
+    counters equal the prediction and outputs the fault-free run's to 1e-5."""
+    from repro_torch.core import MSP430
+    from repro_torch.serving import (
+        FaultInjector, MultitaskEngine, MultitaskRequest, RequestGroupScheduler,
+        RetryPolicy, WindowPolicy,
+    )
+
+    graph = TaskGraph.from_groups([
+        [[0, 1, 2, 3]], [[0, 1], [2, 3]], [[0, 1], [2, 3]], [[0], [1], [2], [3]],
+    ])
+    prog = build_cnn_program(graph, [4] * 4, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    subsets = (None, (0, 1), (2, 3), (1,))
+    reqs = [MultitaskRequest(x=rng.standard_normal((1, 28, 28, 1)).astype(np.float32),
+                             tasks=subsets[i % 4]) for i in range(12)]
+    clean = MultitaskEngine(prog, hw=MSP430).serve_batch(reqs)
+
+    engine = MultitaskEngine(
+        prog, hw=MSP430, scheduler=RequestGroupScheduler(batch_shapes=(1, 2, 4)),
+        fault_injector=FaultInjector(script={"plan": {1, 2}, "dispatch": {6}}),
+    )
+    now = [0.0]
+    session = engine.session(policy=WindowPolicy(max_wait=0.2, max_group_size=4),
+                             clock=lambda: now[0], sleep=lambda s: None,
+                             retry=RetryPolicy(max_retries=1))
+    futures = []
+    for r in reqs:
+        now[0] += 0.1
+        futures.append(session.submit(r))
+        session.step()
+    session.drain()
+    torch.cuda.synchronize()
+    responses = [f.result() for f in futures]
+    assert session.stats == session.predicted
+    assert any(r.degraded == "unfused" for r in responses)
+    assert any(r.retries > 0 and r.degraded is None for r in responses)
+    assert engine.executor.fused
+    for got, want in zip(responses, clean):
+        assert set(got.outputs) == set(want.outputs)
+        for t in want.outputs:
+            assert got.outputs[t].device.type == "cuda"
+            torch.testing.assert_close(got.outputs[t], want.outputs[t], rtol=0, atol=1e-5)
