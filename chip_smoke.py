@@ -39,28 +39,45 @@
    tokens, 16 steps.
 7. Runs the serve launcher (``repro_torch.launch.serve``) in-process on
    mamba2-780m for a few steps; it prints its tokens/s line.
-8. Prints one ``{"kernels": [...]}`` line, then the device line last.
+8. Drives Antler's pipeline on a MoE backbone: qwen2-moe-a2.7b at full
+   width (60 routed experts top-4 + 4 shared, bf16), its 24 layers cut to
+   8, as mistral's.  Then ``LMServer.generate`` on the MoE, VLM and
+   enc-dec families: qwen2-moe-a2.7b at full depth (4 x 512 tokens, 16
+   steps), mixtral-8x22b at 8 of its 56 layers (2 x 4608 tokens: the
+   4096-token window engages and decode runs on the ring; 8 steps),
+   chameleon-34b at full depth (48 layers, 4 x 512, 16 steps) and
+   whisper-medium at full depth (1500 frames of normals, 4 x 32 tokens, 32
+   steps); then the serve launcher on whisper-medium.
+9. Prints one ``{"kernels": [...]}`` line, then the device line last.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the script checks that the kernels ran where the path runs
 them (Pearson 15 times per profile, the quickstart's included; flash
-attention 30 times in the transformer profile, twice per executed block in
-serving and in every session, 8 times in the prefill, 9 times in zamba2's;
-the SSD once per Mamba2 layer of a prefill, 48 and 54, and never in
-decode), that served counters equal the cost model's prediction field for
-field (every session's too, faults included), that served outputs match
-the per-block executor, that every session request succeeds, that faulted
-outputs match the fault-free session's, that the quickstart's loss falls,
-that Antler beats Vanilla, and that the first decode step agrees with
-``forward``.  Any failed check raises.  Each session prints a JSON line:
-admission rounds, groups, planning seconds, its wall seconds to the end of
-the drain, admission waits (simulated seconds), weight bytes loaded, the
-device's busy share over the session, and how many rounds were planned
-while the card still had queued work.
+attention 30 times in each transformer profile, twice per executed block
+in serving and in every session, once per decoder layer of a prefill (8,
+24, 8, 48), 9 times in zamba2's, 72 times in whisper's (once per encoder
+layer, twice per decoder layer); the SSD once per Mamba2 layer of a
+prefill, 48 and 54; none in decode), that served counters equal the cost
+model's prediction field for field (every session's too, faults
+included), that served outputs match the per-block executor, that every
+session request succeeds, that faulted outputs match the fault-free
+session's, that the quickstart's loss falls, that Antler beats Vanilla,
+and that the first decode step agrees with ``forward``.  On a MoE that
+check runs at a capacity factor under which nothing drops, one row at a
+time, with prefill and decode taking forward's expert choices (bf16
+roundings flip near ties), in bf16 at full depth and in fp32 on the
+first two layers' weights, where the router logits are held to forward's
+as well.  The flash kernel's bf16 rows on the main paths are held both
+absolutely and against each query row's largest |output|.  Any failed
+check raises.  Each session prints a JSON line: admission rounds, groups,
+planning seconds, its wall seconds to the end of the drain, admission
+waits (simulated seconds), weight bytes loaded, the device's busy share
+over the session, and how many rounds were planned while the card still
+had queued work.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  TF32 is switched off for matmuls and cuDNN:
-the checks hold fp32 to 1e-5, 2e-5 and 2e-4.
+the checks hold fp32 to 1e-5, 2e-5, 2e-4 and 3e-3.
 """
 from __future__ import annotations
 
@@ -90,6 +107,7 @@ from repro_torch.core.tradeoff import select_task_graph  # noqa: E402
 from repro_torch.data import MultitaskDataset, train_test_split  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.examples.quickstart import branch_point_taps  # noqa: E402
+from repro_torch._device import tree_map  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     SOURCE as FLASH_SOURCE, flash_attention,
@@ -123,12 +141,18 @@ N_PROBES = 512
 N_REQUESTS = 48
 SUBSETS = (None, (0, 1), (2, 3, 4), (1, 3), (4,))
 # (K, F): the LeNet path's three branch points at K = 512, the transformer
-# profile's taps (K = 256 probes, F = 128 tokens x d_model 5120), then
-# ragged edges.
-PEARSON_SHAPES = ((512, 1568), (512, 784), (512, 64), (256, 128 * 5120), (37, 100), (64, 300))
+# profiles' taps (K = 256 probes, F = 128 tokens x d_model: mistral's 5120,
+# qwen2-moe's 2048), then ragged edges.
+PEARSON_SHAPES = ((512, 1568), (512, 784), (512, 64), (256, 128 * 5120), (256, 128 * 2048),
+                  (37, 100), (64, 300))
 FP32_TOL, BF16_TOL, PIPELINE_TOL = 1e-5, 5e-2, 1e-5
 # Flash attention: the reference sweep's tolerances (tests/test_kernels.py).
 FLASH_FP32_TOL, FLASH_BF16_TOL = 2e-5, 2e-2
+# And, on the main paths' bf16 shapes, each query row's error against that
+# row's largest |output|: over thousands of keys an output row is small
+# (|out| ~ 1 / sqrt(T / e) for unit normals), so the absolute bound alone
+# would not see a wrong window or a wrong share of the padded keys.
+FLASH_BF16_ROW_TOL = 2e-2
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores,
 # dense bf16 on the tensor cores, HBM3.
 FP32_PEAK_FLOPS, BF16_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
@@ -137,10 +161,25 @@ FP32_PEAK_FLOPS, BF16_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
 ARCH, TF_LAYERS, TF_SEQ, TF_PROBES = "mistral-nemo-12b", 8, 128, 256
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 512, 16
 TF_TOL = 5e-2  # bf16 activations: served vs per-block, decode vs forward
-# Flash shapes of the main paths, model layout (B, S, Hq, Hk, d), bf16 causal:
-# a serving group of 16, the LM prefill, the profile's probe batch.
-FLASH_MAIN = (("serve_group", 16, 128, 32, 8, 160), ("lm_prefill", 4, 512, 32, 8, 160),
-              ("profile", 256, 128, 32, 8, 160), ("zamba2_prefill", 4, 1024, 32, 32, 80))
+# Flash shapes of the main paths, model layout, bf16: (path, B, S, T, Hq, Hk,
+# d, causal, window, real keys).  mistral's serving group of 16, LM prefill
+# and profile batch; zamba2's prefill; the same three of qwen2-moe; the
+# mixtral, chameleon and whisper prefills.  Whisper's encoder and
+# cross-attention see 1500 frames zero-padded to 2048 keys, as the
+# reference's chunked attention pads them (``models/encdec.py``).
+FLASH_MAIN = (
+    ("serve_group", 16, 128, 128, 32, 8, 160, True, None, None),
+    ("lm_prefill", 4, 512, 512, 32, 8, 160, True, None, None),
+    ("profile", 256, 128, 128, 32, 8, 160, True, None, None),
+    ("zamba2_prefill", 4, 1024, 1024, 32, 32, 80, True, None, None),
+    ("qwen2_serve_group", 16, 128, 128, 16, 16, 128, True, None, None),
+    ("qwen2_profile", 256, 128, 128, 16, 16, 128, True, None, None),
+    ("qwen2_prefill", 4, 512, 512, 16, 16, 128, True, None, None),
+    ("mixtral_prefill", 2, 4608, 4608, 48, 8, 128, True, 4096, None),
+    ("chameleon_prefill", 4, 512, 512, 64, 8, 128, True, None, None),
+    ("whisper_encoder", 4, 1500, 2048, 16, 16, 64, False, None, 1500),
+    ("whisper_cross", 4, 32, 2048, 16, 16, 64, False, None, 1500),
+)
 # Ragged and windowed checks: (layout, B, S, T, Hq, Hk, d, causal, window).
 FLASH_RAGGED = (
     ("flat", 4, 70, 70, 1, 1, 32, True, None),
@@ -158,6 +197,22 @@ FLASH_RAGGED = (
 MAMBA2 = ("mamba2-780m", 4, 2048, 32)
 ZAMBA2 = ("zamba2-2.7b", 4, 1024, 16)
 SSM_CHECK_BATCH = 2  # rows of the decode-vs-forward check
+# The MoE pipeline: qwen2-moe-a2.7b at full width, depth 24 -> 8 (4 blocks
+# of 2 layers), otherwise as mistral's.
+MOE_ARCH, MOE_LAYERS = "qwen2-moe-a2.7b", 8
+# The MoE, VLM and enc-dec LM paths: (arch, layers (None: all), batch,
+# prompt, steps, rows of the decode-vs-forward check).  mixtral's prompt
+# passes its 4096-token window, so prefill rolls its cache into the ring.
+FAMILY_LMS = (
+    ("qwen2-moe-a2.7b", None, 4, 512, 16, 4),
+    ("mixtral-8x22b", 8, 2, 4608, 8, 2),
+    ("chameleon-34b", None, 4, 512, 16, 4),
+    ("whisper-medium", None, 4, 32, 32, 4),
+)
+WHISPER_FRAMES = 1500
+# A MoE's decode-vs-forward gate: fp32 on its first layers, at the
+# reference's decode tolerance (abs + rel).
+MOE_CHECK_LAYERS, DECODE_FP32_TOL = 2, 3e-3
 LAUNCHER_STEPS = 4
 # SSD scan shapes (path, B, S, H, P, N, chunk, dtype): the two model
 # prefills (x, B and C views of one conv output, as in the model), a ragged
@@ -789,41 +844,69 @@ def _randn(rng, shape, dtype, device):
     return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device).to(dtype)
 
 
+def sdpa_call(q, k, v, causal: bool, window):
+    """One ``scaled_dot_product_attention`` call on model-layout tensors
+    computing what the kernel computes (a boolean mask for a window): the
+    yardstick only."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        return lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    qp = torch.arange(q.shape[1], device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = (qp - kp < window) & ((qp >= kp) if causal else True)
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
 def flash_phase(device: torch.device) -> dict:
     """Flash kernel vs its plain version at the main paths' shapes (timed,
     with SDPA as the yardstick) and at ragged / windowed ones."""
     rng = np.random.default_rng(1)
     rows, max_err = [], 0.0
-    for name, b, s, hq, hk, d in FLASH_MAIN:
+    for name, b, s, t, hq, hk, d, causal, window, real_t in FLASH_MAIN:
         q = _randn(rng, (b, s, hq, d), torch.bfloat16, device)
-        k = _randn(rng, (b, s, hk, d), torch.bfloat16, device)
-        v = _randn(rng, (b, s, hk, d), torch.bfloat16, device)
-        out = ops.flash_attention_bhsd(q, k, v)
-        plain = flash_attention_bhsd_ref(q, k, v)
+        k = _randn(rng, (b, t, hk, d), torch.bfloat16, device)
+        v = _randn(rng, (b, t, hk, d), torch.bfloat16, device)
+        if real_t is not None:  # the reference's zero keys past the real ones
+            k[:, real_t:] = 0
+            v[:, real_t:] = 0
+        out = ops.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+        plain = flash_attention_bhsd_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        err = float((out.float() - plain.float()).abs().max())
+        diff = (out.float() - plain.float()).abs()
+        err = float(diff.max())
+        row_max = plain.float().abs().amax(dim=-1)
+        row_err = float((diff.amax(dim=-1) / row_max.clamp_min(1e-30)).max())
+        plain_abs = float(row_max.max())
         check(err <= FLASH_BF16_TOL, f"flash bf16 {name}: max abs err {err} > {FLASH_BF16_TOL}")
+        check(row_err <= FLASH_BF16_ROW_TOL,
+              f"flash bf16 {name}: a query row's max abs err is {row_err} of its largest "
+              f"|output|, > {FLASH_BF16_ROW_TOL} (max |plain| {plain_abs})")
         max_err = max(max_err, err)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
+        del out, plain, diff, row_max
+        library = sdpa_call(q, k, v, causal, window)
+        big = s * t > 4096 * 4096  # the plain version's scores take GBs: fewer calls
         row = {
-            "kernel": "flash_attention", "path": name, "shape": [b * hq, s, d],
-            "B": b, "S": s, "Hq": hq, "Hk": hk, "d": d, "dtype": "bfloat16",
-            "max_abs_err": err,
-            "kernel_ms": cuda_ms(lambda: ops.flash_attention_bhsd(q, k, v), reps=20),
-            "kernel_host_ms": host_ms(lambda: ops.flash_attention_bhsd(q, k, v), reps=20),
-            "plain_ms": cuda_ms(lambda: flash_attention_bhsd_ref(q, k, v), reps=10),
+            "kernel": "flash_attention", "path": name, "shape": [b * hq, s, t, d],
+            "B": b, "S": s, "T": t, "Hq": hq, "Hk": hk, "d": d, "causal": causal,
+            "window": window, "real_keys": real_t, "dtype": "bfloat16",
+            "max_abs_err": err, "max_row_rel_err": row_err, "max_abs_plain": plain_abs,
+            "kernel_ms": cuda_ms(
+                lambda: ops.flash_attention_bhsd(q, k, v, causal=causal, window=window), reps=20),
+            "kernel_host_ms": host_ms(
+                lambda: ops.flash_attention_bhsd(q, k, v, causal=causal, window=window), reps=20),
+            "plain_ms": cuda_ms(
+                lambda: flash_attention_bhsd_ref(q, k, v, causal=causal, window=window),
+                reps=3 if big else 10, warmup=1 if big else 5),
             # One library call computing the same attention: the yardstick only.
-            "library_ms": cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
-                                  reps=20),
-            "library_host_ms": host_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                                    enable_gqa=True), reps=20),
-            **flash_bound(q, k, True, None),
+            "library_ms": cuda_ms(library, reps=20),
+            "library_host_ms": host_ms(library, reps=20),
+            **flash_bound(q, k, causal, window),
             "peak": "bf16 tensor cores 989 TFLOP/s, HBM 3.35 TB/s (H100 SXM data sheet)",
         }
         print(json.dumps(row), flush=True)
         rows.append(row)
-        del q, k, v, out, plain
+        del q, k, v, library
         free_memory()
 
     for layout, b, s, t, hq, hk, d, causal, window in FLASH_RAGGED:
@@ -954,7 +1037,7 @@ def transformer_config(layers: int = TF_LAYERS):
 
 def transformer_pipeline_phase(
     device: torch.device, cfg, n_probes: int = TF_PROBES, seq_len: int = TF_SEQ,
-    group_reps: int = 5,
+    group_reps: int = 5, label: str = "transformer",
 ) -> dict:
     """Profile -> select -> order -> serve on a transformer backbone.
 
@@ -995,7 +1078,7 @@ def transformer_pipeline_phase(
 
     # Task-graph selection and ordering, planned with the TPU hardware model
     # the reference pairs with transformer programs.
-    sel, exact = select_and_order(aff, costs, TPU_V5E, laps, "transformer: ")
+    sel, exact = select_and_order(aff, costs, TPU_V5E, laps, f"{label}: ")
 
     # Serving: request groups through the block-cached engine.
     reset_peak(device)
@@ -1019,9 +1102,9 @@ def transformer_pipeline_phase(
     laps.lap("serve")
     mem["serve_gb"] = peak_gb(device)
     max_err = check_served(engine, plan, requests, responses, predicted, device,
-                           TF_TOL, "transformer ")
+                           TF_TOL, f"{label} ")
     check_beats_vanilla(prog2, torch.as_tensor(tokens[:2, 0], device=device), exact.order,
-                        TPU_V5E, "transformer ")
+                        TPU_V5E, f"{label} ")
     laps.lap("check")
     result = {
         "engine": engine, "plan": plan, "requests": requests, "laps": laps.seconds,
@@ -1042,14 +1125,89 @@ def transformer_pipeline_phase(
     return result
 
 
+@contextlib.contextmanager
+def routing(forced=None):
+    """Every MoE layer's fp32 router logits and its own top-k expert ids
+    while inside, in call order (``models/moe.py::route_logits``, wrapped
+    and restored).  With ``forced``, a function of the call's index and
+    logits (..., E) giving expert ids (..., k), each layer takes those
+    experts instead, its gates renormalised over its own logits at them."""
+    from repro_torch.models import moe
+
+    seen, real = [], moe.route_logits
+
+    def wrapped(logits, cfg):
+        ids, gates, probs = real(logits, cfg)
+        seen.append((logits, ids))
+        if forced is not None:
+            ids = forced(len(seen) - 1, logits)
+            gates = torch.softmax(torch.gather(logits, -1, ids), dim=-1)
+        return ids, gates, probs
+
+    moe.route_logits = wrapped
+    try:
+        yield seen
+    finally:
+        moe.route_logits = real
+
+
+def decode_vs_forward(model, params, prompts, tok, features, step_logits=None):
+    """One decode step of ``tok`` after a prefill of ``prompts`` (B, S)
+    against ``forward`` over the prompts plus ``tok``.  Returns the gap and
+    forward's last-position logits, in fp32; for each row the number of
+    MoE layers where decode's own top-k choices for that token differ from
+    forward's; and the largest gap between decode's and forward's router
+    logits for that token, over each MoE layer's largest |logit| (None
+    without MoE layers).  On a MoE, prefill and decode take forward's
+    expert choices: bf16 roundings that differ between the two shapes can
+    flip a near-tied choice, which moves a row by a whole expert's share;
+    the router logits' gap shows what the choices rest on.  With
+    ``step_logits``, that decode step was taken already."""
+    n, b = prompts.shape[1], prompts.shape[0]
+    toks = torch.cat([torch.as_tensor(prompts, device=tok.device).long(), tok[:, None]], 1)
+    with routing() as fwd:
+        full, _aux = model.forward(params, model.make_batch(toks, features))
+    ref = full[:, -1].float()
+    del full
+    fwd_ids = [ids.reshape(b, n + 1, -1) for _l, ids in fwd]
+
+    def take(pos):
+        return lambda i, logits: fwd_ids[i][:, pos].reshape(*logits.shape[:-1], -1)
+
+    if step_logits is None:
+        with routing(take(slice(0, n))):
+            _l, cache = model.prefill(params, model.make_batch(prompts, features))
+        cache = _grow_cache(model, cache, n + 1, n)
+        with routing(take(n)) as dec:
+            step_logits, _ = model.decode_step(params, tok, cache, n)
+        del cache
+    else:
+        dec = []
+    flips, router_err = [0] * b, None
+    for (dec_logits, dec_ids), (fwd_logits, _ids), fwd_id in zip(dec, fwd, fwd_ids):
+        d_ids, f_ids = dec_ids.reshape(b, -1), fwd_id[:, n]
+        for r in range(b):
+            flips[r] += set(d_ids[r].tolist()) != set(f_ids[r].tolist())
+        f_logits = fwd_logits.reshape(b, n + 1, -1)[:, n]
+        gap = float((dec_logits.reshape(b, -1) - f_logits).abs().max())
+        router_err = max(router_err or 0.0, gap / float(f_logits.abs().max()))
+    return step_logits.float() - ref, ref, flips, router_err
+
+
 def lm_phase(
     device: torch.device, cfg, batch: int = LM_BATCH, prompt_len: int = LM_PROMPT,
-    steps: int = LM_STEPS, check_batch=None,
+    steps: int = LM_STEPS, check_batch=None, features=None,
 ) -> dict:
-    """``LMServer.generate`` on ``model.init`` of ``cfg``; then one prefill
-    and one decode step with their launch counts, and the first decode step
-    against ``forward`` over the prompt plus its token (on the first
-    ``check_batch`` rows, all by default)."""
+    """``LMServer.generate`` on ``model.init`` of ``cfg`` (the enc-dec with
+    ``features``); then one prefill and one decode step with their launch
+    counts, and the first decode step against ``forward`` over the prompt
+    plus its token (on the first ``check_batch`` rows, all by default).  On
+    a MoE the check runs prefill, decode and forward again on the same
+    weights at the capacity factor E / k, where an expert holds every token
+    of its group and nothing can drop (at the config's factor, drops depend
+    on the routing group, which differs between the two), with prefill and
+    decode taking forward's expert choices (:func:`decode_vs_forward`);
+    see below for its two gates."""
     laps = Laps(device)
     reset_peak(device)
     gen_device = device if device.type == "cuda" else torch.device("cpu")
@@ -1057,10 +1215,12 @@ def lm_phase(
     params = model.init(torch.Generator(device=gen_device).manual_seed(2), device)
     prompts = np.random.default_rng(2).integers(
         0, cfg.raw_vocab_size, (batch, prompt_len)).astype(np.int32)
+    batch_in = model.make_batch(prompts, features)
     server = LMServer(model, params)
     laps.lap("init")
+    init_gb = peak_gb(device)
     reset_launch_counts()
-    tokens = server.generate(prompts, steps)
+    tokens = server.generate(prompts, steps, features=features)
     sync(device)
     launches = launch_counts()
     laps.lap("generate")
@@ -1069,7 +1229,7 @@ def lm_phase(
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token ids out of range")
 
     reset_launch_counts()
-    logits0, cache = model.prefill(params, prompts)
+    logits0, cache = model.prefill(params, batch_in)
     sync(device)
     prefill_launches = launch_counts()
     tok = torch.argmax(logits0, dim=-1)
@@ -1080,26 +1240,75 @@ def lm_phase(
     sync(device)
     decode_launches = launch_counts()
     rows = batch if check_batch is None else check_batch
-    full, _aux = model.forward(params, torch.cat(
-        [torch.as_tensor(prompts[:rows], device=device).long(), tok[:rows, None]], 1))
-    ref = full[:, -1].float()
-    del full
-    err = float((step_logits[:rows].float() - ref).abs().max())
-    scale = float(ref.abs().max())
+    rows_feat = None if features is None else features[:rows]
     check(bool(torch.isfinite(step_logits).all()), "non-finite decode logits")
-    check(err <= TF_TOL * scale,
-          f"decode vs forward: max abs err {err} > {TF_TOL} x max |logit| {scale}")
+    moe = None
+    if cfg.family != "moe":
+        gap, ref, _flips, _router = decode_vs_forward(
+            model, params, prompts[:rows], tok[:rows], rows_feat, step_logits[:rows])
+        err, scale = float(gap.abs().max()), float(ref.abs().max())
+        check(err <= TF_TOL * scale,
+              f"decode vs forward: max abs err {err} > {TF_TOL} x max |logit| {scale}")
+    else:
+        # Every row's logits at full depth in bf16 within TF_TOL of
+        # forward's (the router logits' gap is printed, not held: its bf16
+        # noise grows with depth, to 0.10 of a layer's largest |logit| at
+        # qwen2-moe's smoke width and 24 layers on the CPU); then in fp32
+        # on the first MOE_CHECK_LAYERS layers' weights the logits and
+        # each layer's router logits, at the reference's decode tolerance
+        # (tests/test_models_equiv.py).  One row at a time: at capacity
+        # E / k every expert of mixtral holds all 4609 tokens of a row,
+        # about 10 GB of fp32 activations a row.
+        no_drop = cfg.moe_num_experts / cfg.moe_top_k
+        model_nd = get_model(dataclasses.replace(cfg, moe_capacity_factor=no_drop))
+        cfg32 = dataclasses.replace(cfg, num_layers=MOE_CHECK_LAYERS, moe_capacity_factor=no_drop,
+                                    dtype="float32", param_dtype="float32")
+        moe = {"err_bf16": [], "flipped": [], "router_err_bf16": [],
+               "err_fp32": [], "flipped_fp32": [], "router_err_fp32": []}
+        scale = 0.0
+        for r in range(rows):
+            gap, ref, flips, router = decode_vs_forward(
+                model_nd, params, prompts[r:r + 1], tok[r:r + 1], None)
+            moe["err_bf16"].append(float(gap.abs().max()))
+            moe["flipped"] += flips
+            moe["router_err_bf16"].append(router)
+            scale = max(scale, float(ref.abs().max()))
+        err = max(moe["err_bf16"])
+        check(err <= TF_TOL * scale,
+              f"decode vs forward (decode's own choices flipped in {moe['flipped']} layers): "
+              f"max abs err {err} > {TF_TOL} x max |logit| {scale}")
+        params32 = {"embed": tree_map(lambda t: t.float(), params["embed"]),
+                    "final_norm": tree_map(lambda t: t.float(), params["final_norm"]),
+                    "layers": tree_map(lambda t: t[:MOE_CHECK_LAYERS].float(), params["layers"])}
+        excess = []
+        for r in range(rows):
+            gap, ref, flips, router = decode_vs_forward(
+                get_model(cfg32), params32, prompts[r:r + 1], tok[r:r + 1], None)
+            moe["err_fp32"].append(float(gap.abs().max()))
+            moe["flipped_fp32"] += flips
+            moe["router_err_fp32"].append(router)
+            excess.append(float((gap.abs() - DECODE_FP32_TOL * (1 + ref.abs())).max()))
+        del params32
+        check(max(excess) <= 0,
+              f"fp32 decode vs forward ({MOE_CHECK_LAYERS} layers, decode's own choices "
+              f"flipped in {moe['flipped_fp32']}): max abs err {moe['err_fp32']} beyond "
+              f"{DECODE_FP32_TOL} abs + rel by {excess}")
+        check(max(moe["router_err_fp32"]) <= DECODE_FP32_TOL,
+              f"fp32 decode vs forward: router logits differ by {moe['router_err_fp32']} of "
+              f"their largest |logit|, > {DECODE_FP32_TOL}")
+    del gap, ref
     laps.lap("check")
     result = {"tokens": tokens, "launches": launches, "laps": laps.seconds,
               "prefill_launches": prefill_launches, "decode_launches": decode_launches,
               "decode_vs_forward_err": err, "max_abs_logit": scale, "check_rows": rows,
-              "generate_gb": generate_gb, "mem_gb": peak_gb(device)}
+              "moe_check": moe,
+              "init_gb": init_gb, "generate_gb": generate_gb, "mem_gb": peak_gb(device)}
     if device.type == "cuda":
-        result["prefill_ms"] = cuda_ms(lambda: model.prefill(params, prompts), reps=5, warmup=1)
+        result["prefill_ms"] = cuda_ms(lambda: model.prefill(params, batch_in), reps=5, warmup=1)
         result["decode_step_ms"] = cuda_ms(
             lambda: model.decode_step(params, tok, cache, prompt_len), reps=10, warmup=2)
         result["trace"] = {
-            "prefill": device_breakdown(lambda: model.prefill(params, prompts),
+            "prefill": device_breakdown(lambda: model.prefill(params, batch_in),
                                         result["prefill_ms"]),
             "decode_step": device_breakdown(
                 lambda: model.decode_step(params, tok, cache, prompt_len),
@@ -1108,35 +1317,70 @@ def lm_phase(
     return result
 
 
-def ssm_lm_phase(device: torch.device, cfg, batch: int, prompt_len: int, steps: int) -> dict:
-    """``lm_phase`` on an SSM or hybrid config, checking that a prefill
-    launches the SSD kernel once per Mamba2 layer and flash once per
-    shared-attention invocation, and that decode launches neither (on the
-    card; every count stays 0 on the CPU, where the plain versions run)."""
-    res = lm_phase(device, cfg, batch, prompt_len, steps, check_batch=SSM_CHECK_BATCH)
-    n_flash = cfg.num_layers // cfg.hybrid_attn_period if cfg.family == "hybrid" else 0
-    expected = {"pearson_gram": 0, "flash_attention": n_flash, "ssd_scan": cfg.num_layers}
+def prefill_launches(cfg) -> dict:
+    """What one prefill launches: flash once per attention layer (twice per
+    enc-dec decoder layer: self and cross), once per shared-attention
+    invocation of a hybrid; the SSD once per Mamba2 layer."""
+    flash = {"dense": cfg.num_layers, "moe": cfg.num_layers, "vlm": cfg.num_layers,
+             "ssm": 0, "hybrid": cfg.num_layers // max(cfg.hybrid_attn_period, 1),
+             "encdec": cfg.enc_layers + 2 * cfg.num_layers}[cfg.family]
+    ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"pearson_gram": 0, "flash_attention": flash, "ssd_scan": ssd}
+
+
+def model_lm_phase(device: torch.device, cfg, batch: int, prompt_len: int, steps: int,
+                   check_batch: int, label: str, features=None) -> dict:
+    """``lm_phase``, checking that a prefill (in ``generate`` and alone)
+    launches what :func:`prefill_launches` says and that a decode step
+    launches nothing (on the card; every count stays 0 on the CPU, where
+    the plain versions run).  Prints a ``label`` JSON line and the trace."""
+    res = lm_phase(device, cfg, batch, prompt_len, steps, check_batch=check_batch,
+                   features=features)
+    expected = prefill_launches(cfg)
     if device.type != "cuda":
         expected = dict.fromkeys(expected, 0)
     for name, got in (("generate", res["launches"]), ("prefill", res["prefill_launches"])):
-        check(got == expected, f"{cfg.name} {name}: launches {got}, expected {expected} "
-              f"(one prefill: SSD once per Mamba2 layer, flash once per invocation)")
+        check(got == expected, f"{cfg.name} {name}: launches {got}, expected {expected}")
     check(not any(res["decode_launches"].values()),
           f"{cfg.name}: a decode step launched {res['decode_launches']}")
     print(json.dumps({
-        "ssm_lm": {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch,
-                   "prompt": prompt_len, "steps": steps, "launches": res["launches"],
-                   "decode_launches": res["decode_launches"],
-                   "prefill_ms": res.get("prefill_ms"),
-                   "decode_step_ms": res.get("decode_step_ms"),
-                   "decode_vs_forward_err": res["decode_vs_forward_err"],
-                   "max_abs_logit": res["max_abs_logit"], "check_rows": res["check_rows"],
-                   "seconds": res["laps"], "peak_memory_gb_generate": res["generate_gb"],
-                   "peak_memory_gb": res["mem_gb"], "tokens_row0": res["tokens"][0].tolist()},
+        label: {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch,
+                "prompt": prompt_len, "steps": steps, "launches": res["launches"],
+                "decode_launches": res["decode_launches"],
+                "prefill_ms": res.get("prefill_ms"),
+                "decode_step_ms": res.get("decode_step_ms"),
+                "decode_vs_forward_err": res["decode_vs_forward_err"],
+                "max_abs_logit": res["max_abs_logit"], "check_rows": res["check_rows"],
+                "moe_check": res["moe_check"],
+                "seconds": res["laps"], "peak_memory_gb_init": res["init_gb"],
+                "peak_memory_gb_generate": res["generate_gb"],
+                "peak_memory_gb": res["mem_gb"], "tokens_row0": res["tokens"][0].tolist()},
     }), flush=True)
     if "trace" in res:
-        print(json.dumps({"ssm_lm_trace": {"arch": cfg.name, **res["trace"]}}), flush=True)
+        print(json.dumps({f"{label}_trace": {"arch": cfg.name, **res["trace"]}}), flush=True)
     return res
+
+
+def ssm_lm_phase(device: torch.device, cfg, batch: int, prompt_len: int, steps: int) -> dict:
+    """``model_lm_phase`` on an SSM or hybrid config: a prefill launches the
+    SSD kernel once per Mamba2 layer and flash once per shared-attention
+    invocation, decode neither."""
+    return model_lm_phase(device, cfg, batch, prompt_len, steps, SSM_CHECK_BATCH, "ssm_lm")
+
+
+def family_lm_phase(device: torch.device, cfg, batch: int, prompt_len: int, steps: int,
+                    check_batch: int, frames: int = WHISPER_FRAMES) -> dict:
+    """``model_lm_phase`` on a MoE, VLM or enc-dec config; the enc-dec gets
+    ``frames`` frames of normals from a seeded generator.  Let the frames
+    outnumber the config's ``attn_chunk``: at fewer, the reference's
+    ``forward`` pads the cross-attention's keys and its ``prefill`` does
+    not, so decode would not match forward (``models/encdec.py``)."""
+    features = None
+    if cfg.family == "encdec":
+        features = np.random.default_rng(3).standard_normal(
+            (batch, frames, cfg.enc_inputs)).astype(np.float32)
+    return model_lm_phase(device, cfg, batch, prompt_len, steps, check_batch, "family_lm",
+                          features)
 
 
 def launcher_phase(arch: str, steps: int = LAUNCHER_STEPS, extra_args=()) -> dict:
@@ -1155,6 +1399,36 @@ def launcher_phase(arch: str, steps: int = LAUNCHER_STEPS, extra_args=()) -> dic
     check("tok/s" in text, f"the launcher printed no tokens/s line: {text!r}")
     check(out.shape[1] == steps, f"launcher generated {out.shape}")
     return {"launches": launches, "line": text.splitlines()[0]}
+
+
+def check_pipeline_launches(tf: dict, cfg, label: str) -> int:
+    """A transformer pipeline's launches: flash twice per tapped block of
+    each task in the profile (2 layers a block, 3 taps), Pearson once per
+    task and branch point, flash once per layer of every block executed in
+    ``serve_batch``.  Prints the pipeline's lines; returns the layers per
+    block."""
+    prof, serve = tf["profile_launches"], tf["serve_launches"]
+    layers_per_block = cfg.num_layers // (N_BRANCH_POINTS + 1)
+    check(prof["flash_attention"] == layers_per_block * N_TASKS * N_BRANCH_POINTS,
+          f"flash kernel launched {prof['flash_attention']} times in the {label} "
+          f"profile, expected {layers_per_block * N_TASKS * N_BRANCH_POINTS}")
+    check(prof["pearson_gram"] == N_TASKS * N_BRANCH_POINTS,
+          f"pearson kernel launched {prof['pearson_gram']} times in the {label} profile")
+    check(serve["flash_attention"] == layers_per_block * tf["blocks_executed"],
+          f"flash kernel launched {serve['flash_attention']} times in serve_batch, expected "
+          f"{layers_per_block} x {tf['blocks_executed']} blocks executed")
+    print(f"{label} pipeline: graph {tf['graph']}; flash launches profile "
+          f"{prof['flash_attention']}, serve {serve['flash_attention']} "
+          f"({tf['blocks_executed']} blocks executed); pearson launches "
+          f"{prof['pearson_gram']}; served vs per-block max abs err {tf['max_err']:.3g}",
+          flush=True)
+    print(json.dumps({f"{label}_pipeline_seconds": tf["laps"],
+                      "peak_memory_gb": tf["mem"]}), flush=True)
+    for row in tf.get("groups", ()):
+        print(json.dumps({f"{label}_group": row}), flush=True)
+    if "trace" in tf:
+        print(json.dumps({f"{label}_group_trace": tf["trace"]}), flush=True)
+    return layers_per_block
 
 
 def main() -> int:
@@ -1216,25 +1490,7 @@ def main() -> int:
     cfg = transformer_config()
     tf = transformer_pipeline_phase(device, cfg)
     prof, serve = tf["profile_launches"], tf["serve_launches"]
-    check(prof["flash_attention"] == 2 * N_TASKS * N_BRANCH_POINTS,
-          f"flash kernel launched {prof['flash_attention']} times in the transformer "
-          f"profile, expected {2 * N_TASKS * N_BRANCH_POINTS}")
-    check(prof["pearson_gram"] == N_TASKS * N_BRANCH_POINTS,
-          f"pearson kernel launched {prof['pearson_gram']} times in the transformer profile")
-    layers_per_block = cfg.num_layers // (N_BRANCH_POINTS + 1)
-    check(serve["flash_attention"] == layers_per_block * tf["blocks_executed"],
-          f"flash kernel launched {serve['flash_attention']} times in serve_batch, expected "
-          f"{layers_per_block} x {tf['blocks_executed']} blocks executed")
-    print(f"transformer pipeline: graph {tf['graph']}; flash launches profile "
-          f"{prof['flash_attention']}, serve {serve['flash_attention']} "
-          f"({tf['blocks_executed']} blocks executed); pearson launches "
-          f"{prof['pearson_gram']}; served vs per-block max abs err {tf['max_err']:.3g}",
-          flush=True)
-    print(json.dumps({"transformer_pipeline_seconds": tf["laps"],
-                      "peak_memory_gb": tf["mem"]}), flush=True)
-    for row in tf["groups"]:
-        print(json.dumps({"transformer_group": row}), flush=True)
-    print(json.dumps({"transformer_group_trace": tf["trace"]}), flush=True)
+    layers_per_block = check_pipeline_launches(tf, cfg, "transformer")
     # The same engine and requests through sessions, then scripted faults.
     t0 = time.perf_counter()
     tf_sessions = session_phase(tf["engine"], tf["requests"], device, TF_TOL,
@@ -1273,10 +1529,45 @@ def main() -> int:
     check(launcher["launches"]["ssd_scan"] == get_config(MAMBA2[0]).num_layers,
           f"launcher: SSD launched {launcher['launches']['ssd_scan']} times")
     print(json.dumps({"launcher": launcher}), flush=True)
+    print(json.dumps({"seconds_to_the_new_families": time.perf_counter() - t_start}), flush=True)
+
+    # qwen2-moe-a2.7b, 8 layers: profile -> select -> order -> serve.
+    t0 = time.perf_counter()
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    moe = transformer_pipeline_phase(device, moe_cfg, label="moe")
+    check_pipeline_launches(moe, moe_cfg, "moe")
+    moe_prof, moe_serve = moe["profile_launches"], moe["serve_launches"]
+    del moe
+    free_memory()
+    print(json.dumps({"moe_pipeline_phase_seconds": time.perf_counter() - t0}), flush=True)
+
+    # The MoE, VLM and enc-dec families: LMServer prefill + greedy decode,
+    # then the serve launcher on whisper-medium at its full config.
+    family = {}
+    for arch, layers, batch, prompt, steps, rows in FAMILY_LMS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        family[arch] = family_lm_phase(device, cfg, batch, prompt, steps, rows)
+        del family[arch]["trace"]
+        free_memory()
+        print(json.dumps({"family_lm_phase_seconds": {arch: time.perf_counter() - t0}}),
+              flush=True)
+    whisper = get_config("whisper-medium")
+    launcher_whisper = launcher_phase("whisper-medium")
+    check(launcher_whisper["launches"] == prefill_launches(whisper),
+          f"whisper launcher: launches {launcher_whisper['launches']}")
+    print(json.dumps({"launcher": launcher_whisper}), flush=True)
+    free_memory()
     print(json.dumps({"smoke_seconds": time.perf_counter() - t_start}), flush=True)
 
     pearson_row = kernels["rows"][0]
     transformer_pearson_row = next(r for r in kernels["rows"] if r["K"] == TF_PROBES)
+    moe_pearson_row = next(r for r in kernels["rows"]
+                           if (r["K"], r["F"]) == (TF_PROBES, TF_SEQ * moe_cfg.d_model))
+    family_flash = {f"{arch}_prefill": family[arch]["launches"]["flash_attention"]
+                    for arch in family}
     flash_row = flash["rows"][0]
     ssd_main = [r for r in ssd["rows"] if r["path"] in ("mamba2_prefill", "zamba2_prefill")]
     ssd_by_path = {"mamba2_prefill": mamba["launches"]["ssd_scan"],
@@ -1289,10 +1580,11 @@ def main() -> int:
         "source": "src/repro_torch/csrc/pearson_gram.cu",
         "replaces": "src/repro/kernels/pearson_affinity.py:71",
         "launches": (lenet_launches["pearson_gram"] + prof["pearson_gram"]
-                     + qs_row["launches"]["pearson_gram"]),
+                     + qs_row["launches"]["pearson_gram"] + moe_prof["pearson_gram"]),
         "launches_by_path": {"lenet_profile": lenet_launches["pearson_gram"],
                              "transformer_profile": prof["pearson_gram"],
-                             "quickstart_profile": qs_row["launches"]["pearson_gram"]},
+                             "quickstart_profile": qs_row["launches"]["pearson_gram"],
+                             "moe_profile": moe_prof["pearson_gram"]},
         "max_abs_err": kernels["max_abs_err"],
         "ms": pearson_row["kernel_ms"],
         "plain_ms": pearson_row["plain_ms"],
@@ -1302,7 +1594,8 @@ def main() -> int:
         "shape": [pearson_row["K"], pearson_row["F"]],
         "by_path": {path: {"shape": [r["K"], r["F"]], **{k: r[k] for k in timed}}
                     for path, r in (("lenet_profile", pearson_row),
-                                    ("transformer_profile", transformer_pearson_row))},
+                                    ("transformer_profile", transformer_pearson_row),
+                                    ("moe_profile", moe_pearson_row))},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -1311,14 +1604,21 @@ def main() -> int:
         "launches": (prof["flash_attention"] + serve["flash_attention"]
                      + sum(session_flash.values())
                      + tf_chaos["launches"]["flash_attention"]
-                     + lm["launches"]["flash_attention"] + zamba["launches"]["flash_attention"]),
+                     + lm["launches"]["flash_attention"] + zamba["launches"]["flash_attention"]
+                     + moe_prof["flash_attention"] + moe_serve["flash_attention"]
+                     + sum(family_flash.values())
+                     + launcher_whisper["launches"]["flash_attention"]),
         "launches_by_path": {"transformer_profile": prof["flash_attention"],
                              "transformer_serve": serve["flash_attention"],
                              **{f"transformer_session_{name}": n
                                 for name, n in session_flash.items()},
                              "transformer_session_chaos": tf_chaos["launches"]["flash_attention"],
                              "lm_prefill": lm["launches"]["flash_attention"],
-                             "zamba2_prefill": zamba["launches"]["flash_attention"]},
+                             "zamba2_prefill": zamba["launches"]["flash_attention"],
+                             "moe_profile": moe_prof["flash_attention"],
+                             "moe_serve": moe_serve["flash_attention"],
+                             **family_flash,
+                             "whisper_launcher": launcher_whisper["launches"]["flash_attention"]},
         "max_abs_err": flash["max_abs_err"],
         "ms": flash_row["kernel_ms"],
         "plain_ms": flash_row["plain_ms"],

@@ -1,10 +1,12 @@
-"""Serving launcher: batched prefill + greedy decode for any ported arch.
+"""Serving launcher: batched prefill + greedy decode for any arch of the zoo.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
       [--smoke] [--batch 4] [--prompt-len 16] [--steps 16] [--device cpu]
 
 Random weights from a seeded ``torch.Generator`` (drawn on the card when the
-device is CUDA), random prompts from numpy with the same seed, one
+device is CUDA), random prompts from numpy with the same seed (and, for the
+enc-dec family, (batch, prompt-len, enc_inputs) normal frontend features
+from the same numpy generator, as the reference's launcher makes them), one
 ``LMServer.generate``; prints the tokens per second, timed after a CUDA
 synchronise, and a sample.  Runs on ``cuda`` unless ``--device`` names
 another.  The reference's mesh options have no counterpart here: one
@@ -51,9 +53,12 @@ def main(argv: Optional[Sequence[str]] = None) -> np.ndarray:
     server = LMServer(model, params)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.raw_vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    feats = None
+    if cfg.family == "encdec":
+        feats = rng.normal(size=(args.batch, args.prompt_len, cfg.enc_inputs)).astype(np.float32)
     _sync(device)
     t0 = time.perf_counter()  # monotonic: NTP can step time.time()
-    out = server.generate(prompts, steps=args.steps)
+    out = server.generate(prompts, steps=args.steps, features=feats)
     _sync(device)
     dt = time.perf_counter() - t0
     print(f"arch={cfg.name} device={device} generated {out.shape[0]}x{out.shape[1]} tokens "

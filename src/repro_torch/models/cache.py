@@ -1,12 +1,12 @@
 """Decode-time caches, the PyTorch port of ``repro.models.cache``: the KV
-cache of the attention families, the SSM cache of Mamba2 and the hybrid
-cache of Zamba2.
+cache of the attention families, the SSM cache of Mamba2, the hybrid
+cache of Zamba2 and the enc-dec cache of Whisper.
 
 A sliding-window config keeps a ring buffer of ``window`` slots, which is
 what makes long-context decode feasible for SWA architectures (the cache is
 O(window), not O(seq)).  Where the reference describes a cache abstractly
 with ``ShapeDtypeStruct``s, the port uses tensors on the ``meta`` device.
-The enc-dec cache comes with its family; the sharding specs with the mesh.
+The sharding specs come with the mesh.
 """
 from __future__ import annotations
 
@@ -124,4 +124,37 @@ def hybrid_cache_zeros(
     return HybridCache(
         ssm=ssm_cache_zeros(cfg, batch, layers=cfg.num_layers, device=device),
         kv=kv_cache_zeros(cfg, batch, seq_len, layers=n_inv, device=device),
+    )
+
+
+@dataclasses.dataclass
+class EncDecCache:
+    """Whisper decode state: decoder self-attention KV + encoder cross K/V
+    (computed once from the encoder output at prefill)."""
+
+    self_kv: KVCache
+    cross_k: torch.Tensor  # (L, B, T_enc, Hk, Dh)
+    cross_v: torch.Tensor
+
+
+def encdec_cache_shape(cfg: ModelConfig, batch: int, dec_len: int, enc_len: int) -> EncDecCache:
+    cross = (cfg.num_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = cfg.activation_dtype()
+    return EncDecCache(
+        self_kv=kv_cache_shape(cfg, batch, dec_len),
+        cross_k=torch.empty(cross, dtype=dt, device="meta"),
+        cross_v=torch.empty(cross, dtype=dt, device="meta"),
+    )
+
+
+def encdec_cache_zeros(
+    cfg: ModelConfig, batch: int, dec_len: int, enc_len: int, *, device: DeviceLike = None,
+) -> EncDecCache:
+    """A zero enc-dec cache on ``device`` (``cuda`` unless the caller names another)."""
+    device = resolve_device(device)
+    s = encdec_cache_shape(cfg, batch, dec_len, enc_len)
+    return EncDecCache(
+        self_kv=kv_cache_zeros(cfg, batch, dec_len, device=device),
+        cross_k=torch.zeros_like(s.cross_k, device=device),
+        cross_v=torch.zeros_like(s.cross_v, device=device),
     )

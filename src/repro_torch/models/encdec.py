@@ -1,0 +1,266 @@
+"""Whisper-style encoder-decoder, the `encdec` family (arXiv:2212.04356): the
+PyTorch port of ``repro.models.encdec``.
+
+As in the reference, the modality frontend is a stub: callers deliver
+precomputed frame features ``(B, T_enc, enc_inputs)``, and a linear
+projection plus sinusoidal positions stand in for Whisper's two conv
+layers.  The bidirectional encoder, the causal decoder with
+cross-attention, prefill and single-token decode with self-KV and cross-KV
+caches are whole.  Absolute sinusoidal positions (no RoPE), GELU MLPs and
+RMSNorm, as there.
+
+Every full-sequence attention goes through the flash kernel on CUDA:
+non-causal in the encoder and the cross-attention, causal in the decoder's
+self-attention.  One decode token attends through the plain
+:func:`~repro_torch.models.layers.attention_decode` (self, masked by the
+cache fill) and :func:`~repro_torch.models.layers.attention_dense` (cross),
+as the reference does.
+
+**The reference's padded keys.**  Its chunked attention
+(``repro/models/layers.py::attention_chunked``) zero-pads K and V up to a
+multiple of the chunk and masks the pad only under ``causal`` or
+``kv_valid``; a non-causal call without ``kv_valid`` lets the zero keys
+into the softmax's denominator.  The reference takes that path in every
+encoder and cross-attention of ``encode`` and ``forward``, and in
+``prefill`` and ``decode_step`` wherever the keys outnumber the chunk.  The
+port is held to the reference, so :func:`reference_keys` pads the same keys
+at the same call sites and the kernel attends over them as real keys
+(whisper-medium: 1500 encoder frames, chunk 1024, 548 zero keys).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.cache import EncDecCache, KVCache
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import draw_stacked, layer_params, num_stacked
+
+Params = Dict[str, Any]
+
+
+def _sinusoid_rows(positions: torch.Tensor, channels: int) -> torch.Tensor:
+    log_timescale = math.log(10000.0) / (channels // 2 - 1)
+    inv = torch.exp(
+        -log_timescale * torch.arange(channels // 2, dtype=torch.float32, device=positions.device)
+    )
+    scaled = positions.float()[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
+
+
+def sinusoids(length: int, channels: int, device: DeviceLike = "cpu") -> torch.Tensor:
+    """Whisper's sinusoidal position table (length, channels), fp32."""
+    return _sinusoid_rows(torch.arange(length, device=device), channels)
+
+
+# --------------------------------------------------------------------------
+# Init
+# --------------------------------------------------------------------------
+
+def _init_enc_layer(generator: torch.Generator, cfg: ModelConfig, device: torch.device) -> Params:
+    dtype = cfg.params_dtype()
+    return {
+        "attn_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "mlp_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "attn": L.init_attention(generator, cfg, device),
+        "mlp": L.init_mlp(generator, cfg, device),
+    }
+
+
+def _init_dec_layer(generator: torch.Generator, cfg: ModelConfig, device: torch.device) -> Params:
+    dtype = cfg.params_dtype()
+    return {
+        "self_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "cross_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "mlp_norm": L.init_rmsnorm(cfg.d_model, dtype, device),
+        "self_attn": L.init_attention(generator, cfg, device),
+        "cross_attn": L.init_attention(generator, cfg, device),
+        "mlp": L.init_mlp(generator, cfg, device),
+    }
+
+
+def init(generator: torch.Generator, cfg: ModelConfig, device: DeviceLike = None) -> Params:
+    """Parameters on ``device`` (``cuda`` unless the caller names another),
+    drawn from ``generator``, in the reference's layout (encoder and
+    decoder layers stacked with a leading L axis)."""
+    if cfg.family != "encdec":
+        raise ValueError(f"encdec.init takes an encdec config, not {cfg.family!r}")
+    dev = resolve_device(device)
+    dtype = cfg.params_dtype()
+    return {
+        "frontend_proj": L.dense_init(generator, cfg.enc_inputs, (cfg.d_model,), dtype, dev),
+        "embed": L.init_embed(generator, cfg, dev),
+        "enc_layers": draw_stacked(lambda: _init_enc_layer(generator, cfg, dev), cfg.enc_layers),
+        "dec_layers": draw_stacked(lambda: _init_dec_layer(generator, cfg, dev), cfg.num_layers),
+        "enc_norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dtype, dev),
+    }
+
+
+# --------------------------------------------------------------------------
+# Attention without RoPE (Whisper uses absolute positions)
+# --------------------------------------------------------------------------
+
+def reference_keys(
+    k: torch.Tensor, v: torch.Tensor, chunk: int, chunked: bool, causal: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V (B, T, Hk, Dh) as the reference's attention sees them.
+
+    Where the reference takes its chunked path (``chunked``) without the
+    causal mask, and T is not a multiple of ``chunk``, it attends over T
+    rounded up to the chunk, the added keys and values zero: so do these.
+    Elsewhere the reference masks its pad (as it does under ``kv_valid``,
+    which only the self-attention of a decode step passes), and K and V
+    come back as they are."""
+    t = k.shape[1]
+    if not chunked or causal or t % chunk == 0:
+        return k, v
+    pad = (0, 0, 0, 0, 0, chunk - t % chunk)
+    return F.pad(k, pad), F.pad(v, pad)
+
+
+def _attend(
+    ap: Params, xq: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    cfg: ModelConfig, causal: bool, chunked: bool,
+) -> torch.Tensor:
+    """Attention of ``xq`` over full K/V through the flash kernel; the
+    reference's chunked path where ``chunked``, its dense one elsewhere."""
+    q = torch.einsum("bsd,dhk->bshk", xq, ap["wq"])
+    k, v = reference_keys(k, v, cfg.attn_chunk, chunked, causal)
+    out = ops.flash_attention_bhsd(q, k, v, causal=causal)
+    return torch.einsum("bshk,hkd->bsd", out, ap["wo"])
+
+
+# --------------------------------------------------------------------------
+# Encoder
+# --------------------------------------------------------------------------
+
+def _device(params: Params) -> torch.device:
+    return params["embed"]["embedding"].device
+
+
+def encode(params: Params, features: Any, cfg: ModelConfig) -> torch.Tensor:
+    """Encoder output (B, T_enc, D) from frontend features (B, T_enc,
+    enc_inputs)."""
+    features = torch.as_tensor(features, device=_device(params))
+    t = features.shape[1]
+    x = features.to(cfg.activation_dtype()) @ params["frontend_proj"]
+    x = x + sinusoids(t, cfg.d_model, x.device).to(x.dtype)[None]
+    for i in range(num_stacked(params["enc_layers"])):
+        lp = layer_params(params["enc_layers"], i)
+        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+        k, v = L.project_kv(lp["attn"], h)
+        x = x + _attend(lp["attn"], h, k, v, cfg, causal=False, chunked=True)
+        h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + L.mlp_block(lp["mlp"], h, cfg)
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+# --------------------------------------------------------------------------
+# Decoder (teacher-forced / prefill / decode)
+# --------------------------------------------------------------------------
+
+def _decoder_input(params: Params, tokens: Any, cfg: ModelConfig) -> torch.Tensor:
+    tokens = torch.as_tensor(tokens, device=_device(params)).long()
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    return x + sinusoids(tokens.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+
+
+def _decoder(
+    params: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig, cached: bool,
+) -> Tuple[torch.Tensor, Optional[EncDecCache]]:
+    """The decoder stack over a full sequence.  ``cached`` (prefill) takes
+    the reference's ``_attend_cached`` paths (chunked only where the keys
+    outnumber the chunk) and returns the caches; otherwise (``forward``)
+    every attention takes its chunked path."""
+    layers = params["dec_layers"]
+    caches = []
+    for i in range(num_stacked(layers)):
+        lp = layer_params(layers, i)
+        h = L.rmsnorm(lp["self_norm"], x, cfg.norm_eps)
+        sk, sv = L.project_kv(lp["self_attn"], h)
+        chunked = sk.shape[1] > cfg.attn_chunk or not cached
+        x = x + _attend(lp["self_attn"], h, sk, sv, cfg, causal=True, chunked=chunked)
+        h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+        ck, cv = L.project_kv(lp["cross_attn"], enc_out)
+        chunked = ck.shape[1] > cfg.attn_chunk or not cached
+        x = x + _attend(lp["cross_attn"], h, ck, cv, cfg, causal=False, chunked=chunked)
+        h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + L.mlp_block(lp["mlp"], h, cfg)
+        if cached:
+            caches.append((sk, sv, ck, cv))
+    if not cached:
+        return x, None
+    sks, svs, cks, cvs = (torch.stack(parts) for parts in zip(*caches))
+    return x, EncDecCache(self_kv=KVCache(k=sks, v=svs), cross_k=cks, cross_v=cvs)
+
+
+def forward(
+    params: Params, features: Any, tokens: Any, cfg: ModelConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced pass -> (logits (B, S, V), aux = 0)."""
+    enc_out = encode(params, features, cfg)
+    x, _ = _decoder(params, _decoder_input(params, tokens, cfg), enc_out, cfg, cached=False)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.unembed(params["embed"], x, cfg), aux
+
+
+def prefill(
+    params: Params, features: Any, tokens: Any, cfg: ModelConfig
+) -> Tuple[torch.Tensor, EncDecCache]:
+    """Encode the audio and consume the decoder prompt: last-position logits
+    (B, V) and the caches (self K/V of the prompt, cross K/V of the
+    encoder output, each (L, B, T, Hk, Dh))."""
+    enc_out = encode(params, features, cfg)
+    x, cache = _decoder(params, _decoder_input(params, tokens, cfg), enc_out, cfg, cached=True)
+    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return L.unembed(params["embed"], x, cfg)[:, 0], cache
+
+
+def decode_step(
+    params: Params, token: Any, cache: EncDecCache, cache_len: int, cfg: ModelConfig,
+) -> Tuple[torch.Tensor, EncDecCache]:
+    """One decode step: logits (B, V) for the next position + the cache.
+
+    The token's self K/V are written into ``cache.self_kv`` in place at
+    slot ``cache_len`` of every layer (no ring: Whisper has no window), and
+    ``cache`` itself is returned; the reference returns an updated copy."""
+    token = torch.as_tensor(token, device=_device(params)).long()
+    cache_len = int(cache_len)
+    x = L.embed_tokens(params["embed"], token[:, None], cfg)  # (B, 1, D)
+    pos = torch.full((1,), cache_len, device=x.device)
+    x = x + _sinusoid_rows(pos, cfg.d_model).to(x.dtype)[None]
+    b = x.shape[0]
+    t_self = cache.self_kv.capacity
+    kpos = torch.arange(t_self, device=x.device)
+    valid = (kpos <= cache_len)[None, :].expand(b, t_self)
+    epos = torch.arange(cache.cross_k.shape[2], device=x.device)
+    for i in range(num_stacked(params["dec_layers"])):
+        lp = layer_params(params["dec_layers"], i)
+        h = L.rmsnorm(lp["self_norm"], x, cfg.norm_eps)
+        nk, nv = L.project_kv(lp["self_attn"], h)
+        sk, sv = cache.self_kv.k[i], cache.self_kv.v[i]
+        sk[:, cache_len] = nk[:, 0].to(sk.dtype)
+        sv[:, cache_len] = nv[:, 0].to(sv.dtype)
+        q = torch.einsum("bsd,dhk->bshk", h, lp["self_attn"]["wq"])
+        out = L.attention_decode(q, sk, sv, kpos, cache_len, kv_valid=valid)
+        x = x + torch.einsum("bshk,hkd->bsd", out, lp["self_attn"]["wo"])
+
+        h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+        q = torch.einsum("bsd,dhk->bshk", h, lp["cross_attn"]["wq"])
+        ck, cv = reference_keys(cache.cross_k[i], cache.cross_v[i], cfg.attn_chunk,
+                                chunked=epos.shape[0] > cfg.attn_chunk, causal=False)
+        out = L.attention_dense(q, ck, cv, pos, epos, causal=False)
+        x = x + torch.einsum("bshk,hkd->bsd", out, lp["cross_attn"]["wo"])
+
+        h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+        x = x + L.mlp_block(lp["mlp"], h, cfg)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x, cfg)[:, 0], cache

@@ -34,7 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as M
 from repro_torch.models.cache import HybridCache, KVCache, SSMCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_params, stack_layers
+from repro_torch.models.transformer import draw_stacked, layer_params
 
 Params = Dict[str, Any]
 
@@ -55,10 +55,10 @@ def init(generator: torch.Generator, cfg: ModelConfig, device: DeviceLike = None
     dtype = cfg.params_dtype()
     params = {
         "embed": L.init_embed(generator, cfg, dev),
-        "mamba": stack_layers([   # leaves: (n_inv, period, ...)
-            stack_layers([M.init_mamba_block(generator, cfg, dev) for _ in range(period)])
-            for _ in range(n_inv)
-        ]),
+        "mamba": draw_stacked(   # leaves: (n_inv, period, ...)
+            lambda: draw_stacked(lambda: M.init_mamba_block(generator, cfg, dev), period),
+            n_inv,
+        ),
         "shared_attn": L.init_attention(generator, cfg, dev),   # ONE set of weights
         "shared_mlp": L.init_mlp(generator, cfg, dev),
         "inv_norms": {"scale": torch.ones((n_inv, cfg.d_model), dtype=dtype, device=dev)},

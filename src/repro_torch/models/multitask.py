@@ -9,10 +9,10 @@ and parameters:
 * :func:`program_from_reference` — the JAX CNN program's own weights,
   carried over as numpy arrays, so the port and the reference compute the
   same function;
-* :func:`build_transformer_program` — transformer backbones of the dense
-  family: blocks are contiguous layer ranges, tasks are classifier heads on
-  the last position's standardised hidden state (the reference's serving
-  analogue), weights drawn on the generator's device;
+* :func:`build_transformer_program` — transformer backbones of the dense,
+  MoE and VLM families: blocks are contiguous layer ranges, tasks are
+  classifier heads on the last position's standardised hidden state (the
+  reference's serving analogue), weights drawn on the generator's device;
 * :func:`transformer_program_from_reference` /
   :func:`params_from_reference` — the JAX transformer program's and model's
   weights, carried over;
@@ -142,7 +142,8 @@ def transformer_block_costs(
     """Per-block weight bytes + FLOPs for a layer-range block (per sample).
 
     The same floats, in the same order, as the reference: the executor's
-    counters are compared field for field.
+    counters are compared field for field.  So, as there, an MoE layer is
+    priced as a dense MLP of ``d_ff``, whatever its experts hold.
     """
     bytes_per_param = cfg.params_dtype().itemsize
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
@@ -268,19 +269,13 @@ def _tree_from_numpy(tree: Any, device: torch.device) -> Any:
     return _from_numpy(tree, device)
 
 
-def params_from_reference(
-    cfg: ModelConfig, params: Mapping[str, Any], *, device: DeviceLike = None
-) -> Params:
-    """The reference's ``init`` tree (numpy leaves) of a dense, SSM or hybrid
-    model, or of one of its modules, as the port's params: the same layouts
-    — stacked layers, the hybrid's two-level (n_inv, period, ...) Mamba2
-    stack and its optional ``inv_lora`` included — so it carries over leaf
-    for leaf."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; repro_torch runs the dense, "
-            "ssm and hybrid families"
-        )
+def params_from_reference(params: Mapping[str, Any], *, device: DeviceLike = None) -> Params:
+    """The reference's ``init`` tree (numpy leaves) of a model of any family,
+    or of one of its modules, as the port's params on ``device``: the port
+    keeps every family's layouts — stacked layers, the MoE's fp32 router and
+    stacked experts, the hybrid's two-level (n_inv, period, ...) Mamba2
+    stack and its optional ``inv_lora``, the enc-dec's two stacks and
+    frontend — so the tree carries over leaf for leaf."""
     return _tree_from_numpy(params, resolve_device(device))
 
 

@@ -6,10 +6,15 @@ signatures regardless of family, so the server never branches on
 architecture:
 
   init(generator, device=None)           -> params
-  forward(params, tokens)                -> (logits, aux_loss)
-  prefill(params, tokens)                -> (last_logits, cache)
+  forward(params, batch)                 -> (logits, aux_loss)
+  prefill(params, batch)                 -> (last_logits, cache)
   decode_step(params, token, cache, n)   -> (logits, cache)
   cache_shape(batch, seq_len)            -> cache of meta tensors
+  make_batch(tokens, features=None)      -> batch
+
+``make_batch`` builds what ``forward`` and ``prefill`` take: for ``encdec``
+a dict with ``features`` and ``tokens``; every other family takes the
+token ids and ignores ``features``.
 
 Unlike the reference, which returns an updated copy, ``decode_step``
 updates ``cache`` in place (the token's K/V at slot ``n % capacity`` of
@@ -17,8 +22,7 @@ every attention layer, every Mamba2 layer's conv window and SSD state) and
 returns that same object.
 
 The reference's sharding members (``param_specs``, ``cache_spec``) come
-with the mesh.  The dense, SSM and hybrid families are ported; the others
-raise.
+with the mesh.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.models import cache as C
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -38,6 +42,7 @@ class ModelApi:
     prefill: Callable
     decode_step: Callable
     cache_shape: Callable
+    make_batch: Callable = lambda tokens, features=None: tokens
 
 
 def _transformer_api(cfg: ModelConfig) -> ModelApi:
@@ -75,12 +80,32 @@ def _hybrid_api(cfg: ModelConfig) -> ModelApi:
     )
 
 
-_FAMILIES = {"dense": _transformer_api, "ssm": _ssm_api, "hybrid": _hybrid_api}
+# Whisper's encoder output length used by decode-shape caches: 30 s of audio
+# at 50 frames/s (the model card's 1500-frame receptive field).
+WHISPER_ENC_LEN = 1500
+
+
+def _encdec_api(cfg: ModelConfig) -> ModelApi:
+    return ModelApi(
+        cfg=cfg,
+        init=lambda generator, device=None: encdec.init(generator, cfg, device),
+        forward=lambda p, batch: encdec.forward(p, batch["features"], batch["tokens"], cfg),
+        prefill=lambda p, batch: encdec.prefill(p, batch["features"], batch["tokens"], cfg),
+        decode_step=lambda p, tok, cache, n: encdec.decode_step(p, tok, cache, n, cfg),
+        cache_shape=lambda batch, seq_len: C.encdec_cache_shape(
+            cfg, batch, seq_len, WHISPER_ENC_LEN
+        ),
+        make_batch=lambda tokens, features=None: {"features": features, "tokens": tokens},
+    )
+
+
+_FAMILIES = {
+    "dense": _transformer_api, "moe": _transformer_api, "vlm": _transformer_api,
+    "ssm": _ssm_api, "hybrid": _hybrid_api, "encdec": _encdec_api,
+}
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in _FAMILIES:
-        return _FAMILIES[cfg.family](cfg)
-    if cfg.family in ("vlm", "moe", "encdec"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    return _FAMILIES[cfg.family](cfg)

@@ -31,7 +31,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.cache import SSMCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import layer_params, num_stacked, stack_layers
+from repro_torch.models.transformer import draw_stacked, layer_params, num_stacked
 
 Params = Dict[str, Any]
 
@@ -285,9 +285,7 @@ def init(generator: torch.Generator, cfg: ModelConfig, device: DeviceLike = None
     dev = resolve_device(device)
     return {
         "embed": L.init_embed(generator, cfg, dev),
-        "layers": stack_layers(
-            [init_mamba_block(generator, cfg, dev) for _ in range(cfg.num_layers)]
-        ),
+        "layers": draw_stacked(lambda: init_mamba_block(generator, cfg, dev), cfg.num_layers),
         "final_norm": L.init_rmsnorm(cfg.d_model, cfg.params_dtype(), dev),
     }
 

@@ -1,11 +1,18 @@
-"""Decoder-only transformer, dense family (granite-34b/20b, nemotron-4-340b,
-mistral-nemo-12b): the PyTorch port of ``repro.models.transformer``.
+"""Decoder-only transformer covering the dense, MoE and VLM families: the
+PyTorch port of ``repro.models.transformer``.
+
+* **dense**: granite-34b/20b (MQA), nemotron-4-340b (GQA + squared-ReLU),
+  mistral-nemo-12b (GQA);
+* **moe**: mixtral-8x22b (8 experts top-2 + sliding window),
+  qwen2-moe-a2.7b (4 shared + 60 routed top-4): the MLP is
+  :func:`repro_torch.models.moe.moe_mlp`;
+* **vlm**: chameleon-34b, whose early fusion puts image content in the
+  token vocabulary, so its backbone is exactly the dense decoder.
 
 Layer parameters stay stacked with a leading L axis, as in the reference,
 so its trees carry over unchanged; the port loops over the layers where the
 reference scans.  Every full-sequence attention (``forward``,
-``hidden_states``, ``prefill``) goes through the flash kernel on CUDA.  The
-MoE and VLM families come with later slices.
+``hidden_states``, ``prefill``) goes through the flash kernel on CUDA.
 
 Entry points (plain functions; the device is the parameters'):
   ``init`` — parameters from a ``torch.Generator``.
@@ -16,7 +23,7 @@ Entry points (plain functions; the device is the parameters'):
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -25,15 +32,17 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.cache import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import init_moe_mlp, moe_mlp
 
 Params = Dict[str, Any]
 
 
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; repro_torch runs the dense family"
-        )
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"the decoder runs the {FAMILIES} families, not {cfg.family!r}")
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -56,27 +65,51 @@ def num_stacked(layers: Params) -> int:
 
 def _init_layer(generator: torch.Generator, cfg: ModelConfig, device: torch.device) -> Params:
     _check_family(cfg)
-    return {
+    p: Params = {
         "attn_norm": L.init_rmsnorm(cfg.d_model, cfg.params_dtype(), device),
         "mlp_norm": L.init_rmsnorm(cfg.d_model, cfg.params_dtype(), device),
         "attn": L.init_attention(generator, cfg, device),
-        "mlp": L.init_mlp(generator, cfg, device),
     }
+    if cfg.family == "moe":
+        p["moe"] = init_moe_mlp(generator, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg, device)
+    return p
 
 
-def stack_layers(layers) -> Params:
-    """Stack per-layer trees on a new leading axis."""
-    first = layers[0]
-    if isinstance(first, dict):
-        return {k: stack_layers([lp[k] for lp in layers]) for k in first}
-    return torch.stack(list(layers))
+def _stacked_like(tree: Params, n: int) -> Params:
+    """Uninitialised tensors of ``tree``'s layout with a leading axis of ``n``."""
+    if isinstance(tree, dict):
+        return {k: _stacked_like(v, n) for k, v in tree.items()}
+    return tree.new_empty((n, *tree.shape))
+
+
+def _write(stacked: Params, i: int, tree: Params) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _write(stacked[k], i, v)
+    else:
+        stacked[i].copy_(tree)
+
+
+def draw_stacked(draw: Callable[[], Params], n: int) -> Params:
+    """``n`` calls of ``draw`` in order, stacked on a new leading axis.  Each
+    draw is written into the preallocated stack as it comes, so the peak is
+    the stack plus one draw, not two copies of the weights."""
+    first = draw()
+    stacked = _stacked_like(first, n)
+    _write(stacked, 0, first)
+    del first
+    for i in range(1, n):
+        _write(stacked, i, draw())
+    return stacked
 
 
 def init_layers(
     generator: torch.Generator, cfg: ModelConfig, n: int, device: torch.device
 ) -> Params:
     """``n`` layers drawn in order, stacked with a leading L axis."""
-    return stack_layers([_init_layer(generator, cfg, device) for _ in range(n)])
+    return draw_stacked(lambda: _init_layer(generator, cfg, device), n)
 
 
 def init(
@@ -128,9 +161,12 @@ def _layer_apply(
         )
     x = x + attn_out
     h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-    x = x + L.mlp_block(lp["mlp"], h, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, new_kv, aux
+    if cfg.family == "moe":
+        mlp_out, aux = moe_mlp(lp["moe"], h, cfg)
+    else:
+        mlp_out = L.mlp_block(lp["mlp"], h, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + mlp_out, new_kv, aux
 
 
 def _positions(s: int, device: torch.device) -> torch.Tensor:
@@ -150,7 +186,8 @@ def _tokens(tokens: Any, params: Params) -> torch.Tensor:
 def forward(
     params: Params, tokens: Any, cfg: ModelConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence logits (B, S, V) and the summed MoE aux loss (0 here)."""
+    """Full-sequence logits (B, S, V) and the summed MoE aux loss (0
+    outside the MoE family)."""
     tokens = _tokens(tokens, params)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     q_pos = _positions(tokens.shape[1], x.device)

@@ -35,7 +35,7 @@ from repro_torch.core.ordering import optimal_order, solve_suborder
 from repro_torch.core.types import (
     ExecutionStats, HardwareModel, TPU_V5E, TaskGateRecord,
 )
-from repro_torch.models.cache import HybridCache, KVCache, SSMCache
+from repro_torch.models.cache import EncDecCache, HybridCache, KVCache, SSMCache
 from repro_torch.models.registry import ModelApi
 from repro_torch.serving.batching import (
     RequestGroup, RequestGroupScheduler, effective_order, normalize_subset,
@@ -552,23 +552,26 @@ class MultitaskEngine:
 # --------------------------------------------------------------------------
 
 class LMServer:
-    """Batched prefill + greedy decode (the dense, SSM and hybrid families).
+    """Batched prefill + greedy decode for any architecture of the zoo.
 
-    Runs on the device of ``params``.  On CUDA the prompt's prefill attends
-    through the flash kernel and runs each Mamba2 SSD through the SSD
-    kernel; each decode token attends over the KV cache and steps the SSM
-    recurrence.
+    Runs on the device of ``params``.  On CUDA the prefill attends through
+    the flash kernel (the enc-dec's encoder and cross-attention included)
+    and runs each Mamba2 SSD through the SSD kernel; each decode token
+    attends over the KV cache and steps the SSM recurrence.
     """
 
     def __init__(self, model: ModelApi, params: Any):
         self.model = model
         self.params = params
 
-    def generate(self, prompts: Any, steps: int) -> np.ndarray:
-        """Greedy generation.  prompts: (B, S0) token ids.  Returns (B, steps)."""
+    def generate(self, prompts: Any, steps: int, features: Any = None) -> np.ndarray:
+        """Greedy generation.  prompts: (B, S0) token ids; ``features``
+        (B, T_enc, enc_inputs) the enc-dec family's frontend features.
+        Returns (B, steps)."""
         _b, s0 = prompts.shape
         total = s0 + steps
-        logits, cache = self.model.prefill(self.params, prompts)
+        batch = self.model.make_batch(prompts, features)
+        logits, cache = self.model.prefill(self.params, batch)
         # Grow the prefill cache to full capacity (KV families only).
         cache = _grow_cache(self.model, cache, total, s0)
         out = []
@@ -595,8 +598,9 @@ def _grow_kv(kv: KVCache, total: int) -> KVCache:
 
 def _grow_cache(model: ModelApi, cache: Any, total: int, filled: int) -> Any:
     """Grow a prefill-sized cache to ``total`` positions: a KV cache (or the
-    KV part of a hybrid cache) gets zero slots; an SSM cache, a fixed-size
-    summary, stays as it is."""
+    KV part of a hybrid cache, or the self K/V of an enc-dec cache) gets
+    zero slots; an SSM cache, a fixed-size summary, and the enc-dec's cross
+    K/V stay as they are."""
     if isinstance(cache, KVCache):
         if model.cfg.sliding_window is not None:
             # An SWA ring never needs more than ``window`` slots; prefill's
@@ -607,4 +611,7 @@ def _grow_cache(model: ModelApi, cache: Any, total: int, filled: int) -> Any:
         return cache
     if isinstance(cache, HybridCache):
         return HybridCache(ssm=cache.ssm, kv=_grow_kv(cache.kv, total))
-    raise NotImplementedError(f"cache type {type(cache).__name__} is not ported yet")
+    if isinstance(cache, EncDecCache):
+        return EncDecCache(self_kv=_grow_kv(cache.self_kv, total),
+                           cross_k=cache.cross_k, cross_v=cache.cross_v)
+    raise TypeError(f"unknown cache type {type(cache).__name__}")

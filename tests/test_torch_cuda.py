@@ -379,3 +379,76 @@ def test_session_recovers_from_scripted_faults_on_the_card(cuda):
         for t in want.outputs:
             assert got.outputs[t].device.type == "cuda"
             torch.testing.assert_close(got.outputs[t], want.outputs[t], rtol=0, atol=1e-5)
+
+
+def test_moe_mlp_bf16_is_bit_identical_and_close_to_the_cpu(cuda):
+    """The MoE layer in bf16 on the card: two calls give the same bits (the
+    combine gathers each token's slots in a fixed order, no atomic
+    scatter), and the outputs are within 5e-2 of the same layer on the CPU;
+    pooled decode-sized groups and one group per row alike."""
+    import dataclasses
+
+    from repro_torch.models.moe import init_moe_mlp, moe_mlp
+
+    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    params = init_moe_mlp(torch.Generator().manual_seed(0), cfg, torch.device("cpu"))
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    for b, s in ((4, 1), (3, 16), (2, 70)):
+        x = _randn((b, s, cfg.d_model), torch.bfloat16, "cpu", b * s)
+        first, aux1 = moe_mlp(on_card, x.to(cuda), cfg)
+        second, aux2 = moe_mlp(on_card, x.to(cuda), cfg)
+        torch.cuda.synchronize()
+        assert first.dtype == torch.bfloat16 and first.shape == x.shape
+        assert torch.equal(first, second) and torch.equal(aux1, aux2)
+        cpu, aux_cpu = moe_mlp(params, x, cfg)
+        torch.testing.assert_close(first.cpu().float(), cpu.float(), rtol=5e-2, atol=5e-2)
+        torch.testing.assert_close(aux1.cpu(), aux_cpu, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_on_whisper_padded_keys(cuda, dtype):
+    """Non-causal attention of 40 queries over 24 keys zero-padded to 64, as
+    the enc-dec's encoder and cross-attention feed the kernel (4/4 heads,
+    d 64): the padded keys count as real ones, as in the plain version."""
+    from repro_torch.models.encdec import reference_keys
+
+    q = _randn((2, 40, 4, 64), dtype, cuda, 10)
+    k, v = reference_keys(_randn((2, 24, 4, 64), dtype, cuda, 11),
+                          _randn((2, 24, 4, 64), dtype, cuda, 12), 64, chunked=True, causal=False)
+    assert k.shape[1] == 64
+    before = flash_attention.launches
+    out = ops.flash_attention_bhsd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    ref = flash_attention_bhsd_ref(q, k, v, causal=False)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=tol)
+
+
+def test_whisper_decode_matches_forward_on_the_card(cuda):
+    """Whisper's smoke config on the card: one prefill launches flash once
+    per encoder layer and twice per decoder layer; one decode step after it
+    launches none and equals ``forward``'s next position to 3e-3.  100
+    frames: past the 64-key chunk, where the reference's prefill pads the
+    cross-attention's keys as its forward does."""
+    from repro_torch.serving.engine import _grow_cache
+
+    cfg = get_smoke_config("whisper-medium")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((2, 100, cfg.enc_inputs)).astype(np.float32)
+    toks = torch.as_tensor(rng.integers(0, 1000, (2, 20)), device=cuda)
+    full, _ = model.forward(params, {"features": feats, "tokens": toks})
+    before = flash_attention.launches
+    last, cache = model.prefill(params, {"features": feats, "tokens": toks[:, :19]})
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == cfg.enc_layers + 2 * cfg.num_layers
+    torch.testing.assert_close(last, full[:, 18], rtol=3e-3, atol=3e-3)
+    cache = _grow_cache(model, cache, 20, 19)
+    before = flash_attention.launches
+    step, _ = model.decode_step(params, toks[:, 19], cache, 19)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    torch.testing.assert_close(step, full[:, 19], rtol=3e-3, atol=3e-3)

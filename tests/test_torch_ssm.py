@@ -61,7 +61,7 @@ def _model(arch, seed=0, **kw):
     rcfg, pcfg = _cfgs(arch, **kw)
     r_mod, _ = MODULES[arch]
     rp = r_mod.init(jax.random.PRNGKey(seed), rcfg)
-    pp = p_mt.params_from_reference(pcfg, _np_tree(rp), device="cpu")
+    pp = p_mt.params_from_reference(_np_tree(rp), device="cpu")
     return rcfg, pcfg, rp, pp
 
 
@@ -137,9 +137,24 @@ def test_init_draws_reference_layouts(arch):
 
 
 def test_params_from_reference_refuses_unported_families():
-    cfg = dataclasses.replace(p_configs.get_smoke_config("granite-20b"), family="moe")
-    with pytest.raises(NotImplementedError):
-        p_mt.params_from_reference(cfg, {}, device="cpu")
+    """No family is left unported: a MoE tree (router, stacked experts,
+    shared experts) and an enc-dec tree (frontend, two stacks) carry over
+    leaf for leaf, same shapes, dtypes and values.  The hybrid init still
+    refuses configs it cannot build."""
+    from repro.models import encdec as r_encdec
+    from repro.models import transformer as r_tf
+
+    for arch, r_init in (("qwen2-moe-a2.7b", r_tf.init), ("whisper-medium", r_encdec.init)):
+        rcfg, _pcfg = _cfgs(arch)
+        ref = _np_tree(r_init(jax.random.PRNGKey(0), rcfg))
+        port = p_mt.params_from_reference(ref, device="cpu")
+        ref_leaves, ref_def = jax.tree_util.tree_flatten(ref)
+        port_leaves, port_def = jax.tree_util.tree_flatten(port)
+        assert port_def == ref_def
+        for r, t in zip(ref_leaves, port_leaves):
+            assert isinstance(t, torch.Tensor) and str(t.dtype).removeprefix("torch.") == str(r.dtype)
+            np.testing.assert_array_equal(t.numpy(), r)
+    assert port["dec_layers"]["cross_attn"]["w_kv"].shape[:2] == (rcfg.num_layers, rcfg.d_model)
     with pytest.raises(ValueError, match="hybrid"):
         p_hybrid.init(torch.Generator().manual_seed(0),
                       p_configs.get_smoke_config("mamba2-780m"), device="cpu")
@@ -297,7 +312,7 @@ def test_hybrid_lora_deltas_match_reference():
     prefill and decode (the zero init would leave the delta path untested)."""
     rcfg, pcfg, rp, _pp = _model("zamba2-2.7b", seed=5)
     rp = _with_lora_deltas(rp, seed=5)
-    pp = p_mt.params_from_reference(pcfg, _np_tree(rp), device="cpu")
+    pp = p_mt.params_from_reference(_np_tree(rp), device="cpu")
     assert pp["inv_lora"]["bkv"].abs().sum() > 0
     toks = _tokens((2, 36), seed=5)
     ref_logits, _ = r_hybrid.forward(rp, jnp.asarray(toks), rcfg, P)

@@ -44,6 +44,8 @@ P = TP_POLICY
 FP32 = dict(rtol=2e-5, atol=2e-5)
 DENSE = ("mistral-nemo-12b", "granite-34b", "granite-20b", "nemotron-4-340b")
 SSM_FAMILIES = ("mamba2-780m", "zamba2-2.7b")  # tested in tests/test_torch_ssm.py
+# tested in tests/test_torch_moe.py, test_torch_families.py and test_torch_encdec.py
+MOE_VLM_ENCDEC = ("qwen2-moe-a2.7b", "mixtral-8x22b", "chameleon-34b", "whisper-medium")
 
 
 def _np_tree(tree):
@@ -59,7 +61,7 @@ def _cfgs(arch="mistral-nemo-12b", **kw):
 def _model(arch="mistral-nemo-12b", seed=0, **kw):
     rcfg, pcfg = _cfgs(arch, **kw)
     rp = r_tf.init(jax.random.PRNGKey(seed), rcfg)
-    pp = p_mt.params_from_reference(pcfg, _np_tree(rp), device="cpu")
+    pp = p_mt.params_from_reference(_np_tree(rp), device="cpu")
     return rcfg, pcfg, rp, pp
 
 
@@ -75,7 +77,7 @@ def _close(port, ref, tol=FP32):
 # Configs, registry, cache shapes
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE + SSM_FAMILIES)
+@pytest.mark.parametrize("arch", DENSE + SSM_FAMILIES + MOE_VLM_ENCDEC)
 def test_configs_equal_reference(arch):
     for get in ("get_config", "get_smoke_config"):
         ref = dataclasses.asdict(getattr(r_configs, get)(arch))
@@ -87,17 +89,21 @@ def test_configs_equal_reference(arch):
 
 
 def test_registry_lists_ported_archs_and_refuses_others():
-    assert set(p_configs.list_archs()) == set(DENSE + SSM_FAMILIES)
-    for arch in set(r_configs.list_archs()) - set(DENSE + SSM_FAMILIES):
-        with pytest.raises(KeyError, match="not yet ported"):
-            p_configs.get_config(arch)
+    """Every arch of the reference's zoo is ported and listed in its order;
+    ``get_model`` serves all six families; an unknown arch raises."""
+    assert p_configs.list_archs() == r_configs.list_archs()
+    assert set(p_configs.list_archs()) == set(DENSE + SSM_FAMILIES + MOE_VLM_ENCDEC)
+    families = set()
+    for arch in p_configs.list_archs():
+        cfg = p_configs.get_smoke_config(arch)
+        assert p_registry.get_model(cfg).cfg is cfg
+        families.add(cfg.family)
+    assert families == {"dense", "moe", "vlm", "ssm", "hybrid", "encdec"}
     with pytest.raises(KeyError, match="unknown"):
         p_configs.get_config("gpt-5")
-    cfg = dataclasses.replace(p_configs.get_smoke_config("granite-20b"), family="moe")
-    with pytest.raises(NotImplementedError):
-        p_registry.get_model(cfg)
-    with pytest.raises(NotImplementedError):
-        p_tf.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(ValueError, match="decoder runs"):
+        p_tf.init(torch.Generator().manual_seed(0), p_configs.get_smoke_config("mamba2-780m"),
+                  device="cpu")
 
 
 @pytest.mark.parametrize("window", [None, 16])
@@ -148,7 +154,7 @@ def test_mlp_matches_reference(activation):
     arch = "nemotron-4-340b" if activation == "squared_relu" else "mistral-nemo-12b"
     rcfg, pcfg = _cfgs(arch, activation=activation)
     rp = r_layers.init_mlp(jax.random.PRNGKey(3), rcfg)
-    pp = p_mt.params_from_reference(pcfg, _np_tree(rp), device="cpu")
+    pp = p_mt.params_from_reference(_np_tree(rp), device="cpu")
     x = np.random.default_rng(2).standard_normal((2, 6, rcfg.d_model)).astype(np.float32)
     ref = r_layers.mlp_block(rp, jnp.asarray(x), rcfg, P)
     _close(p_layers.mlp_block(pp, torch.as_tensor(x), pcfg), ref)
@@ -304,6 +310,31 @@ def test_lm_server_greedy_tokens_equal_reference(window):
     assert flash_attention.launches == before  # the CPU runs the plain version
     assert out.shape == (2, 6)
     np.testing.assert_array_equal(out, np.asarray(ref))
+
+
+def test_init_layers_draws_in_place_what_stacking_drew():
+    """``init_layers`` writes each layer's draws into a preallocated stack;
+    the result is bit-equal to drawing every layer first and stacking them
+    (the earlier way, which held two copies of the weights at its peak)."""
+    _rcfg, pcfg = _cfgs(num_layers=3)
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees)
+
+    gen = torch.Generator().manual_seed(7)
+    stacked = stack([p_tf._init_layer(gen, pcfg, torch.device("cpu")) for _ in range(3)])
+    after = torch.rand(4, generator=gen)
+    gen = torch.Generator().manual_seed(7)
+    in_place = p_tf.init_layers(gen, pcfg, 3, torch.device("cpu"))
+    assert torch.equal(torch.rand(4, generator=gen), after)  # the same number of draws
+    flat = lambda tree: jax.tree_util.tree_leaves(  # noqa: E731
+        jax.tree_util.tree_map(lambda t: t.numpy(), tree))
+    assert jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda t: 0, in_place)) == \
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda t: 0, stacked))
+    for a, b in zip(flat(in_place), flat(stacked)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_init_draws_reference_layouts():
