@@ -24,15 +24,26 @@
    window, affinity, SLO-aware), arriving in bursts on a simulated clock,
    and once more under scripted faults at the "plan", "load" and "dispatch"
    sites (a group retried, a group served by the unfused rung).  Then the
-   quickstart (``repro_torch.examples.quickstart``) runs its five steps at
-   its reference sizes: 200 SGD steps, the profile, selection, ordering and
-   Antler against Vanilla; then the block profiler on the card.
+   same trace through a streamed session (``EnginePolicy(streaming=True)``:
+   each group's weights copied from pinned host memory on a side CUDA
+   stream behind the previous group's kernels), once more under a scripted
+   "prefetch" fault, and through journaled sessions (a ``Journal`` on a
+   ``FileJournalStore``) with power failures scripted at the "group",
+   "suffix" and "prefetch" sites, each followed by
+   ``ServingSession.recover``: with checkpoints and restarting from
+   scratch; then a journaled session duty-cycled by an ``EnergyBudget``.
+   Then the quickstart (``repro_torch.examples.quickstart``) runs its five
+   steps at its reference sizes: 200 SGD steps, the profile, selection,
+   ordering and Antler against Vanilla; then the block profiler on the card.
 4. Drives the same path on a transformer backbone: mistral-nemo-12b at full
    width (d_model 5120, GQA 32/8, head_dim 160, bf16), its 40 layers cut to
    8, sequences of 128 tokens, 256 random-token probes, 4 blocks of 2 layers;
-   then the same sessions as the LeNet engine's.
+   then the same sessions as the LeNet engine's, streamed and journaled
+   ones included (the journal in a ``MemoryJournalStore``).
 5. Drives ``LMServer.generate`` on the same configuration: 4 prompts of 512
-   tokens, 16 greedy decode steps.
+   tokens, 16 greedy decode steps; then ``ContinuousBatcher`` on the same
+   weights: 10 requests (prompts of 64-512 tokens, 4-16 new tokens, drawn
+   from a seeded generator) in waves of 4.
 6. Drives ``LMServer.generate`` on mamba2-780m at full width and depth (48
    layers, bf16): 4 prompts of 2048 tokens, 32 greedy steps; then on
    zamba2-2.7b at full width and depth (54 layers, bf16): 4 prompts of 1024
@@ -54,14 +65,20 @@ Each path runs with every launch count set to 0 just before it and read
 just after; the script checks that the kernels ran where the path runs
 them (Pearson 15 times per profile, the quickstart's included; flash
 attention 30 times in each transformer profile, twice per executed block
-in serving and in every session, once per decoder layer of a prefill (8,
+in serving and in every session — a journaled one's lost work included —,
+once per decoder layer of a prefill and of each batcher wave's prefill (8,
 24, 8, 48), 9 times in zamba2's, 72 times in whisper's (once per encoder
 layer, twice per decoder layer); the SSD once per Mamba2 layer of a
 prefill, 48 and 54; none in decode), that served counters equal the cost
-model's prediction field for field (every session's too, faults
-included), that served outputs match the per-block executor, that every
-session request succeeds, that faulted outputs match the fault-free
-session's, that the quickstart's loss falls, that Antler beats Vanilla,
+model's prediction field for field (every session's too, faults,
+streamed loads and checkpoint writes included), that served outputs match
+the per-block executor, that every session request succeeds, that faulted
+outputs match the fault-free session's, that streamed outputs are
+bit-identical to the synchronous session's, that journaled sessions answer
+every request exactly once through their power failures, resume an
+interrupted group from its checkpoint depth and restore journaled
+activations bit-exactly, that each batcher request's tokens equal
+``LMServer.generate`` on its wave, that the quickstart's loss falls, that Antler beats Vanilla,
 and that the first decode step agrees with ``forward``.  On a MoE that
 check runs at a capacity factor under which nothing drops, one row at a
 time, with prefill and decode taking forward's expert choices (bf16
@@ -86,6 +103,7 @@ import dataclasses
 import gc
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -129,10 +147,13 @@ from repro_torch.models.multitask import (  # noqa: E402
     transformer_block_costs,
 )
 from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.core.executor import ActivationCheckpoint  # noqa: E402
 from repro_torch.core.profiler import profile_program_blocks  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
-    AffinityPolicy, FaultInjector, GreedyBatchPolicy, LMServer, MultitaskEngine,
-    MultitaskRequest, RetryPolicy, SloAwarePolicy, WindowPolicy,
+    AffinityPolicy, ContinuousBatcher, EnergyBudget, EnginePolicy, FaultInjector,
+    FileJournalStore, GenRequest, GreedyBatchPolicy, InjectedFault, Journal, LMServer,
+    MemoryJournalStore, MultitaskEngine, MultitaskRequest, PowerFailure,
+    PowerFailureInjector, RetryPolicy, ServingSession, SloAwarePolicy, WindowPolicy,
 )
 from repro_torch.serving.engine import _grow_cache  # noqa: E402
 
@@ -161,10 +182,32 @@ FP32_PEAK_FLOPS, BF16_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
 ARCH, TF_LAYERS, TF_SEQ, TF_PROBES = "mistral-nemo-12b", 8, 128, 256
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 512, 16
 TF_TOL = 5e-2  # bf16 activations: served vs per-block, decode vs forward
+# The continuous batcher on the same configuration: requests in waves of
+# BATCHER_SLOTS, prompt lengths and new tokens drawn by ``batcher_plan``.
+BATCHER_SLOTS, BATCHER_REQUESTS = 4, 10
+
+
+def batcher_plan(n: int = BATCHER_REQUESTS, seed: int = 4):
+    """Prompt lengths (64-512) and ``max_new_tokens`` (4-16) of the batcher
+    phase's requests, and the generator that then draws their tokens."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(64, 513, n), rng.integers(4, 17, n), rng
+
+
+def batcher_waves(slots: int = BATCHER_SLOTS):
+    """(rows, longest prompt) of each wave: requests in arrival order,
+    ``slots`` at a time."""
+    lengths, _news, _rng = batcher_plan()
+    return [(len(lengths[w:w + slots]), int(max(lengths[w:w + slots])))
+            for w in range(0, len(lengths), slots)]
+
+
+# The wave whose prefill is largest (rows x prompt).
+BATCHER_WAVE = max(batcher_waves(), key=lambda w: w[0] * w[1])
 # Flash shapes of the main paths, model layout, bf16: (path, B, S, T, Hq, Hk,
 # d, causal, window, real keys).  mistral's serving group of 16, LM prefill
 # and profile batch; zamba2's prefill; the same three of qwen2-moe; the
-# mixtral, chameleon and whisper prefills.  Whisper's encoder and
+# mixtral, chameleon and whisper prefills; the batcher's largest wave.  Whisper's encoder and
 # cross-attention see 1500 frames zero-padded to 2048 keys, as the
 # reference's chunked attention pads them (``models/encdec.py``).
 FLASH_MAIN = (
@@ -179,6 +222,8 @@ FLASH_MAIN = (
     ("chameleon_prefill", 4, 512, 512, 64, 8, 128, True, None, None),
     ("whisper_encoder", 4, 1500, 2048, 16, 16, 64, False, None, 1500),
     ("whisper_cross", 4, 32, 2048, 16, 16, 64, False, None, 1500),
+    ("batcher_wave", BATCHER_WAVE[0], BATCHER_WAVE[1], BATCHER_WAVE[1], 32, 8, 160, True, None,
+     None),
 )
 # Ragged and windowed checks: (layout, B, S, T, Hq, Hk, d, causal, window).
 FLASH_RAGGED = (
@@ -706,6 +751,513 @@ def chaos_phase(engine, requests, clean_responses, device, tol: float, label: st
 
 
 # --------------------------------------------------------------------------
+# Weight streaming and intermittent power
+# --------------------------------------------------------------------------
+
+# The streamed and journaled sessions run the window policy's trace.
+STREAM_POLICY = "window"
+# Scripted "prefetch" faults of the streamed session (invocation indices).
+PREFETCH_FAULTS = {"prefetch": {0}}
+# Power failures of the journaled sessions: invocation indices per site,
+# counted across the reboots they cause (the injector outlives sessions).
+POWER_SCRIPT = {"group": (4,), "suffix": (2,), "prefetch": (3,)}
+# The streamed and journaled phases stay below the smoke's largest peak
+# before they came (mixtral's decode-vs-forward check, GB).
+STREAM_PEAK_LIMIT_GB = 75.42
+
+
+def overlap_of_copies(prof) -> dict:
+    """From a device trace: milliseconds of host-to-device copies, of
+    kernels, and of copies that ran while some kernel ran."""
+    from torch.autograd import DeviceType
+
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "HtoD" in e.name:
+            copies.append(span)
+        elif not e.name.startswith("Memcpy") and not e.name.startswith("Memset"):
+            kernels.append(span)
+    merged = []
+    for a, b in sorted(kernels):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    overlap = 0.0
+    for a, b in copies:
+        for ka, kb in merged:
+            if kb <= a:
+                continue
+            if ka >= b:
+                break
+            overlap += min(b, kb) - max(a, ka)
+    return {"copy_ms": sum(b - a for a, b in copies) / 1e3,
+            "copy_events": len(copies),
+            "kernel_ms": sum(b - a for a, b in merged) / 1e3,
+            "copy_overlapping_kernels_ms": overlap / 1e3}
+
+
+def streaming_phase(engine, requests, sync_responses, device, label: str,
+                    layers_per_block=None) -> dict:
+    """The phase's requests through a streamed session (window policy) on an
+    engine sharing ``engine``'s program: outputs bit-identical to the
+    synchronous session's (``sync_responses``), ``stats == predicted`` with
+    ``prefetched_bytes > 0``, flash once per layer of every executed block;
+    then once more with a scripted ``"prefetch"`` fault, which degrades one
+    group to synchronous loads while every request is served.  Prints the
+    staged bytes, the copies' measured device time and GB/s beside the
+    modelled stall, whether the copies overlapped kernels, and the peak."""
+    cuda = device.type == "cuda"
+    reset_peak(device)
+    t0 = time.perf_counter()
+    # The streaming engine shares the program; its pinned host copy is
+    # built here, once.
+    strm = MultitaskEngine(engine.program, hw=engine.hw, policy=EnginePolicy(streaming=True))
+    streamer = strm.executor.streamer
+    build_seconds = time.perf_counter() - t0
+    policy = SESSION_POLICIES[STREAM_POLICY]
+    logged = len(streamer.copy_log)
+    reset_launch_counts()
+    session, responses, by_request, groups, seconds, _busy = serve_session(
+        strm, requests, policy)
+    launches = launch_counts()
+    check(session.stats == session.predicted,
+          f"{label}streamed session counters {session.stats} != predicted {session.predicted}")
+    check(session.stats.prefetched_bytes > 0 and session.prefetches_issued > 0,
+          f"{label}streamed session prefetched nothing ({session.prefetches_issued} prefetches)")
+    check(session.prefetch_scheduled_bytes == session.stats.prefetched_bytes,
+          f"{label}scheduled {session.prefetch_scheduled_bytes} B, prefetched "
+          f"{session.stats.prefetched_bytes} B")
+    for got, want in zip(responses, sync_responses):
+        check(set(got.outputs) == set(want.outputs), f"{label}streamed: tasks differ")
+        for t, y in got.outputs.items():
+            check(torch.equal(y, want.outputs[t]),
+                  f"{label}streamed output of task {t} differs from the synchronous session's "
+                  f"(max abs {float((y.float() - want.outputs[t].float()).abs().max())})")
+    if layers_per_block is not None and cuda:
+        check(launches["flash_attention"] == layers_per_block * session.stats.blocks_executed,
+              f"{label}streamed: flash launched {launches['flash_attention']} times, expected "
+              f"{layers_per_block} x {session.stats.blocks_executed} blocks")
+    copies = list(streamer.copy_log)[logged:]
+    sync(device)
+    copy_bytes = sum(n for n, _s, _e in copies)
+    copy_ms = sum(s.elapsed_time(e) for _n, s, e in copies) if cuda else 0.0
+
+    # A scripted "prefetch" fault: that group loads synchronously.
+    injector = FaultInjector(script=PREFETCH_FAULTS)
+    f_session, f_responses, _b, _g, f_seconds, _busy = serve_session(
+        strm, requests, policy, injector)
+    check(injector.injected["prefetch"] == len(PREFETCH_FAULTS["prefetch"])
+          and f_session.prefetch_failures == len(PREFETCH_FAULTS["prefetch"]),
+          f"{label}prefetch faults: injected {injector.injected}, session counted "
+          f"{f_session.prefetch_failures}")
+    check(isinstance(f_session.last_prefetch_error, InjectedFault),
+          f"{label}a prefetch failed with {f_session.last_prefetch_error!r}")
+    check(f_session.stats == f_session.predicted,
+          f"{label}faulted streamed session counters != predicted")
+    check(f_session.stats.weight_bytes_loaded == session.stats.weight_bytes_loaded
+          and f_session.stats.prefetched_bytes <= session.stats.prefetched_bytes,
+          f"{label}the prefetch fault did not move loads to the synchronous path")
+    for got, want in zip(f_responses, sync_responses):
+        for t, y in got.outputs.items():
+            check(torch.equal(y, want.outputs[t]), f"{label}faulted streamed output differs")
+
+    row = {"engine": label.strip(), "policy": STREAM_POLICY, "groups": session.groups_executed,
+           "prefetches": session.prefetches_issued,
+           "prefetched_bytes_modelled": session.stats.prefetched_bytes,
+           "weight_bytes_loaded": session.stats.weight_bytes_loaded,
+           "stream_stall_seconds_modelled": session.stats.stream_stall_seconds,
+           "modelled_on": engine.hw.name, "drain_seconds": seconds,
+           "faulted_drain_seconds": f_seconds,
+           "faulted_prefetched_bytes_modelled": f_session.stats.prefetched_bytes,
+           "launches": launches, "bit_identical_to_synchronous": True,
+           "pinned_bytes": streamer.pinned_bytes,
+           "pinned_copy_seconds": streamer.prepare_seconds,
+           "engine_build_seconds": build_seconds}
+    if cuda:
+        peak = peak_gb(device)
+        check(peak < STREAM_PEAK_LIMIT_GB,
+              f"{label}streaming peak {peak} GB >= {STREAM_PEAK_LIMIT_GB} GB")
+        row.update(copied_bytes=copy_bytes, copy_device_ms=copy_ms,
+                   copy_gb_per_s=copy_bytes / max(copy_ms, 1e-9) / 1e6,
+                   peak_memory_gb=peak)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve_session(strm, requests, policy)
+            torch.cuda.synchronize()
+        row["trace"] = overlap_of_copies(prof)
+    print(json.dumps({"streaming": row}), flush=True)
+    return {"row": row, "engine": strm, "responses": responses}
+
+
+class TimedJournal(Journal):
+    """A :class:`Journal` that times its writes (the host copy of each
+    payload included — a CUDA tensor's waits for the stream) and counts the
+    payload bytes it journaled."""
+
+    def __init__(self, store):
+        super().__init__(store)
+        self.seconds = {}
+        self.bytes = 0
+        self.writes = {}
+
+    def _timed(self, kind, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        self.seconds[kind] = self.seconds.get(kind, 0.0) + time.perf_counter() - t0
+        self.writes[kind] = self.writes.get(kind, 0) + 1
+
+    @staticmethod
+    def _nbytes(value) -> int:
+        if isinstance(value, torch.Tensor):
+            return value.numel() * value.element_size()
+        return int(np.asarray(value).nbytes)
+
+    def admit(self, seq, x, *args, **kwargs):
+        self.bytes += self._nbytes(x)
+        self._timed("admit", super().admit, seq, x, *args, **kwargs)
+
+    def checkpoint(self, group_id, pos, task, depth, node, value, act_shape):
+        self.bytes += self._nbytes(value)
+        self._timed("checkpoint", super().checkpoint, group_id, pos, task, depth, node, value,
+                    act_shape)
+
+    def group_commit(self, group_id, seqs, outputs, residency, stats):
+        self.bytes += sum(self._nbytes(v) for slot in outputs for v in slot.values())
+        self._timed("group_commit", super().group_commit, group_id, seqs, outputs, residency,
+                    stats)
+
+
+def journaled_session(engine, requests, policy, journal, injector, use_checkpoints: bool,
+                      energy=None):
+    """Serve ``requests`` (bursts on a simulated clock, as ``serve_session``)
+    through a journaled session of ``engine`` with ``injector`` armed.  A
+    :class:`PowerFailure` — and only that — out of a pump or a recovery
+    reboots: the executor is reset and ``ServingSession.recover`` rebuilds
+    the session from the journal; the remaining requests go to the new
+    session.  Returns the last session and what each death and recovery
+    cost."""
+    engine.executor.reset()
+    engine.power_injector = injector
+    clock = SimClock()
+    kwargs = dict(policy=policy, clock=clock, sleep=lambda _s: None, retry=RetryPolicy(),
+                  energy=energy)
+    resumes, deaths, recovery_seconds, lost_blocks = [], [], [], 0
+    execute = engine._execute_group
+
+    def recorded(group, *args, **kw):
+        resumes.append(kw.get("first_task_resume", 0))
+        return execute(group, *args, **kw)
+
+    engine._execute_group = recorded
+    session = engine.session(journal=journal, checkpointing=use_checkpoints, **kwargs)
+    incarnation_stats = []
+
+    def died(err):
+        nonlocal lost_blocks
+        ctx = err.context
+        partial = ctx.get("stats")
+        if partial is not None:
+            lost = partial.blocks_executed
+            if err.site == "suffix":  # charged upfront: the cut's remainder never ran
+                lost -= engine.program.graph.depth - 1 - ctx["depth"]
+            lost_blocks += lost
+        else:
+            lost = 0
+        deaths.append({"site": err.site, "index": err.index, "blocks_lost": lost})
+
+    def reboot():
+        while True:
+            engine.executor.reset()
+            sync(engine.device)
+            t0 = time.perf_counter()
+            try:
+                new = ServingSession.recover(journal, engine, use_checkpoints=use_checkpoints,
+                                             **kwargs)
+            except PowerFailure as err:
+                died(err)
+                continue
+            sync(engine.device)
+            recovery_seconds.append(time.perf_counter() - t0)
+            return new
+
+    def pump(call):
+        nonlocal session
+        while True:
+            try:
+                call(session)
+                return
+            except PowerFailure as err:
+                check(session.stats == session.predicted,
+                      "a journaled session's counters differ from its prediction at death")
+                incarnation_stats.append(session.stats)
+                died(err)
+                session = reboot()
+                if call is not ServingSession.drain:
+                    return
+
+    try:
+        sync(engine.device)
+        t0 = time.perf_counter()
+        for i, r in enumerate(requests):
+            if i and i % BURST == 0:
+                pump(ServingSession.step)
+                clock.t += BURST_DT
+            fut = session.submit(MultitaskRequest(
+                x=r.x, tasks=r.tasks, tenant=("a", "b", "c")[i % 3],
+                deadline=clock.t + DEADLINE_IN if i % 4 == 0 else None))
+            check(fut.seq == i, f"request {i} journaled as seq {fut.seq}")
+        pump(ServingSession.step)
+        clock.t += BURST_DT
+        pump(ServingSession.drain)
+        sync(engine.device)
+        seconds = time.perf_counter() - t0
+    finally:
+        del engine._execute_group
+        engine.power_injector = None
+    check(session.stats == session.predicted,
+          f"journaled session counters {session.stats} != predicted {session.predicted}")
+    incarnation_stats.append(session.stats)
+    return {"session": session, "seconds": seconds, "deaths": deaths,
+            "recovery_seconds": recovery_seconds, "resumes": resumes,
+            "lost_blocks": lost_blocks, "incarnation_stats": incarnation_stats}
+
+
+def check_exactly_once(journal, n: int, label: str) -> dict:
+    """Every request answered exactly once: one commit per group, each seq
+    in one commit, all ``n`` seqs answered, none failed."""
+    records = journal.store.records()
+    commits = [r for r in records if r["kind"] == "group_commit"]
+    gids = [r["group_id"] for r in commits]
+    seqs = [s for r in commits for s in r["seqs"]]
+    check(len(gids) == len(set(gids)), f"{label}a group committed twice")
+    check(sorted(seqs) == list(range(n)),
+          f"{label}{len(seqs)} answers for {n} requests ({len(set(seqs))} distinct)")
+    check(not any(r["kind"] == "request_failed" for r in records),
+          f"{label}a request failed durably")
+    return journal.replay()
+
+
+def intermittent_phase(engine, requests, clean, device, tol: float, label: str,
+                       store_kind: str, layers_per_block=None, energy: bool = False) -> dict:
+    """Journaled sessions of ``engine`` (a streaming engine) over the phase's
+    requests with power failures scripted at the "group", "suffix" and
+    "prefetch" sites, each death followed by ``recover``: once with
+    checkpoints and once restarting interrupted groups from scratch.  Gates:
+    the deaths the script schedules happen, every request is answered
+    exactly once, outputs match the clean session's within ``tol``, each
+    incarnation's counters equal its prediction (checkpoint bytes included),
+    a checkpointed recovery resumes its group past depth 0, the journaled
+    activations restore bit-exactly (through the file format too), and
+    flash ran once per layer of every block executed (lost work included).
+    ``clean`` is the clean session's entry of :func:`session_phase` (its
+    responses, and its row's blocks executed, from which the blocks run
+    beyond it are counted).  With ``energy`` a budget then duty-cycles a
+    journaled session."""
+    import tempfile
+
+    cuda = device.type == "cuda"
+    policy = SESSION_POLICIES[STREAM_POLICY]
+    graph_depth = engine.program.graph.depth
+    clean_responses = clean["responses"]
+    out, tmp = {}, tempfile.TemporaryDirectory()
+    try:
+        for arm, use_ck in (("checkpoints", True), ("scratch", False)):
+            store = (FileJournalStore(f"{tmp.name}/{arm}.jsonl") if store_kind == "file"
+                     else MemoryJournalStore())
+            journal = TimedJournal(store)
+            injector = PowerFailureInjector(script=POWER_SCRIPT)
+            reset_launch_counts()
+            reset_peak(device)
+            res = journaled_session(engine, requests, policy, journal, injector, use_ck)
+            launches = launch_counts()
+            what = f"{label}intermittent ({arm}) "
+            scheduled = sum(1 for site, idx in POWER_SCRIPT.items() for i in idx
+                            if i < injector.invocations[site])
+            check(len(res["deaths"]) == injector.total_injected == scheduled,
+                  f"{what}deaths {res['deaths']}, injected {injector.injected}, "
+                  f"scheduled {scheduled}")
+            expected_sites = POWER_SCRIPT if use_ck else {"group": 1, "prefetch": 1}
+            check(all(injector.injected[s] >= 1 for s in expected_sites),
+                  f"{what}a scripted site never fired: {injector.injected}")
+            state = check_exactly_once(journal, len(requests), what)
+            max_err = 0.0
+            for seq, want in enumerate(clean_responses):
+                got = state.responses[seq]["outputs"]
+                check(set(got) == set(want.outputs), f"{what}tasks of {seq} differ")
+                for t, y in got.items():
+                    max_err = max(max_err, float(
+                        (y.to(device).float() - want.outputs[t].float()).abs().max()))
+            check(max_err <= tol, f"{what}outputs vs the clean session: max abs {max_err}")
+            executed = sum(s.blocks_executed for s in res["incarnation_stats"])
+            if layers_per_block is not None and cuda:
+                ran = executed + res["lost_blocks"]
+                check(launches["flash_attention"] == layers_per_block * ran,
+                      f"{what}flash launched {launches['flash_attention']} times, expected "
+                      f"{layers_per_block} x {ran} blocks")
+            ckpt_bytes = sum(s.checkpoint_bytes for s in res["incarnation_stats"])
+            resumed = [r for r in res["resumes"] if r > 0]
+            restored = None
+            if use_ck:
+                check(ckpt_bytes > 0, f"{what}no checkpoint was written")
+                check(len(resumed) >= 1 and all(0 < r < graph_depth + 1 for r in resumed),
+                      f"{what}no recovered group resumed from its checkpoint: {res['resumes']}")
+                ck = next(r for r in journal.store.records() if r["kind"] == "checkpoint")
+                value = ck["value"]
+                # The file format too: the record through a fresh file store.
+                path = f"{tmp.name}/{arm}-checkpoint.jsonl"
+                FileJournalStore(path).append(ck)
+                decoded = FileJournalStore(path).records()[0]["value"]
+                ex = TaskGraphExecutor(engine.program)
+                node = (int(ck["node"][0]), tuple(int(t) for t in ck["node"][1]))
+                for v in (value, decoded):
+                    ex.restore_activation(ActivationCheckpoint(
+                        int(ck["depth"]), node, v, tuple(ck["act_shape"])))
+                    back = ex._activations[int(ck["depth"])]
+                    bits = {2: torch.int16, 4: torch.int32}[back.element_size()]
+                    check(back.device == engine.device and back.dtype == value.dtype
+                          and torch.equal(back.cpu().view(bits), value.view(bits)),
+                          f"{what}a journaled {value.dtype} activation did not restore "
+                          "bit-exactly")
+                restored = str(value.dtype).removeprefix("torch.")
+            else:
+                check(ckpt_bytes == 0 and not resumed, f"{what}the scratch arm checkpointed")
+            check(peak_gb(device) < STREAM_PEAK_LIMIT_GB,
+                  f"{what}peak {peak_gb(device)} GB >= {STREAM_PEAK_LIMIT_GB} GB")
+            writes = journal.writes.get("checkpoint", 0)
+            row = {"engine": label.strip(), "arm": arm, "store": store_kind,
+                   "deaths": res["deaths"], "injected": dict(injector.injected),
+                   "invocations": dict(injector.invocations),
+                   "recoveries": len(res["recovery_seconds"]),
+                   "recovery_seconds": res["recovery_seconds"],
+                   "resumed_first_task_at_depth": resumed,
+                   "blocks_executed": executed, "blocks_lost": res["lost_blocks"],
+                   "blocks_executed_clean": clean["row"]["blocks_executed"],
+                   "blocks_beyond_clean": (executed + res["lost_blocks"]
+                                           - clean["row"]["blocks_executed"]),
+                   "checkpoint_bytes_modelled": ckpt_bytes,
+                   "journal_payload_bytes": journal.bytes,
+                   "journal_write_seconds": journal.seconds, "journal_writes": journal.writes,
+                   "checkpoint_write_seconds_each": (
+                       journal.seconds.get("checkpoint", 0.0) / writes if writes else None),
+                   "journal_file_bytes": (os.path.getsize(store.path)
+                                          if store_kind == "file" else None),
+                   "activation_restored_bit_exactly": restored,
+                   "max_abs_err_vs_clean": max_err, "drain_seconds": res["seconds"],
+                   "launches": launches, "peak_memory_gb": peak_gb(device)}
+            out[arm] = row
+        if energy:
+            out["energy"] = energy_phase(engine, requests, clean_responses, device, tol, label,
+                                         tmp.name)
+    finally:
+        tmp.cleanup()
+    for arm in ("checkpoints", "scratch"):
+        print(json.dumps({"intermittent": out[arm]}), flush=True)
+    return out
+
+
+def energy_phase(engine, requests, clean_responses, device, tol: float, label: str,
+                 tmpdir: str) -> dict:
+    """A journaled session whose pump an :class:`EnergyBudget` duty-cycles:
+    the capacitor holds twice the all-tasks group's predicted joules at the
+    largest batch shape, starts empty, and the (simulated) harvest refills
+    it; every group pauses for harvest, none fails."""
+    hw, order = engine.hw, engine.order
+    need = engine.cost_model.predicted_stats(
+        order, batch_size=max(engine.scheduler.batch_shapes)).energy(hw)
+    budget = EnergyBudget(capacity_joules=2.0 * need, harvest_watts=need, initial_joules=0.0)
+    journal = TimedJournal(FileJournalStore(f"{tmpdir}/energy.jsonl"))
+    res = journaled_session(engine, requests, SESSION_POLICIES[STREAM_POLICY], journal, None,
+                            True, energy=budget)
+    session = res["session"]
+    check(session.energy_pauses > 0 and session.groups_failed == 0,
+          f"{label}energy: {session.energy_pauses} pauses, {session.groups_failed} failed groups")
+    state = check_exactly_once(journal, len(requests), f"{label}energy ")
+    max_err = max(float((y.to(device).float() - clean.outputs[t].float()).abs().max())
+                  for seq, clean in enumerate(clean_responses)
+                  for t, y in state.responses[seq]["outputs"].items())
+    check(max_err <= tol, f"{label}energy: outputs vs the clean session: max abs {max_err}")
+    row = {"engine": label.strip(), "capacity_joules": budget.capacity_joules,
+           "harvest_watts": budget.harvest_watts, "modelled_on": hw.name,
+           "pauses": session.energy_pauses, "paused_seconds_sim": session.energy_paused_seconds,
+           "drained_joules": budget.drained_joules, "groups": session.groups_executed,
+           "max_abs_err_vs_clean": max_err}
+    print(json.dumps({"energy": row}), flush=True)
+    return row
+
+
+# --------------------------------------------------------------------------
+# Continuous batching
+# --------------------------------------------------------------------------
+
+def batcher_phase(device: torch.device, model, params, cfg) -> dict:
+    """``ContinuousBatcher`` over ``BATCHER_REQUESTS`` requests in waves of
+    ``BATCHER_SLOTS``: each request's tokens equal ``LMServer.generate`` on
+    its own wave's padded prompts, cut to its steps; flash ran once per
+    layer of each wave's prefill.  Prints each wave's prefill ms, a decode
+    step's ms, tokens/s and the device's busy share."""
+    lengths, news, rng = batcher_plan()
+    requests = [GenRequest(uid=i, prompt=rng.integers(0, cfg.raw_vocab_size, int(n)).astype(
+        np.int32), max_new_tokens=int(m)) for i, (n, m) in enumerate(zip(lengths, news))]
+
+    def run():
+        cb = ContinuousBatcher(model, params, slots=BATCHER_SLOTS, max_len=1024)
+        for r in requests:
+            cb.submit(r)
+        return cb.run()
+
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    results = run()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    waves = [requests[w:w + BATCHER_SLOTS] for w in range(0, len(requests), BATCHER_SLOTS)]
+    expected = cfg.num_layers * len(waves) if device.type == "cuda" else 0
+    check(launches["flash_attention"] == expected,
+          f"batcher: flash launched {launches['flash_attention']} times, expected {expected} "
+          f"({cfg.num_layers} per wave's prefill)")
+    by_uid = {r.uid: r for r in results}
+    check(sorted(by_uid) == list(range(len(requests))), "batcher: results missing")
+    server = LMServer(model, params)
+    wave_rows = []
+    for wave in waves:
+        toks = ContinuousBatcher.wave_tokens(wave)
+        gen = server.generate(toks, max(r.max_new_tokens for r in wave))
+        for i, r in enumerate(wave):
+            got = by_uid[r.uid]
+            check(got.steps == r.max_new_tokens and np.array_equal(
+                got.tokens, gen[i, :r.max_new_tokens]),
+                f"batcher: request {r.uid}'s tokens differ from generate on its wave")
+        row = {"rows": len(wave), "prompt": int(toks.shape[1]),
+               "steps": max(r.max_new_tokens for r in wave)}
+        if device.type == "cuda":
+            row["prefill_ms"] = cuda_ms(lambda: model.prefill(params, toks), reps=3, warmup=1)
+        wave_rows.append(row)
+    tokens = sum(r.steps for r in results)
+    out = {"requests": len(requests), "slots": BATCHER_SLOTS, "waves": wave_rows,
+           "tokens": tokens, "seconds": seconds, "tokens_per_s": tokens / seconds,
+           "launches": launches}
+    if device.type == "cuda":
+        toks = ContinuousBatcher.wave_tokens(waves[0])
+        _l, cache = model.prefill(params, toks)
+        cache = _grow_cache(model, cache, toks.shape[1] + 16, toks.shape[1])
+        tok = torch.zeros(len(waves[0]), dtype=torch.long, device=device)
+        out["decode_step_ms"] = cuda_ms(
+            lambda: model.decode_step(params, tok, cache, toks.shape[1]), reps=10, warmup=2)
+        del cache
+        trace = device_breakdown(run, seconds * 1e3, warm=False, cpu=False)
+        out.update(busy=trace["busy"], device_ms=trace["device_ms"], kernels=trace["kernels"])
+    print(json.dumps({"batcher": out}), flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 # The quickstart
 # --------------------------------------------------------------------------
 
@@ -1196,7 +1748,7 @@ def decode_vs_forward(model, params, prompts, tok, features, step_logits=None):
 
 def lm_phase(
     device: torch.device, cfg, batch: int = LM_BATCH, prompt_len: int = LM_PROMPT,
-    steps: int = LM_STEPS, check_batch=None, features=None,
+    steps: int = LM_STEPS, check_batch=None, features=None, then=None,
 ) -> dict:
     """``LMServer.generate`` on ``model.init`` of ``cfg`` (the enc-dec with
     ``features``); then one prefill and one decode step with their launch
@@ -1207,7 +1759,8 @@ def lm_phase(
     of its group and nothing can drop (at the config's factor, drops depend
     on the routing group, which differs between the two), with prefill and
     decode taking forward's expert choices (:func:`decode_vs_forward`);
-    see below for its two gates."""
+    see below for its two gates.  ``then(model, params)``, when given, runs
+    last on the same weights; its result is ``result["then"]``."""
     laps = Laps(device)
     reset_peak(device)
     gen_device = device if device.type == "cuda" else torch.device("cpu")
@@ -1303,6 +1856,8 @@ def lm_phase(
               "decode_vs_forward_err": err, "max_abs_logit": scale, "check_rows": rows,
               "moe_check": moe,
               "init_gb": init_gb, "generate_gb": generate_gb, "mem_gb": peak_gb(device)}
+    if then is not None:
+        result["then"] = then(model, params)
     if device.type == "cuda":
         result["prefill_ms"] = cuda_ms(lambda: model.prefill(params, batch_in), reps=5, warmup=1)
         result["decode_step_ms"] = cuda_ms(
@@ -1478,7 +2033,16 @@ def main() -> int:
                                    PIPELINE_TOL, "lenet ")
     chaos_phase(result["engine"], result["requests"], lenet_sessions["window"]["responses"],
                 device, PIPELINE_TOL, "lenet ")
-    del result, lenet_sessions
+    # Weight streaming, then journaled sessions through power failures.
+    t1 = time.perf_counter()
+    lenet_clean = lenet_sessions["window"]
+    lenet_stream = streaming_phase(result["engine"], result["requests"],
+                                   lenet_clean["responses"], device, "lenet ")
+    intermittent_phase(lenet_stream["engine"], result["requests"], lenet_clean, device,
+                       PIPELINE_TOL, "lenet ", "file", energy=True)
+    print(json.dumps({"lenet_streaming_and_intermittent_seconds": time.perf_counter() - t1}),
+          flush=True)
+    del result, lenet_sessions, lenet_stream, lenet_clean
     free_memory()
     # The quickstart's five steps at its reference sizes.
     qs_row = quickstart_phase(device)
@@ -1500,11 +2064,28 @@ def main() -> int:
     print(json.dumps({"transformer_session_seconds": time.perf_counter() - t0}), flush=True)
     session_flash = {name: v["row"]["launches"]["flash_attention"]
                      for name, v in tf_sessions.items()}
-    del tf, tf_sessions
+    # Weight streaming on the same program, then journaled sessions through
+    # power failures, with and without checkpoints.
+    t0 = time.perf_counter()
+    tf_clean = tf_sessions["window"]
+    tf_stream = streaming_phase(tf["engine"], tf["requests"], tf_clean["responses"], device,
+                                f"{ARCH} ", layers_per_block)
+    tf_inter = intermittent_phase(tf_stream["engine"], tf["requests"], tf_clean, device, TF_TOL,
+                                  f"{ARCH} ", "memory", layers_per_block)
+    stream_flash = {
+        "transformer_streaming": tf_stream["row"]["launches"]["flash_attention"],
+        **{f"transformer_intermittent_{arm}": row["launches"]["flash_attention"]
+           for arm, row in tf_inter.items()}}
+    print(json.dumps({"transformer_streaming_and_intermittent_seconds":
+                      time.perf_counter() - t0}), flush=True)
+    del tf, tf_sessions, tf_stream, tf_clean
     free_memory()
 
-    # mistral-nemo-12b, 8 layers: LMServer prefill + greedy decode.
-    lm = lm_phase(device, cfg)
+    # mistral-nemo-12b, 8 layers: LMServer prefill + greedy decode, then the
+    # continuous batcher on the same weights.
+    lm = lm_phase(device, cfg, then=lambda model, params: batcher_phase(device, model, params,
+                                                                        cfg))
+    batcher_flash = lm["then"]["launches"]["flash_attention"]
     check(lm["launches"]["flash_attention"] == cfg.num_layers,
           f"flash kernel launched {lm['launches']['flash_attention']} times in "
           f"generate, expected {cfg.num_layers} (one per layer of the prefill)")
@@ -1604,6 +2185,7 @@ def main() -> int:
         "launches": (prof["flash_attention"] + serve["flash_attention"]
                      + sum(session_flash.values())
                      + tf_chaos["launches"]["flash_attention"]
+                     + sum(stream_flash.values()) + batcher_flash
                      + lm["launches"]["flash_attention"] + zamba["launches"]["flash_attention"]
                      + moe_prof["flash_attention"] + moe_serve["flash_attention"]
                      + sum(family_flash.values())
@@ -1613,6 +2195,8 @@ def main() -> int:
                              **{f"transformer_session_{name}": n
                                 for name, n in session_flash.items()},
                              "transformer_session_chaos": tf_chaos["launches"]["flash_attention"],
+                             **stream_flash,
+                             "batcher_prefill": batcher_flash,
                              "lm_prefill": lm["launches"]["flash_attention"],
                              "zamba2_prefill": zamba["launches"]["flash_attention"],
                              "moe_profile": moe_prof["flash_attention"],

@@ -1,13 +1,15 @@
 """Switching-cost model (paper §4.1) and task-graph cost estimation.
 
 A framework-free copy of ``repro.core.cost_model``, kept equal to it for the
-terms this slice of the port serves: switching costs, warm-start loads, the
-expected-cost matrix, and the counter prediction the executor must match
-(cold, warm via ``resume``, and conditioned on a realized ``gate_trace``).
-The reference's collective, streaming and checkpoint terms (and its
-``weight_shards`` divisor) wait for the slices that port the mesh, the
-weight streamer and the journal; the
-:class:`~repro_torch.core.types.ExecutionStats` fields they fill stay.
+terms the port serves: switching costs, warm-start loads, the expected-cost
+matrix, the counter prediction the executor must match (cold, warm via
+``resume``, crash-recovered via ``first_task_resume``, and conditioned on a
+realized ``gate_trace``), the weight-streaming terms (:meth:`plan_loads`,
+:meth:`prefetch_stall_seconds`, the overlapped loads of
+:meth:`PlanPredictor.append`) and the checkpoint terms
+(:meth:`plan_checkpoints` and the write costs it places).  The reference's
+collective terms and its ``weight_shards`` divisor wait for the mesh slice;
+the :class:`~repro_torch.core.types.ExecutionStats` fields they fill stay.
 
 The cost matrix ``C`` has ``c[i, j]`` = additional cost of loading and
 executing task ``j`` given that task ``i`` just ran: the blocks on ``j``'s
@@ -222,13 +224,27 @@ class GraphCostModel:
         resident: List[Optional[NodeId]],
         stats: ExecutionStats,
         gate_trace: Optional[Sequence[TaskGateRecord]] = None,
+        first_task_resume: int = 0,
     ) -> None:
         """One group's counter prediction, mutating ``resident``/``stats``.
 
         Mirrors ``TaskGraphExecutor._run_task_impl`` exactly: the first task
         of a group never resumes from activations (the executor clears them
         at every input/group boundary), but any block still resident in
-        ``resident`` skips its load while still executing.
+        ``resident`` skips its load while still executing.  The one
+        exception is crash recovery: ``first_task_resume`` is the resume
+        depth of the order's *first* task when a journaled mid-suffix
+        activation checkpoint was restored into the executor
+        (``TaskGraphExecutor.restore_activation``) — blocks below it skip
+        both load and execute, exactly as a shared prefix would.
+
+        A restored checkpoint also punches a hole in the activation cache:
+        depths *below* the checkpoint were never computed this boot, so a
+        later task whose shared prefix with its predecessor ends below that
+        floor finds no cached activation at all and resumes from 0 (the
+        executor's deepest-match rule).  ``act_floor`` tracks the
+        shallowest cached depth — ``first_task_resume - 1`` after a
+        restore, and 0 again as soon as any task re-executes from the root.
 
         ``gate_trace`` replays a *realized* gate outcome (one
         :class:`TaskGateRecord` per order position, the executor's
@@ -246,6 +262,7 @@ class GraphCostModel:
                 f"{len(order)} tasks"
             )
         prev: Optional[int] = None
+        act_floor = max(int(first_task_resume) - 1, 0)
         for pos, t in enumerate(order):
             rec = gate_trace[pos] if gate_trace is not None else None
             if rec is not None and rec.task != t:
@@ -259,9 +276,16 @@ class GraphCostModel:
                 continue
             w = int(rec.weight) if rec is not None else batch_size
             path = self.graph.path(t)
-            shared = (
-                0 if prev is None else self.graph.shared_prefix_depth(prev, t)
-            )
+            if prev is None:
+                shared = int(first_task_resume)
+            else:
+                shared = self.graph.shared_prefix_depth(prev, t)
+                if 0 < shared <= act_floor:
+                    # The shared activation this resume needs sits below
+                    # the restored checkpoint's floor — it never existed
+                    # this boot, so the executor starts the task from 0.
+                    shared = 0
+            act_floor = min(act_floor, shared)
             if rec is not None and rec.resume is not None:
                 if int(rec.resume) != shared:
                     raise ValueError(
@@ -272,7 +296,10 @@ class GraphCostModel:
                 bc = self.block_costs[d]
                 if d < shared:
                     # Skipped prefix: the executor touches neither the
-                    # weights nor the residency here.
+                    # weights nor the residency here.  After a checkpoint
+                    # restore ``resident[d]`` may not equal ``path[d]`` —
+                    # those weights were never loaded this boot, and
+                    # leaving residency as-is predicts the later reload.
                     stats.blocks_skipped += 1
                     stats.weight_bytes_skipped += bc.weight_bytes
                     stats.flops_skipped += w * bc.flops
@@ -295,6 +322,8 @@ class GraphCostModel:
         batch_size: int = 1,
         resume: Optional[Residency] = None,
         gate_trace: Optional[Sequence[TaskGateRecord]] = None,
+        first_task_resume: int = 0,
+        checkpoints: Optional[Sequence["CheckpointSite"]] = None,
     ) -> ExecutionStats:
         """Counter-level prediction the executor must match exactly.
 
@@ -312,6 +341,12 @@ class GraphCostModel:
 
         ``gate_trace`` conditions the prediction on a realized gate outcome
         (see :meth:`_predict_into`).
+
+        ``first_task_resume`` predicts a crash-recovered group whose first
+        task resumes from a restored activation checkpoint at that depth;
+        ``checkpoints`` (a :meth:`plan_checkpoints` plan) adds the group's
+        checkpoint-write counters, which the journaling engine accounts
+        from the *same* plan — exact by construction.
         """
         resident: List[Optional[NodeId]] = (
             list(resume) if resume is not None else [None] * self.graph.depth
@@ -321,7 +356,13 @@ class GraphCostModel:
                 f"resume has {len(resident)} slots, expected {self.graph.depth}"
             )
         stats = ExecutionStats()
-        self._predict_into(order, batch_size, resident, stats, gate_trace)
+        self._predict_into(
+            order, batch_size, resident, stats, gate_trace,
+            first_task_resume=first_task_resume,
+        )
+        for site in checkpoints or ():
+            stats.checkpoint_bytes += site.bytes
+            stats.checkpoint_seconds += site.seconds
         return stats
 
     def predicted_group_stats(
@@ -350,6 +391,154 @@ class GraphCostModel:
         """An incremental predictor for incrementally-admitted plans."""
         return PlanPredictor(self, resume=resume, carry_residency=carry_residency)
 
+    def plan_loads(
+        self,
+        order: Sequence[int],
+        resident: Optional[Residency] = None,
+        gate_trace: Optional[Sequence[TaskGateRecord]] = None,
+    ) -> List[Tuple[int, NodeId]]:
+        """The ``(depth, node)`` weight loads executing ``order`` will issue.
+
+        Walks the same residency simulation as :meth:`_predict_into`, but
+        returns the exact load sequence — every block that is *not*
+        resident when its task reaches it.  This is the prefetch schedule
+        the :class:`~repro_torch.core.executor.WeightStreamer` stages for
+        the next group: staging precisely this set makes the executor's
+        ``prefetched_bytes`` equal the group's ``weight_bytes_loaded`` by
+        construction.
+
+        ``resident`` is the residency at the start of the plan (``None`` =
+        cold).  The list is in execution order and free of duplicates: an
+        order that *revisits* an evicted block (interleaved subtrees, e.g.
+        ``[0, 3, 1]``) re-loads it — and ``predicted_stats`` counts those
+        bytes twice — but the streamer stages one copy per node and the
+        executor commits it at most once, so the schedule lists each node
+        once, at its first load; the revisit loads synchronously on both
+        the predicted and the executed side.  ``gate_trace`` drops the
+        loads of tasks a gate skipped for the whole group.
+        """
+        state: List[Optional[NodeId]] = (
+            list(resident) if resident is not None else [None] * self.graph.depth
+        )
+        if len(state) != self.graph.depth:
+            raise ValueError(
+                f"resident has {len(state)} slots, expected {self.graph.depth}"
+            )
+        if gate_trace is not None and len(gate_trace) != len(order):
+            raise ValueError(
+                f"gate trace has {len(gate_trace)} records for "
+                f"{len(order)} tasks"
+            )
+        loads: List[Tuple[int, NodeId]] = []
+        staged: set = set()
+        prev: Optional[int] = None
+        for pos, t in enumerate(order):
+            if gate_trace is not None and gate_trace[pos].weight == 0:
+                continue  # never dispatched: no loads, walk unchanged
+            path = self.graph.path(t)
+            shared = (
+                self.graph.shared_prefix_depth(prev, t) if prev is not None else 0
+            )
+            for d in range(shared, self.graph.depth):
+                if state[d] != path[d] and path[d] not in staged:
+                    loads.append((d, path[d]))
+                    staged.add(path[d])
+                state[d] = path[d]
+            prev = t
+        return loads
+
+    def prefetch_stall_seconds(
+        self, depths: Sequence[int], overlap_seconds: float
+    ) -> float:
+        """Modelled stall of streaming ``depths``' loads behind a compute
+        window of ``overlap_seconds``: whatever load time does not fit in
+        the window the previous group's compute opens."""
+        total = sum(self.load_cost(d) for d in depths)
+        return max(total - max(overlap_seconds, 0.0), 0.0)
+
+    # ------------------------------------------------------- checkpointing
+    def checkpoint_bytes(self, depth: int, batch_size: int) -> float:
+        """Durable bytes of checkpointing depth-``depth``'s activation for a
+        ``batch_size``-request group (one activation row per request)."""
+        return float(batch_size) * self.block_costs[depth].act_bytes
+
+    def checkpoint_write_seconds(self, depth: int, batch_size: int) -> float:
+        """Modelled seconds of writing that checkpoint to the durable tier
+        (the slow tier weights stream from, so ``hw.load_seconds``; the
+        unit convention, ``hw=None``, charges 1)."""
+        if self.hw is None:
+            return 1.0
+        return self.hw.load_seconds(self.checkpoint_bytes(depth, batch_size))
+
+    def _checkpoint_write_cost(self, depth: int, batch_size: int) -> float:
+        """Write cost in this model's metric (seconds or joules)."""
+        if self.hw is None:
+            return 1.0
+        if self.metric == "energy":
+            return self.hw.energy_joules(
+                0.0, self.checkpoint_bytes(depth, batch_size)
+            )
+        return self.checkpoint_write_seconds(depth, batch_size)
+
+    def _block_reexec_cost(self, depth: int, batch_size: int) -> float:
+        """Metric cost of re-executing one block after a power failure:
+        compute only — residency and checkpoints survive the crash."""
+        if self.hw is None:
+            return 1.0
+        bc = self.block_costs[depth]
+        if self.metric == "energy":
+            return self.hw.energy_joules(batch_size * bc.flops, 0.0)
+        return self.hw.exec_seconds(batch_size * bc.flops)
+
+    def plan_checkpoints(
+        self,
+        order: Sequence[int],
+        batch_size: int = 1,
+        first_task_resume: int = 0,
+    ) -> List["CheckpointSite"]:
+        """Cost-chosen mid-suffix activation-checkpoint placement.
+
+        Walks the group's execution (the walk of :meth:`_predict_into`)
+        accumulating the *re-execution* cost a power failure would incur
+        since the last durable point, and emits a checkpoint after a block
+        exactly when that cost has reached the checkpoint's own write cost:
+        never spend more writing state than the state saves on replay.
+        Sites land at block-depth boundaries strictly inside a task's
+        executed suffix (never after its final block).  The journaling
+        engine and the predictor consume the same plan, so
+        ``checkpoint_bytes`` / ``checkpoint_seconds`` stay exact by
+        construction.
+        """
+        sites: List[CheckpointSite] = []
+        depth = self.graph.depth
+        reexec = 0.0
+        prev: Optional[int] = None
+        # The activation-floor rule of ``_predict_into``.
+        act_floor = max(int(first_task_resume) - 1, 0)
+        for pos, t in enumerate(order):
+            if prev is None:
+                shared = int(first_task_resume)
+            else:
+                shared = self.graph.shared_prefix_depth(prev, t)
+                if 0 < shared <= act_floor:
+                    shared = 0
+            act_floor = min(act_floor, shared)
+            for d in range(shared, depth):
+                reexec += self._block_reexec_cost(d, batch_size)
+                if d >= depth - 1:
+                    continue  # suffix boundary: commit/prefix takes over
+                if reexec >= self._checkpoint_write_cost(d, batch_size):
+                    sites.append(CheckpointSite(
+                        pos=pos,
+                        task=t,
+                        depth=d,
+                        bytes=self.checkpoint_bytes(d, batch_size),
+                        seconds=self.checkpoint_write_seconds(d, batch_size),
+                    ))
+                    reexec = 0.0
+            prev = t
+        return sites
+
     def residency_after(
         self, order: Sequence[int], resident: Optional[Residency] = None
     ) -> Tuple[Optional[NodeId], ...]:
@@ -364,6 +553,24 @@ class GraphCostModel:
         if resident is None:
             return (None,) * self.graph.depth
         return tuple(resident)
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointSite:
+    """One planned mid-suffix activation checkpoint.
+
+    ``pos`` indexes the group's execution order, ``task``/``depth`` name the
+    block-depth boundary the checkpoint follows (the executor cuts its fused
+    suffix there and fires the journal hook), and ``bytes``/``seconds`` are
+    the durable write's modelled cost — the exact values both the executed
+    counters and the prediction add.
+    """
+
+    pos: int
+    task: int
+    depth: int
+    bytes: float
+    seconds: float
 
 
 class PlanPredictor:
@@ -408,6 +615,9 @@ class PlanPredictor:
         batch_size: int = 1,
         extra_tasks_skipped: int = 0,
         gate_trace: Optional[Sequence[TaskGateRecord]] = None,
+        overlap_seconds: Optional[float] = None,
+        first_task_resume: int = 0,
+        checkpoints: Optional[Sequence[CheckpointSite]] = None,
     ) -> ExecutionStats:
         """Account one more admitted group; returns that group's delta.
 
@@ -415,13 +625,38 @@ class PlanPredictor:
         outside the group's requested subset) so the cumulative prediction
         matches the engine's counters field-for-field; ``gate_trace``
         conditions the delta on the group's realized gate outcome.
+
+        ``overlap_seconds`` (not ``None``) predicts a *streamed* group: its
+        loads were prefetched behind a compute window of that many seconds,
+        so the delta's ``prefetched_bytes`` equals the staged loads' bytes
+        and ``stream_stall_seconds`` is whatever part of their load time did
+        not fit in the window.  ``first_task_resume`` and ``checkpoints``
+        predict an intermittent-execution group: a crash-recovered group
+        resuming its first task from a restored checkpoint, and the group's
+        planned checkpoint writes.
         """
         if not self.carry_residency:
             self._resident = [None] * self.model.graph.depth
+        loads = (
+            self.model.plan_loads(order, self._resident, gate_trace=gate_trace)
+            if overlap_seconds is not None
+            else []
+        )
         delta = ExecutionStats()
         self.model._predict_into(
-            order, int(batch_size), self._resident, delta, gate_trace
+            order, int(batch_size), self._resident, delta, gate_trace,
+            first_task_resume=first_task_resume,
         )
+        for site in checkpoints or ():
+            delta.checkpoint_bytes += site.bytes
+            delta.checkpoint_seconds += site.seconds
+        if loads:
+            delta.prefetched_bytes = sum(
+                self.model.block_costs[d].weight_bytes for d, _node in loads
+            )
+            delta.stream_stall_seconds = self.model.prefetch_stall_seconds(
+                [d for d, _node in loads], overlap_seconds
+            )
         delta.tasks_skipped += int(extra_tasks_skipped)
         self.stats = self.stats.merge(delta)
         self.groups += 1

@@ -31,17 +31,38 @@ request axis is folded into that axis — one natively batched op per block.
 ``ExecutionStats`` counters match ``GraphCostModel.predicted_stats`` (and
 the reference executor) field for field.
 
-Left for later slices: the mesh path and its collective calibration, the
-weight streamer, checkpoint segments, and the adaptive gater.
+Weight streaming: a :class:`WeightStreamer` per executor stages the next
+group's non-resident block params behind the current group's compute.  On
+CUDA each node's params are copied ``non_blocking`` from a pinned host copy
+(built once, :meth:`WeightStreamer.prepare`) on a side stream, and the
+compute stream waits on the copy's event when the executor commits it — the
+analogue of the reference's asynchronous ``jax.device_put``.  A committed
+copy backs that node's parameter lookups on every dispatch path (the port
+has no stacked-parameter cache for its scan mode), so the staged bytes are
+the bytes the kernels read.  On the CPU a stage is a plain synchronous copy.
+
+Intermittent power: a checkpointed suffix is cut at cost-model-chosen block
+depths into headless segment programs (:meth:`_segment_fn`); after each cut
+a hook journals the freshly cached activation, and
+:meth:`activation_checkpoint` / :meth:`restore_activation` let a rebooted
+executor resume an interrupted suffix from the checkpoint depth instead of
+0.
+
+Left for later slices: the mesh path and its collective calibration, and
+the adaptive gater.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+import time
+from typing import (
+    Any, Callable, Deque, Dict, FrozenSet, List, Optional, Sequence, Tuple,
+)
 
 import torch
 
-from repro_torch._device import first_tensor, tree_map
+from repro_torch._device import first_tensor, tree_leaves, tree_map
 from repro_torch.core.task_graph import TaskGraph
 from repro_torch.core.types import (
     BlockCost, ExecutionStats, NodeId, TaskGateRecord,
@@ -142,6 +163,233 @@ def _probe_output(
     return tuple(y.shape), y.dtype
 
 
+@dataclasses.dataclass
+class ActivationCheckpoint:
+    """A mid-suffix activation snapshot at a block-depth boundary.
+
+    ``value`` is the cached activation of ``node`` (the block at ``depth``
+    on the interrupted task's path) and ``act_shape`` the input-shape guard
+    it was produced under.  Restoring it
+    (:meth:`TaskGraphExecutor.restore_activation`) makes the next matching
+    task resume from ``depth + 1`` instead of 0 — the paper's "an inference
+    interrupted at block k must not restart from block 0" property.
+    """
+
+    depth: int
+    node: NodeId
+    value: Any
+    act_shape: Optional[Tuple[int, ...]] = None
+
+
+@dataclasses.dataclass
+class _Staged:
+    """One node's staged copy: its params tree and, on CUDA, the event the
+    side stream records after the copy."""
+
+    params: Any
+    done: Optional[Any] = None
+
+
+class WeightStreamer:
+    """Double-buffered asynchronous host->device weight stager.
+
+    One staging slot per executor: :meth:`stage` issues copies of the
+    *next* plan's non-resident block params, replacing any previous batch —
+    stage(k+1) while executing k is the double buffer.
+
+    On CUDA the source of each copy is a pinned host copy of the node's
+    params, built once by :meth:`prepare` (``prepare_seconds`` and
+    ``pinned_bytes`` say what it cost); the copies are issued
+    ``non_blocking`` on a side :class:`torch.cuda.Stream`, so they overlap
+    whatever the compute stream still runs, and each node's copy records an
+    event.  On the CPU a copy is a synchronous ``clone``.
+
+    Commit-on-use: a staged copy only becomes the executor's parameter for
+    its node when the executor loads that node (:meth:`commit`, called from
+    the load branch of ``_run_task_impl``): the compute stream then waits on
+    the copy's event, and each tensor is marked as used on the compute
+    stream (``record_stream``), so the caching allocator cannot hand its
+    memory to a later stage while a kernel still reads it.  A committed
+    copy lives while its node stays resident: the load that evicts the
+    node drops it, so at most one path's params are streamed copies and
+    one group's loads are staged on top of the program.  Until then
+    nothing observable changes, so cancellation — :meth:`cancel` on a fresh
+    stage, :meth:`invalidate` from ``TaskGraphExecutor.reset`` /
+    ``set_residency`` — drops the staged copies and composes with the
+    serving session's residency snapshot/rollback.  A dropped staged tensor
+    was allocated and written on the side stream, so its memory goes back
+    to that stream's pool and a later stage's copy is ordered after it.
+
+    Stall accounting is modelled, not measured: the caller stages the batch
+    with the cost model's residual (``GraphCostModel.prefetch_stall_seconds``)
+    and :meth:`finish_group` returns it iff the group consumed any staged
+    copy.  The copies' measured device time is telemetry only
+    (:attr:`copy_log`, on CUDA), never an ``ExecutionStats`` counter.
+    """
+
+    #: stages kept in :attr:`copy_log`.
+    COPY_LOG = 1024
+
+    def __init__(self, executor: "TaskGraphExecutor"):
+        self._executor = executor
+        self._staged: Dict[NodeId, _Staged] = {}
+        self._committed_since_stage = False
+        #: Modelled stall (seconds) of the pending staged batch.
+        self.pending_stall_seconds = 0.0
+        # Lifetime telemetry (not part of ExecutionStats).
+        self.prefetches = 0
+        self.staged_bytes = 0.0
+        self.committed_bytes = 0.0
+        self.cancels = 0
+        # CUDA only: the pinned host source of every node's params, the side
+        # stream, and per stage (tensor bytes copied, start event, end event).
+        self._host: Optional[Dict[NodeId, Any]] = None
+        self._stream: Optional[Any] = None
+        self.pinned_bytes = 0
+        self.prepare_seconds = 0.0
+        self.copy_log: Deque[Tuple[int, Any, Any]] = collections.deque(
+            maxlen=self.COPY_LOG)
+
+    @property
+    def on_cuda(self) -> bool:
+        return self._executor.program.device.type == "cuda"
+
+    #: byte alignment of each leaf inside the pinned buffer.
+    PIN_ALIGN = 512
+
+    def prepare(self) -> None:
+        """Build the pinned host source of every node's params and the side
+        stream (CUDA only, once; a no-op on the CPU and when built).
+
+        All leaves live in one pinned buffer, each at a ``PIN_ALIGN``-byte
+        offset: the host allocator rounds every pinned allocation up to a
+        power of two, so one buffer wastes at most that rounding once
+        instead of once per leaf.
+        """
+        if not self.on_cuda or self._host is not None:
+            return
+        t0 = time.perf_counter()
+        program = self._executor.program
+        self._stream = torch.cuda.Stream(device=program.device)
+        align = self.PIN_ALIGN
+        total = 0
+        for params in program.node_params.values():
+            for t in tree_leaves(params):
+                total += -(-t.numel() * t.element_size() // align) * align
+        buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        offset = 0
+
+        def pinned(t: torch.Tensor) -> torch.Tensor:
+            nonlocal offset
+            nbytes = t.numel() * t.element_size()
+            view = buf[offset:offset + nbytes].view(t.dtype).view(t.shape)
+            view.copy_(t)
+            offset += -(-nbytes // align) * align
+            return view
+
+        self._host = {node: tree_map(pinned, params)
+                      for node, params in program.node_params.items()}
+        self.pinned_bytes = total
+        self.prepare_seconds = time.perf_counter() - t0
+
+    def staged_nodes(self) -> FrozenSet[NodeId]:
+        """Nodes with a staged (uncommitted) copy in flight."""
+        return frozenset(self._staged)
+
+    def _copy(self, node: NodeId) -> _Staged:
+        params = self._executor.program.node_params[node]
+        if not self.on_cuda:
+            return _Staged(tree_map(lambda t: t.clone(), params))
+        self.prepare()
+        side = self._stream
+        with torch.cuda.stream(side):
+            copy = tree_map(
+                lambda h: torch.empty_like(h, device=side.device).copy_(
+                    h, non_blocking=True),
+                self._host[node],
+            )
+            done = torch.cuda.Event()
+            done.record(side)
+        return _Staged(copy, done)
+
+    def stage(
+        self,
+        loads: Sequence[Tuple[int, NodeId]],
+        stall_seconds: float = 0.0,
+    ) -> None:
+        """Issue copies for ``loads`` (``GraphCostModel.plan_loads``
+        entries), replacing any previously staged batch."""
+        self.cancel()
+        ex = self._executor
+        start = None
+        if loads and self.on_cuda:
+            self.prepare()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self._stream)
+        nbytes = 0
+        for depth, node in loads:
+            staged = self._copy(node)
+            self._staged[node] = staged
+            nbytes += sum(t.numel() * t.element_size()
+                          for t in tree_leaves(staged.params))
+            self.staged_bytes += ex.program.block_costs[depth].weight_bytes
+        if loads:
+            self.prefetches += 1
+            self.pending_stall_seconds = float(stall_seconds)
+            if start is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record(self._stream)
+                self.copy_log.append((nbytes, start, end))
+
+    def commit(self, node: NodeId) -> bool:
+        """Adopt ``node``'s staged copy as its parameters, if one exists.
+
+        Called exactly where the executor accounts a weight load; ``True``
+        means the load's bytes arrived via the prefetch stream (the caller
+        counts them in ``ExecutionStats.prefetched_bytes``).
+        """
+        staged = self._staged.pop(node, None)
+        if staged is None:
+            return False
+        ex = self._executor
+        if staged.done is not None:
+            compute = torch.cuda.current_stream(ex.program.device)
+            compute.wait_event(staged.done)
+            for t in tree_leaves(staged.params):
+                t.record_stream(compute)
+        ex._streamed_node[node] = staged.params
+        self._committed_since_stage = True
+        self.committed_bytes += ex.program.block_costs[node[0]].weight_bytes
+        return True
+
+    def finish_group(self) -> float:
+        """Close out the staged batch after its group ran: its modelled
+        stall when the group committed any of it, else ``0.0``; uncommitted
+        leftovers are dropped."""
+        stall = (
+            self.pending_stall_seconds if self._committed_since_stage else 0.0
+        )
+        self._staged.clear()
+        self.pending_stall_seconds = 0.0
+        self._committed_since_stage = False
+        return stall
+
+    def cancel(self) -> None:
+        """Drop the staged (uncommitted) batch and its pending stall."""
+        if self._staged or self.pending_stall_seconds:
+            self.cancels += 1
+        self._staged.clear()
+        self.pending_stall_seconds = 0.0
+        self._committed_since_stage = False
+
+    def invalidate(self) -> None:
+        """Cancel staging *and* drop committed copies: after a rollback or
+        cold reset no streamed state may outlive the residency it was
+        planned against."""
+        self.cancel()
+        self._executor._streamed_node.clear()
+
+
 class TaskGraphExecutor:
     """Stateful executor with block residency + activation caching.
 
@@ -157,6 +405,15 @@ class TaskGraphExecutor:
         # (task, resume, batched, x_shape, x_dtype) -> (callable, mode); mode
         # is "scan" (one fn over a homogeneous suffix) or "unrolled".
         self._compiled_fused: Dict[Tuple, Tuple[Callable, str]] = {}
+        # (task, start, stop, batched, x_shape, x_dtype) -> (callable, mode):
+        # headless segment programs of checkpointed (intermittent) suffixes.
+        self._compiled_segment: Dict[Tuple, Tuple[Callable, str]] = {}
+        # Streamed-and-committed parameter copies, value-identical to
+        # program.node_params, dropped at every residency boundary.
+        self._streamed_node: Dict[NodeId, Any] = {}
+        # The double-buffered weight prefetcher (serving engines drive it
+        # when EnginePolicy.streaming is on; idle otherwise).
+        self.streamer = WeightStreamer(self)
         # Program dispatches (fused suffix or block/head calls).  Cumulative;
         # not part of ExecutionStats (those are cost-model-predictable
         # logical counters — dispatches depend on the dispatch mode).
@@ -181,9 +438,10 @@ class TaskGraphExecutor:
 
     # ---------------------------------------------------------------- state
     def reset(self) -> None:
-        """Cold state: nothing resident, nothing cached."""
+        """Cold state: nothing resident, nothing cached, nothing streamed."""
         depth = self.program.graph.depth
         self._resident: List[Optional[NodeId]] = [None] * depth
+        self.streamer.invalidate()
         self.clear_activations()
 
     def clear_activations(self) -> None:
@@ -206,15 +464,63 @@ class TaskGraphExecutor:
         return tuple(self._resident)
 
     def set_residency(self, state: Sequence[Optional[NodeId]]) -> None:
-        """Restore a residency snapshot; activations are always cleared —
-        they belong to a specific input, which a snapshot does not carry."""
+        """Restore a residency snapshot (rollback / replay helper).
+
+        Activations are always cleared — they belong to a specific input,
+        which a snapshot does not carry — and any in-flight prefetch is
+        cancelled and committed streamed copies dropped
+        (:meth:`WeightStreamer.invalidate`): a restore is the rollback
+        boundary, after which the next attempt loads synchronously and stays
+        counter-exact.
+        """
         depth = self.program.graph.depth
         if len(state) != depth:
             raise ValueError(
                 f"residency state has {len(state)} slots, expected {depth}"
             )
         self._resident = list(state)
+        self.streamer.invalidate()
         self.clear_activations()
+
+    def activation_checkpoint(self, task: int) -> Optional[ActivationCheckpoint]:
+        """Snapshot the deepest cached activation along ``task``'s path.
+
+        What the serving journal persists at a segmented suffix's commit
+        points: one ``(depth, node, value)`` triple resumes the interrupted
+        suffix, because the task graph is a tree — the node pins the whole
+        prefix chain that produced the value.  ``None`` when nothing on the
+        path is cached.
+        """
+        path = self.program.graph.path(task)
+        best: Optional[int] = None
+        for d, node in enumerate(path):
+            if self._act_owner[d] == node and self._activations[d] is not None:
+                best = d
+        if best is None:
+            return None
+        return ActivationCheckpoint(
+            depth=best,
+            node=path[best],
+            value=self._activations[best],
+            act_shape=self._act_shape,
+        )
+
+    def restore_activation(self, ckpt: ActivationCheckpoint) -> None:
+        """Re-seed the activation cache from a journaled crash checkpoint.
+
+        All other activation slots are cleared (they did not survive the
+        power failure); the next task sharing the checkpoint's node resumes
+        from ``ckpt.depth + 1``.  The value moves to the program's device in
+        its own dtype.  Call *after* :meth:`set_residency` — restoring
+        residency clears activations.
+        """
+        self.clear_activations()
+        self._activations[ckpt.depth] = torch.as_tensor(ckpt.value).to(
+            self.program.device)
+        self._act_owner[ckpt.depth] = ckpt.node
+        self._act_shape = (
+            tuple(ckpt.act_shape) if ckpt.act_shape is not None else None
+        )
 
     def _guard_act_shape(self, shape: Tuple[int, ...]) -> None:
         """Invalidate cached activations produced for a different input shape
@@ -233,12 +539,33 @@ class TaskGraphExecutor:
         return _row_batched(fn) if batched else fn
 
     # -------------------------------------------------------- fused suffix
+    def _node_param(self, node: NodeId) -> Any:
+        """A node's params: its committed streamed copy, if one exists."""
+        streamed = self._streamed_node.get(node)
+        if streamed is not None:
+            return streamed
+        return self.program.node_params[node]
+
     def _suffix_params(self, task: int, resume: int) -> Tuple[Any, ...]:
+        return self._segment_params(task, resume, self.program.graph.depth)
+
+    def _segment_params(self, task: int, start: int, stop: int) -> Tuple[Any, ...]:
         path = self.program.graph.path(task)
-        return tuple(
-            self.program.node_params[path[d]]
-            for d in range(resume, self.program.graph.depth)
-        )
+        return tuple(self._node_param(path[d]) for d in range(start, stop))
+
+    def _mode(self, suffix: Sequence[int], params: Sequence[Any],
+              batched: bool, shape: Tuple[int, ...], dtype: torch.dtype) -> str:
+        """"scan" for a homogeneous suffix (two or more blocks, one block
+        fn, one parameter layout, shape-preserving — checked on meta
+        tensors), else "unrolled": the reference's mode rule."""
+        base_fns = [self.program.block_fns[d] for d in suffix]
+        if len(suffix) >= 2 and all(f is base_fns[0] for f in base_fns):
+            if len({_leaf_specs(p) for p in params}) == 1:
+                spec = _probe_output(
+                    self._block_fn(suffix[0], batched), params[0], shape, dtype)
+                if spec is not None and spec == (shape, dtype):
+                    return "scan"
+        return "unrolled"
 
     def _fused_fn(
         self,
@@ -262,19 +589,10 @@ class TaskGraphExecutor:
 
         depth = self.program.graph.depth
         suffix = list(range(resume, depth))
-        base_fns = [self.program.block_fns[d] for d in suffix]
         fns = [self._block_fn(d, batched) for d in suffix]
         head = self._head_fn(task, batched)
-
-        mode = "unrolled"
-        if len(suffix) >= 2 and all(f is base_fns[0] for f in base_fns):
-            params = self._suffix_params(task, resume)
-            if len({_leaf_specs(p) for p in params}) == 1:
-                # Same fn + same param shapes; the scan also needs the carry
-                # shape to be invariant — verified without executing.
-                spec = _probe_output(fns[0], params[0], shape, dtype)
-                if spec is not None and spec == (shape, dtype):
-                    mode = "scan"
+        mode = self._mode(
+            suffix, self._suffix_params(task, resume), batched, shape, dtype)
 
         if mode == "scan":
             step_fn = fns[0]
@@ -316,18 +634,115 @@ class TaskGraphExecutor:
             self._act_owner[d] = path[d]
         return out
 
-    def _run_suffix_blocks(
-        self, task: int, resume: int, h: torch.Tensor, batched: bool
+    # ----------------------------------------------- segmented (checkpoint)
+    def _segment_fn(
+        self,
+        task: int,
+        start: int,
+        stop: int,
+        batched: bool,
+        shape: Tuple[int, ...],
+        dtype: torch.dtype,
+    ) -> Tuple[Callable, str]:
+        """Build (or fetch) a *headless* fused program for blocks
+        ``start .. stop-1`` of ``task``'s path: the segmented variant of
+        :meth:`_fused_fn`.  A checkpointed suffix is cut at its commit
+        depths, each cut dispatching one of these so the journal hook can
+        run — and a power failure can strike — at the boundary between
+        them.  Same mode rule as the full suffix; returns the per-depth
+        activations only (the last segment runs through :meth:`_fused_fn`,
+        which owns the head)."""
+        shape = tuple(shape)
+        key = (task, start, stop, batched, shape, dtype)
+        if key in self._compiled_segment:
+            return self._compiled_segment[key]
+        segment = list(range(start, stop))
+        fns = [self._block_fn(d, batched) for d in segment]
+        mode = self._mode(
+            segment, self._segment_params(task, start, stop), batched, shape, dtype)
+
+        if mode == "scan":
+            step_fn = fns[0]
+
+            def seg(params_tuple, h):
+                acts = []
+                for p in params_tuple:
+                    h = step_fn(p, h)
+                    acts.append(h)
+                return acts
+
+        else:
+
+            def seg(params_tuple, h):
+                acts = []
+                for f, p in zip(fns, params_tuple):
+                    h = f(p, h)
+                    acts.append(h)
+                return acts
+
+        self._compiled_segment[key] = (seg, mode)
+        return seg, mode
+
+    def _run_suffix_segmented(
+        self,
+        task: int,
+        resume: int,
+        h: torch.Tensor,
+        batched: bool,
+        checkpoint_depths: Sequence[int],
+        checkpoint_hook: Optional[Callable[[int], None]],
     ) -> torch.Tensor:
-        """Reference path: one dispatch per block plus one for the head."""
+        """Checkpointed suffix: commit points at block-depth boundaries.
+
+        Each checkpoint depth ``d`` in ``[resume, depth-1)`` ends a segment
+        dispatch after block ``d``; the hook then fires with the activation
+        for depth ``d`` freshly cached.  The remainder past the last cut
+        runs through the ordinary fused program, so an uncut suffix is the
+        non-intermittent path.  Counters never change — segmentation only
+        adds dispatches.
+        """
         graph = self.program.graph
         path = graph.path(task)
+        cur = resume
+        for d in sorted(set(checkpoint_depths)):
+            if d < cur or d >= graph.depth - 1:
+                continue  # already covered, or past the last cut point
+            fn, _mode = self._segment_fn(
+                task, cur, d + 1, batched, tuple(h.shape), h.dtype)
+            acts = fn(self._segment_params(task, cur, d + 1), h)
+            self.dispatch_count += 1
+            for a, dd in zip(acts, range(cur, d + 1)):
+                self._activations[dd] = a
+                self._act_owner[dd] = path[dd]
+            h = self._activations[d]
+            if checkpoint_hook is not None:
+                checkpoint_hook(d)
+            cur = d + 1
+        return self._run_suffix_fused(task, cur, h, batched)
+
+    def _run_suffix_blocks(
+        self,
+        task: int,
+        resume: int,
+        h: torch.Tensor,
+        batched: bool,
+        checkpoint_depths: Sequence[int] = (),
+        checkpoint_hook: Optional[Callable[[int], None]] = None,
+    ) -> torch.Tensor:
+        """Reference path: one dispatch per block plus one for the head.
+        Checkpoint hooks fire at the same block-depth boundaries as the
+        segmented fused path, so the unfused rung keeps journaling."""
+        graph = self.program.graph
+        path = graph.path(task)
+        cuts = {d for d in checkpoint_depths if resume <= d < graph.depth - 1}
         for d in range(resume, graph.depth):
             node = path[d]
-            h = self._block_fn(d, batched)(self.program.node_params[node], h)
+            h = self._block_fn(d, batched)(self._node_param(node), h)
             self.dispatch_count += 1
             self._activations[d] = h
             self._act_owner[d] = node
+            if d in cuts and checkpoint_hook is not None:
+                checkpoint_hook(d)
         out = self._head_fn(task, batched)(self.program.head_params[task], h)
         self.dispatch_count += 1
         return out
@@ -340,6 +755,8 @@ class TaskGraphExecutor:
         stats: ExecutionStats,
         weight: int,
         batched: bool,
+        checkpoint_depths: Sequence[int] = (),
+        checkpoint_hook: Optional[Callable[[int], None]] = None,
     ) -> torch.Tensor:
         """Shared body of the single-request and batched task execution.
 
@@ -355,7 +772,8 @@ class TaskGraphExecutor:
 
         # Deepest block of this task's path whose activation is cached.  The
         # task graph is a tree, so an owner match at depth ``d`` pins the
-        # whole chain above it.
+        # whole chain above it — contiguity below is not required, which is
+        # what lets one restored crash checkpoint seed a mid-path resume.
         resume = 0
         for d, node in enumerate(path):
             if self._act_owner[d] == node and self._activations[d] is not None:
@@ -372,6 +790,14 @@ class TaskGraphExecutor:
                 stats.flops_skipped += weight * bc.flops
                 continue
             if self._resident[d] != node:
+                # A committed copy is only worth its device memory while its
+                # node is resident: the evicted node's goes (values are the
+                # same either way, so this changes no result).
+                self._streamed_node.pop(self._resident[d], None)
+                if self.streamer.commit(node):
+                    # The bytes still count as loaded, but arrived over the
+                    # prefetch stream behind the previous group's compute.
+                    stats.prefetched_bytes += bc.weight_bytes
                 stats.weight_bytes_loaded += bc.weight_bytes
                 self._resident[d] = node
             else:
@@ -385,9 +811,14 @@ class TaskGraphExecutor:
 
         h = self._activations[resume - 1] if resume > 0 else x
         if self._fused:
-            out = self._run_suffix_fused(task, resume, h, batched)
+            if checkpoint_depths:
+                out = self._run_suffix_segmented(
+                    task, resume, h, batched, checkpoint_depths, checkpoint_hook)
+            else:
+                out = self._run_suffix_fused(task, resume, h, batched)
         else:
-            out = self._run_suffix_blocks(task, resume, h, batched)
+            out = self._run_suffix_blocks(
+                task, resume, h, batched, checkpoint_depths, checkpoint_hook)
         self.last_gate_record = TaskGateRecord(
             task=task, weight=weight, resume=resume
         )
@@ -437,6 +868,8 @@ class TaskGraphExecutor:
         xs: torch.Tensor,
         stats: ExecutionStats,
         weight: Optional[int] = None,
+        checkpoint_depths: Sequence[int] = (),
+        checkpoint_hook: Optional[Callable[[int], None]] = None,
     ) -> torch.Tensor:
         """Run one task for a stacked request group ``xs``: ``(B, *sample)``.
 
@@ -446,9 +879,18 @@ class TaskGraphExecutor:
         serves (defaults to ``B``; the engine passes the gate-fired count,
         the scheduler the unpadded count): flop/task counters scale by it,
         load counters stay physical.
+
+        ``checkpoint_depths`` / ``checkpoint_hook`` select the segmented
+        (intermittent) dispatch: the suffix is cut at those block-depth
+        boundaries and the hook fires after each cut with the activation
+        freshly cached — see :meth:`_run_suffix_segmented`.
         """
         w = int(xs.shape[0]) if weight is None else int(weight)
-        return self._run_task_impl(task, xs, stats, w, batched=True)
+        return self._run_task_impl(
+            task, xs, stats, w, batched=True,
+            checkpoint_depths=checkpoint_depths,
+            checkpoint_hook=checkpoint_hook,
+        )
 
     def run_batch(
         self,

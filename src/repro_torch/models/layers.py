@@ -12,7 +12,10 @@ Conventions, as in the reference:
   sequence it goes through :func:`repro_torch.kernels.ops.flash_attention_bhsd`
   (the hand-written kernel on CUDA, its plain version on the CPU) where the
   reference calls its jnp oracle ``attention_chunked``; one decode token
-  over a cache goes through :func:`attention_decode`.
+  over a cache goes through :func:`attention_decode`; several tokens over a
+  cache go through :func:`attention_chunked`, a plain PyTorch copy of the
+  reference's online softmax over KV chunks (the reference computes that
+  branch in jnp too, outside any Pallas kernel).
 
 The reference's sharding ``policy`` arguments are no-ops on one device and
 are dropped.
@@ -168,6 +171,65 @@ def attention_dense(
     return out.reshape(b, s, hq, dh)
 
 
+def attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    k_pos: torch.Tensor,
+    window: Optional[int] = None,
+    causal: bool = True,
+    chunk: int = 1024,
+    kv_valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks, the reference's
+    ``attention_chunked`` step for step.  q: (B,S,Hq,Dh); k/v: (B,T,Hk,Dh).
+
+    K and V are zero-padded up to a multiple of ``chunk``; the pad's
+    positions are int32 max (masked only under ``causal``) and its
+    ``kv_valid`` False, as there.  Masked scores are the finite ``NEG_INF``,
+    so a query row with no allowed key averages V over every key, pad
+    included — the reference's behaviour, kept.
+    """
+    b, s, hq, dh = q.shape
+    t = k.shape[1]
+    hk = k.shape[2]
+    g = hq // hk
+    if t % chunk != 0:
+        pad = chunk - t % chunk
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=torch.iinfo(torch.int32).max)
+        if kv_valid is not None:
+            kv_valid = F.pad(kv_valid, (0, pad), value=False)
+        t = k.shape[1]
+    n_chunks = t // chunk
+    qg = q.reshape(b, s, hk, g, dh).float() / math.sqrt(dh)
+    m = torch.full((b, hk, g, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hk, g, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hk, g, s, dh), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        scores = torch.einsum("bshgd,bthd->bhgst", qg, k[:, sl].float())
+        if causal:
+            msk = _causal_window_mask(q_pos, k_pos[sl], window)
+            while msk.dim() < scores.dim():
+                msk = msk[None]
+            scores = _masked(scores, msk)
+        if kv_valid is not None:
+            scores = _masked(scores, kv_valid[:, None, None, None, sl])
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgst,bthd->bhgsd", p, v[:, sl].float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, dh)
+    return out.to(q.dtype)
+
+
 def attention_decode(
     q: torch.Tensor,        # (B, 1, Hq, Dh)
     k: torch.Tensor,        # (B, T, Hk, Dh)  cache, in its storage dtype
@@ -215,11 +277,17 @@ def attention_block(
     Without a cache the sequence attends to itself causally through the
     flash kernel (positions are ``q_pos``, which every caller passes as
     ``arange(S)``: the kernel masks by index).  With ``kv_cache=(k, v)`` of
-    shape (B, T, Hk, Dh) and ``cache_len`` (current fill) it decodes one
-    token: writes the new K/V at slot ``cache_len % T`` **in place** (the
-    reference returns an updated copy; the port saves the cache-sized
-    copy) and attends over the filled prefix, or over the ring of a
-    sliding-window cache.  Returns (output, cache).
+    shape (B, T, Hk, Dh) and ``cache_len`` (current fill) it writes the new
+    K/V at slot ``cache_len % T`` **in place** (the reference returns an
+    updated copy; the port saves the cache-sized copy) and attends over the
+    filled prefix, or over the ring of a sliding-window cache: one token
+    through :func:`attention_decode`, several through
+    :func:`attention_chunked` with the config's ``attn_chunk``.  The
+    several-token write starts at ``min(cache_len % T, T - S)``, where the
+    reference's ``dynamic_update_slice`` clamps it, while the keys' validity
+    and ring positions are taken from the unclamped slot and ``cache_len``,
+    as there (so only keys up to position ``cache_len`` are valid).
+    Returns (output, cache).
     """
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k, v = project_kv(params, x)
@@ -228,15 +296,13 @@ def attention_block(
 
     new_cache = None
     if kv_cache is not None:
-        if q.shape[1] != 1:
-            raise NotImplementedError(
-                "multi-token attention over a KV cache is not ported yet"
-            )
         ck, cv = kv_cache
         t = ck.shape[1]
+        s = q.shape[1]
         idx = int(cache_len) % t
-        ck[:, idx] = k[:, 0].to(ck.dtype)
-        cv[:, idx] = v[:, 0].to(cv.dtype)
+        start = min(idx, t - s)
+        ck[:, start:start + s] = k.to(ck.dtype)
+        cv[:, start:start + s] = v.to(cv.dtype)
         new_cache = (ck, cv)
         k_pos_full = torch.arange(t, device=x.device)
         if cfg.sliding_window is not None and t <= cfg.sliding_window:
@@ -247,10 +313,16 @@ def attention_block(
         else:
             k_pos = k_pos_full
             kv_valid = (k_pos_full <= cache_len)[None, :].expand(x.shape[0], t)
-        out = attention_decode(
-            q, ck, cv, k_pos, int(cache_len),
-            window=cfg.sliding_window, kv_valid=kv_valid,
-        )
+        if s == 1:
+            out = attention_decode(
+                q, ck, cv, k_pos, int(cache_len),
+                window=cfg.sliding_window, kv_valid=kv_valid,
+            )
+        else:
+            out = attention_chunked(
+                q, ck, cv, q_pos, k_pos, window=cfg.sliding_window,
+                causal=True, chunk=cfg.attn_chunk, kv_valid=kv_valid,
+            )
     else:
         out = ops.flash_attention_bhsd(
             q, k, v, causal=True, window=cfg.sliding_window,

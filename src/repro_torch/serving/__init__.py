@@ -6,15 +6,21 @@ The task-graph surface is session-first: open a ``ServingSession`` on a
 under a pluggable ``SchedulingPolicy``, and resolve ``MultitaskFuture``s.
 ``serve`` / ``serve_batch`` remain as one-shot wrappers over the same
 machinery; ``serve_many`` is deprecated.  Reliability lives in
-``repro_torch.serving.reliability``.
+``repro_torch.serving.reliability``, the write-ahead journal of
+intermittent-power serving in ``repro_torch.serving.journal``, and
+``ContinuousBatcher`` serves LM generation requests in waves.
 """
 from repro_torch.serving.batching import (
-    DEFAULT_BATCH_SHAPES, RequestGroup, RequestGroupScheduler, effective_order,
-    normalize_subset, order_groups,
+    DEFAULT_BATCH_SHAPES, ContinuousBatcher, GenRequest, GenResult,
+    RequestGroup, RequestGroupScheduler, effective_order, normalize_subset,
+    order_groups,
 )
 from repro_torch.serving.engine import (
-    GroupExecution, LMServer, MultitaskEngine, MultitaskRequest,
-    MultitaskResponse,
+    GroupExecution, IntermittentContext, LMServer, MultitaskEngine,
+    MultitaskRequest, MultitaskResponse,
+)
+from repro_torch.serving.journal import (
+    FileJournalStore, Journal, JournalState, JournalStore, MemoryJournalStore,
 )
 from repro_torch.serving.policies import (
     AffinityPolicy, EnginePolicy, GreedyBatchPolicy, SchedulingPolicy,
@@ -35,6 +41,7 @@ __all__ = [
     "MultitaskRequest",
     "MultitaskResponse",
     "GroupExecution",
+    "IntermittentContext",
     # sessions
     "ServingSession",
     "MultitaskFuture",
@@ -61,6 +68,11 @@ __all__ = [
     "PowerFailureInjector",
     "POWER_SITES",
     "EnergyBudget",
+    "Journal",
+    "JournalState",
+    "JournalStore",
+    "MemoryJournalStore",
+    "FileJournalStore",
     # request grouping
     "DEFAULT_BATCH_SHAPES",
     "RequestGroup",
@@ -70,4 +82,7 @@ __all__ = [
     "order_groups",
     # LM serving path
     "LMServer",
+    "ContinuousBatcher",
+    "GenRequest",
+    "GenResult",
 ]

@@ -8,14 +8,18 @@ of batch shapes by repeating its last row.  With a cost model supplied, the
 groups are sequenced by :func:`order_groups` so consecutive groups hand
 residency over cheaply.  Groups are stacked where the request inputs live
 (numpy inputs stack on the CPU); the engine moves each group to the
-program's device once.  The LM server's ``ContinuousBatcher`` waits for the
-LM slice.
+program's device once.
+
+:class:`ContinuousBatcher` serves LM generation requests (:class:`GenRequest`)
+in waves of up to ``slots``: one prefill per wave, then batched greedy
+decode steps until every member has its tokens.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 from typing import (
-    TYPE_CHECKING, Any, Dict, FrozenSet, List, Optional, Sequence, Tuple,
+    TYPE_CHECKING, Any, Deque, Dict, FrozenSet, List, Optional, Sequence, Tuple,
 )
 
 import numpy as np
@@ -25,6 +29,7 @@ from repro_torch.core.constraints import Constraints
 from repro_torch.core.cost_model import GraphCostModel
 from repro_torch.core.ordering import greedy_2opt_order, optimal_order
 from repro_torch.core.types import Residency
+from repro_torch.models.registry import ModelApi
 
 if TYPE_CHECKING:  # avoid a module cycle with repro_torch.serving.engine
     from repro_torch.serving.engine import MultitaskRequest
@@ -231,3 +236,108 @@ def order_groups(
         res = greedy_2opt_order(c, cons)
     seq = [active[g - off] for g in res.order if g - off >= 0]
     return [groups[i] for i in seq + inert]
+
+
+@dataclasses.dataclass
+class GenRequest:
+    uid: int
+    prompt: np.ndarray          # (S0,) int32
+    max_new_tokens: int
+
+
+@dataclasses.dataclass
+class GenResult:
+    uid: int
+    tokens: np.ndarray          # generated ids
+    steps: int
+
+
+class ContinuousBatcher:
+    """Fixed-slot continuous batching over a :class:`ModelApi`.
+
+    Requests are served in waves of up to ``slots`` in arrival order: the
+    whole wave is prefilled together (simple and correct; a production
+    engine would insert into the live cache), then decode steps are batched
+    until every member has ``max_new_tokens`` tokens or emitted ``eos``.
+    Prompts are right-aligned so every row's last prompt token sits at
+    position ``s0 - 1``; the left padding repeats each prompt's first token,
+    as the reference does.  The prefill goes through the model's own path
+    (on CUDA, the flash kernel once per attention layer) and the cache is
+    grown with the LM server's ``_grow_cache``.
+    """
+
+    def __init__(
+        self,
+        model: ModelApi,
+        params: Any,
+        slots: int = 4,
+        max_len: int = 256,
+        eos_token: Optional[int] = None,
+    ):
+        self.model = model
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.eos = eos_token
+        self.queue: Deque[GenRequest] = deque()
+        self.results: List[GenResult] = []
+
+    def submit(self, req: GenRequest) -> None:
+        if len(req.prompt) + req.max_new_tokens > self.max_len:
+            raise ValueError("request exceeds max_len")
+        self.queue.append(req)
+
+    # ------------------------------------------------------------------ run
+    def run(self) -> List[GenResult]:
+        """Serve until the queue drains.  Returns completed results."""
+        while self.queue:
+            active = [
+                self.queue.popleft()
+                for _ in range(min(self.slots, len(self.queue)))
+            ]
+            self._serve_wave(active)
+        return self.results
+
+    @staticmethod
+    def wave_tokens(active: Sequence[GenRequest]) -> np.ndarray:
+        """A wave's prompts right-aligned and edge-padded: (B, s0) int32."""
+        s0 = max(len(r.prompt) for r in active)
+        return np.stack([
+            np.pad(r.prompt, (s0 - len(r.prompt), 0), mode="edge")
+            for r in active
+        ]).astype(np.int32)
+
+    def _serve_wave(self, active: List[GenRequest]) -> None:
+        """Prefill a wave of requests together, decode until all finish."""
+        from repro_torch.serving.engine import _grow_cache
+
+        b = len(active)
+        toks = self.wave_tokens(active)
+        s0 = toks.shape[1]
+        logits, cache = self.model.prefill(self.params, toks)
+        steps = max(r.max_new_tokens for r in active)
+        cache = _grow_cache(self.model, cache, s0 + steps, s0)
+
+        out: Dict[int, List[int]] = {r.uid: [] for r in active}
+        done = [False] * b
+        tok = torch.argmax(logits, dim=-1)
+        cache_len = s0
+        for _step in range(steps):
+            ids = tok.cpu().numpy()
+            for i, r in enumerate(active):
+                if done[i]:
+                    continue
+                out[r.uid].append(int(ids[i]))
+                if (
+                    len(out[r.uid]) >= r.max_new_tokens
+                    or (self.eos is not None and ids[i] == self.eos)
+                ):
+                    done[i] = True
+            if all(done):
+                break
+            logits, cache = self.model.decode_step(self.params, tok, cache, cache_len)
+            tok = torch.argmax(logits, dim=-1)
+            cache_len += 1
+        for r in active:
+            self.results.append(GenResult(
+                uid=r.uid, tokens=np.array(out[r.uid]), steps=len(out[r.uid])))

@@ -11,10 +11,15 @@ Long-lived serving goes through :meth:`MultitaskEngine.session` (a
 scheduling policy, futures, deadlines, backpressure, and group recovery
 with rollback, retries and the unfused rung); ``serve`` / ``serve_batch``
 are one-shot sessions.  A :class:`~repro_torch.serving.reliability.\
-FaultInjector` can fire at the ``"plan"``, ``"load"`` and ``"dispatch"``
-boundaries.  :class:`LMServer` runs batched prefill and greedy decode.
-Weight streaming, intermittent power, adaptive gating and the mesh wait for
-later slices.
+FaultInjector` can fire at the ``"plan"``, ``"load"``, ``"dispatch"`` and
+``"prefetch"`` boundaries.  With ``EnginePolicy.streaming`` the session
+stages each group's weights behind the previous group's compute
+(:meth:`MultitaskEngine.prefetch_group`); with a journal it runs groups
+power-failure-atomically (:class:`IntermittentContext`: planned mid-suffix
+checkpoints, a :class:`~repro_torch.serving.reliability.\
+PowerFailureInjector` at the ``"group"``, ``"suffix"`` and ``"prefetch"``
+sites).  :class:`LMServer` runs batched prefill and greedy decode.
+Adaptive gating and the mesh wait for later slices.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.constraints import Constraints
-from repro_torch.core.cost_model import GraphCostModel
+from repro_torch.core.cost_model import CheckpointSite, GraphCostModel
 from repro_torch.core.executor import MultitaskProgram, TaskGraphExecutor
 from repro_torch.core.ordering import optimal_order, solve_suborder
 from repro_torch.core.types import (
@@ -43,8 +48,11 @@ from repro_torch.serving.batching import (
 from repro_torch.serving.policies import EnginePolicy
 
 if TYPE_CHECKING:  # session imports engine; keep the runtime import lazy
+    from repro_torch.serving.journal import Journal
     from repro_torch.serving.policies import SchedulingPolicy
-    from repro_torch.serving.reliability import FaultInjector
+    from repro_torch.serving.reliability import (
+        FaultInjector, PowerFailureInjector,
+    )
     from repro_torch.serving.session import ServingSession
 
 
@@ -84,7 +92,10 @@ class MultitaskResponse:
     actually ran.  ``retries`` counts the failed attempts before the one
     that produced this response; ``degraded`` names the recovery rung that
     succeeded (``"unfused"``: the per-block dispatch), ``None`` for the
-    primary path.
+    primary path.  ``recovered`` is set when the response was rebuilt from a
+    durable journal commit by ``ServingSession.recover`` instead of
+    produced by a live execution — the exactly-once path after a power
+    failure.
     """
 
     outputs: Dict[int, torch.Tensor]
@@ -96,6 +107,23 @@ class MultitaskResponse:
     effective_order: Tuple[int, ...] = ()
     retries: int = 0
     degraded: Optional[str] = None
+    recovered: bool = False
+
+
+@dataclasses.dataclass
+class IntermittentContext:
+    """Journaling context threaded through one group's execution.
+
+    Built by the session (the journal's owner) per group: ``journal`` /
+    ``group_id`` let the engine's checkpoint hook write durable mid-suffix
+    activation records under the group's identity, and ``checkpointing``
+    turns the segmented dispatch on or off (the restart-from-scratch arm
+    journals begins/commits but never cuts a suffix).
+    """
+
+    journal: "Journal"
+    group_id: int
+    checkpointing: bool = True
 
 
 @dataclasses.dataclass
@@ -145,12 +173,18 @@ class MultitaskEngine:
     (``policy``); the ``warm_start`` / ``group_ordering`` / ``scheduler``
     keywords override its fields.  None of them change results, only how
     much gets loaded.  The engine runs on the program's device: each planned
-    group moves there once.
+    group moves there once.  With ``policy.streaming`` the executor's
+    streamer builds its pinned host copy of the program's params here, once.
 
     Long-lived serving goes through :meth:`session`; ``serve`` /
     ``serve_batch`` are thin wrappers that run a one-shot session.
     ``fault_injector`` (settable at any time) fires at the ``"plan"``,
-    ``"load"`` and ``"dispatch"`` boundaries of group execution.
+    ``"load"``, ``"dispatch"`` and ``"prefetch"`` boundaries of group
+    execution; ``power_injector`` (settable at any time, and best kept
+    outside the session so its schedule survives the reboots it causes)
+    raises :class:`~repro_torch.serving.reliability.PowerFailure` at the
+    ``"group"``, ``"suffix"`` and ``"prefetch"`` sites of a journaled
+    session.
     """
 
     def __init__(
@@ -166,6 +200,7 @@ class MultitaskEngine:
         group_ordering: Optional[bool] = None,
         policy: Optional[EnginePolicy] = None,
         fault_injector: Optional["FaultInjector"] = None,
+        power_injector: Optional["PowerFailureInjector"] = None,
     ):
         self.program = program
         self.device = program.device
@@ -185,6 +220,12 @@ class MultitaskEngine:
         if policy.scheduler is None:
             policy = dataclasses.replace(
                 policy, scheduler=RequestGroupScheduler()
+            )
+        if policy.streaming and not policy.warm_start:
+            raise ValueError(
+                "EnginePolicy.streaming requires warm_start: a cold engine "
+                "resets the executor before every group, which cancels any "
+                "staged prefetch — nothing could ever stream"
             )
         self.policy = policy
         # Which tasks each runtime gate reads: {gated_task: (input_tasks,)}.
@@ -222,7 +263,10 @@ class MultitaskEngine:
                 "gate would read an output its order produces later"
             )
         self.executor = TaskGraphExecutor(program)
+        if policy.streaming:
+            self.executor.streamer.prepare()
         self.fault_injector = fault_injector
+        self.power_injector = power_injector
         # Cumulative counters of the most recent serve_batch call (its
         # one-shot session's stats); with no gates and the default greedy
         # scheduling these equal predicted_group_stats(plan_groups(requests))
@@ -406,8 +450,20 @@ class MultitaskEngine:
         if self.fault_injector is not None:
             self.fault_injector.check(site, **context)
 
+    def _power(self, site: str, **context: Any) -> None:
+        """Power-failure hook: delegates to :attr:`power_injector` when
+        armed; a no-op otherwise.  A firing site raises a ``BaseException``
+        that kills the whole session — the recovery story is the durable
+        journal, not the retry ladder."""
+        if self.power_injector is not None:
+            self.power_injector.check(site, **context)
+
     def _run_group(
-        self, group: RequestGroup, eff: Sequence[int]
+        self,
+        group: RequestGroup,
+        eff: Sequence[int],
+        intermittent: Optional[IntermittentContext] = None,
+        ckpt_plan: Optional[Sequence[CheckpointSite]] = None,
     ) -> Tuple[List[Dict[int, torch.Tensor]], ExecutionStats,
                List[TaskGateRecord]]:
         """Execute one homogeneous request group through the batched path.
@@ -418,6 +474,11 @@ class MultitaskEngine:
         task's output depends only on its input row.  Flop/task counters are
         weighted by the fired-row count.  The third return value is the
         group's realized gate trace, one record per task of ``eff``.
+
+        With ``intermittent`` the ``"group"`` power site fires before each
+        task's dispatch, and a task with planned checkpoint sites
+        (``ckpt_plan``) runs its suffix segmented at their depths, the
+        journal hook firing after each cut.
         """
         ex = self.executor
         v = group.valid
@@ -434,14 +495,106 @@ class MultitaskEngine:
                 trace.append(TaskGateRecord(task=t, weight=0, offered=v))
                 continue
             self._inject("dispatch", task=t, group_tasks=group.tasks)
-            out = ex.run_task_batch(t, group.xs, stats, weight=fired)
+            if intermittent is not None:
+                # ``stats`` rides along so a crash's PowerFailure carries
+                # the partial (about-to-be-lost) counters.
+                self._power(
+                    "group", task=t, group_id=intermittent.group_id,
+                    group_tasks=group.tasks, stats=stats,
+                )
+            sites = [s for s in (ckpt_plan or ()) if s.task == t]
+            if sites and intermittent is not None:
+                out = ex.run_task_batch(
+                    t, group.xs, stats, weight=fired,
+                    checkpoint_depths=[s.depth for s in sites],
+                    checkpoint_hook=self._checkpoint_hook(
+                        stats, intermittent, t, sites, fired),
+                )
+            else:
+                out = ex.run_task_batch(t, group.xs, stats, weight=fired)
             trace.append(dataclasses.replace(ex.last_gate_record, offered=v))
             for i in range(v):
                 if fire[i]:
                     per_request[i][t] = out[i]
         return per_request, stats, trace
 
-    def _execute_group(self, group: RequestGroup) -> GroupExecution:
+    def _checkpoint_hook(
+        self,
+        stats: ExecutionStats,
+        intermittent: IntermittentContext,
+        task: int,
+        sites: Sequence[CheckpointSite],
+        weight: int = 1,
+    ) -> Callable[[int], None]:
+        """The commit-point callback of one task's segmented suffix.
+
+        Fired by the executor right after the block at a planned depth ran:
+        journal the freshly cached activation durably (its host copy waits
+        for the stream), account the write with the *planned* site's
+        bytes/seconds — the values the prediction adds from the same plan —
+        then give the power injector its ``"suffix"`` site: a failure here
+        dies *after* the durable write, which is what makes the checkpoint
+        useful.
+        """
+        ex = self.executor
+        by_depth = {s.depth: s for s in sites}
+
+        def hook(depth: int) -> None:
+            site = by_depth[depth]
+            ck = ex.activation_checkpoint(task)
+            if ck is not None:
+                intermittent.journal.checkpoint(
+                    intermittent.group_id, site.pos, task,
+                    ck.depth, ck.node, ck.value, ck.act_shape,
+                )
+            stats.checkpoint_bytes += site.bytes
+            stats.checkpoint_seconds += site.seconds
+            self._power(
+                "suffix", task=task, depth=depth,
+                group_id=intermittent.group_id, stats=stats, weight=weight,
+            )
+
+        return hook
+
+    def prefetch_group(
+        self, group: RequestGroup, overlap_seconds: float = 0.0
+    ) -> float:
+        """Stage the next group's weight stream; returns the bytes scheduled.
+
+        ``plan_loads`` over the group's execution order and the executor's
+        *current* residency is exactly the load set :meth:`_execute_group`
+        will account, so staging it makes ``prefetched_bytes`` equal that
+        group's ``weight_bytes_loaded`` by construction.  The copies are
+        issued on the streamer's side stream, so they overlap whatever the
+        previously dispatched group still runs on the card;
+        ``overlap_seconds`` is that group's modelled compute window, and
+        whatever load time exceeds it is staged as the batch's modelled
+        stall.  Returns ``0.0`` without staging when the group needs no
+        loads.  The ``"prefetch"`` fault and power sites fire first: an
+        injected fault leaves any staged batch untouched and the caller
+        degrades to synchronous loads.
+        """
+        self._inject("prefetch", group_tasks=group.tasks, valid=group.valid)
+        self._power("prefetch", group_tasks=group.tasks, valid=group.valid)
+        eff = self.group_order(group)
+        loads = self.cost_model.plan_loads(eff, self.executor.residency_state())
+        if not loads:
+            return 0.0
+        stall = self.cost_model.prefetch_stall_seconds(
+            [d for d, _node in loads], overlap_seconds
+        )
+        self.executor.streamer.stage(loads, stall_seconds=stall)
+        return float(sum(
+            self.program.block_costs[d].weight_bytes for d, _node in loads
+        ))
+
+    def _execute_group(
+        self,
+        group: RequestGroup,
+        intermittent: Optional[IntermittentContext] = None,
+        first_task_resume: int = 0,
+        keep_activations: bool = False,
+    ) -> GroupExecution:
         """Run one planned group; the session's execution primitive.
 
         Handles the warm/cold group boundary (keep residency and drop
@@ -450,29 +603,75 @@ class MultitaskEngine:
         the executor's residency right before execution (read after the
         ``"plan"`` fault site and the boundary, so a retried attempt
         predicts from the rolled-back residency), conditioned on the
-        realized gate trace.
+        realized gate trace.  A group that consumed staged copies is
+        predicted with them as prefetched bytes plus the staged batch's
+        modelled stall.
+
+        ``intermittent`` (journal + group id) selects the power-failure-
+        atomic path: the cost model places mid-suffix checkpoints
+        (:meth:`GraphCostModel.plan_checkpoints`) and execution journals
+        each at the matching segment boundary.  ``first_task_resume`` /
+        ``keep_activations`` serve crash recovery: a group resuming from a
+        restored checkpoint at depth ``d`` enters with
+        ``first_task_resume=d+1`` and must *not* clear the activation cache
+        at the boundary — the restored checkpoint is the whole point.
         """
         self._inject("plan", group_tasks=group.tasks, valid=group.valid)
-        if self.warm_start:
+        if keep_activations:
+            # Crash recovery: residency and the restored checkpoint were
+            # seeded by ``ServingSession.recover`` — touch neither.
+            pass
+        elif self.warm_start:
             self.executor.clear_activations()
         else:
             self.executor.reset()  # cold per group (reference semantics)
         group = dataclasses.replace(group, xs=group.xs.to(self.device))
         eff = self.group_order(group)
         resume = self.executor.residency_state() if self.warm_start else None
+        ckpt_plan: Optional[List[CheckpointSite]] = None
+        if intermittent is not None and intermittent.checkpointing:
+            ckpt_plan = self.cost_model.plan_checkpoints(
+                eff, batch_size=group.valid,
+                first_task_resume=first_task_resume,
+            )
+        streamer = self.executor.streamer
+        # Snapshot the stream state before the run consumes staged copies.
+        staged = streamer.staged_nodes()
+        pending_stall = streamer.pending_stall_seconds
         self._inject("load", group_tasks=group.tasks, resume=resume)
-        per_request, stats, trace = self._run_group(group, eff)
+        per_request, stats, trace = self._run_group(
+            group, eff, intermittent=intermittent, ckpt_plan=ckpt_plan)
+        stats.stream_stall_seconds += streamer.finish_group()
         predicted = self.cost_model.predicted_stats(
             eff, batch_size=group.valid, resume=resume, gate_trace=trace,
+            first_task_resume=first_task_resume, checkpoints=ckpt_plan,
         )
         warm_saved = 0.0
         if self.warm_start:
+            # The cold reference needs ``first_task_resume`` too: the
+            # trace's resume depths come from the executed walk.
             cold_pred = self.cost_model.predicted_stats(
                 eff, batch_size=group.valid, gate_trace=trace,
+                first_task_resume=first_task_resume,
             )
             warm_saved = (
                 cold_pred.weight_bytes_loaded - predicted.weight_bytes_loaded
             )
+        if staged:
+            # The loads that hit staged copies arrived over the stream: for
+            # an ungated engine the staged set *is* the load set
+            # (prefetch_group planned it from the same residency); a gate
+            # that skipped a whole task drops its staged-but-unused loads
+            # from both sides via the trace.
+            pf_bytes = sum(
+                self.program.block_costs[d].weight_bytes
+                for d, node in self.cost_model.plan_loads(
+                    eff, resume, gate_trace=trace)
+                if node in staged
+            )
+            if pf_bytes > 0.0:
+                predicted.prefetched_bytes = pf_bytes
+                predicted.stream_stall_seconds = pending_stall
         predicted.tasks_skipped += (len(self.order) - len(eff)) * group.valid
         return GroupExecution(
             group=group, eff=eff, outputs=per_request, stats=stats,

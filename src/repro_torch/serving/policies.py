@@ -23,8 +23,9 @@ Four policies ship:
   oversubscribed buckets admit priority-first.
 
 :class:`EnginePolicy` folds everything schedule-shaped about the engine into
-one config object.  The reference's ``mesh``, ``sharding``, ``streaming``
-and ``adaptive`` fields come with the slices that port those subsystems.
+one config object, weight streaming included.  The reference's ``mesh``,
+``sharding`` and ``adaptive`` fields come with the slices that port those
+subsystems.
 """
 from __future__ import annotations
 
@@ -312,9 +313,20 @@ class EnginePolicy:
       scheduler: the request-group scheduler (bucketing / padding shapes);
         ``None`` means a default :class:`RequestGroupScheduler`, which the
         engine folds back into its ``policy`` at construction.
+      streaming: double-buffered weight streaming: while each group
+        executes, the session prefetches the *next* group's non-resident
+        block params (``MultitaskEngine.prefetch_group`` ->
+        ``WeightStreamer``) on a side CUDA stream, hiding load time behind
+        compute.  Prefetched bytes drop out of the modelled synchronous
+        load term and any residue appears as
+        ``ExecutionStats.stream_stall_seconds``; outputs and byte counters
+        are unchanged, and ``session.stats == session.predicted`` stays
+        exact.  Requires ``warm_start`` (a cold reset before every group
+        would cancel every prefetch).
 
     The defaults reproduce the reference engine: greedy one-shot admission,
-    warm starts, cost-aware group ordering, global task order.
+    warm starts, cost-aware group ordering, global task order, synchronous
+    loads.
     """
 
     warm_start: bool = True
@@ -324,3 +336,4 @@ class EnginePolicy:
         default_factory=_default_scheduling
     )
     scheduler: Optional[RequestGroupScheduler] = None
+    streaming: bool = False

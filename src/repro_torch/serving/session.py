@@ -56,10 +56,33 @@ fault boundary of the serving stack, and its unit of failure is the
   fails its group and every group after it: the ladder has no special case
   for it.
 
-The journal and :meth:`recover`, the energy budget, weight-streaming
-prefetch, the mesh's ``"single_device"`` rung and the adaptive deadline
-ladder come with the slices that port those subsystems; the constructor
-raises ``NotImplementedError`` for their arguments.
+* **Weight streaming** — with ``streaming`` on, before each group executes
+  the pump prefetches that group's non-resident block params
+  (``engine.prefetch_group``) behind the *previous* group's modelled
+  compute window; the copies run on a side CUDA stream while the previous
+  group's kernels still run.  Only an injected ``"prefetch"`` fault
+  (:class:`~repro_torch.serving.reliability.InjectedFault`) degrades a
+  group to synchronous loads; any other prefetch error raises.
+* **Intermittent power** — a session opened with a ``journal``
+  (:class:`~repro_torch.serving.journal.Journal`) writes ahead of every
+  state transition: requests at admission, ``group_begin`` before a group
+  executes, cost-model-placed mid-suffix activation checkpoints at segment
+  boundaries, and an atomic ``group_commit`` (outputs + counters +
+  residency) after.  A whole-process power failure
+  (:class:`~repro_torch.serving.reliability.PowerFailure`, a
+  ``BaseException`` the retry ladder never absorbs) leaves the journal as
+  the only truth; :meth:`ServingSession.recover` rebuilds a fresh session
+  from it with exactly-once responses: committed groups are never re-run,
+  the interrupted group resumes from its last durable checkpoint
+  (``use_checkpoints=False`` restarts it from scratch), and everything
+  still pending is re-enqueued.  An ``energy`` budget
+  (:class:`~repro_torch.serving.reliability.EnergyBudget`) duty-cycles the
+  pump: a group only executes once its predicted joules (checkpoint writes
+  included) fit the storage capacitor, else the pump sleeps exactly the
+  harvest time the deficit needs.
+
+The mesh's ``"single_device"`` rung and the adaptive deadline ladder come
+with the slices that port the mesh and adaptive gating.
 
 Driving the loop: callers either poll :meth:`step` on their own cadence,
 call :meth:`flush` to force one admit-everything pass, or call :meth:`drain`
@@ -75,9 +98,12 @@ from typing import (
     TYPE_CHECKING, Any, Callable, Deque, Dict, Iterable, List, Optional, Tuple,
 )
 
+import torch
+
 from repro_torch.core.types import ExecutionStats
 from repro_torch.serving.reliability import (
-    DeadlineExceeded, QueueFull, RequestError, RetryPolicy, TenantStats,
+    DeadlineExceeded, InjectedFault, QueueFull, RequestError, RetryPolicy,
+    TenantStats,
 )
 
 if TYPE_CHECKING:
@@ -85,7 +111,9 @@ if TYPE_CHECKING:
     from repro_torch.serving.engine import (
         GroupExecution, MultitaskEngine, MultitaskRequest, MultitaskResponse,
     )
+    from repro_torch.serving.journal import Journal, JournalState
     from repro_torch.serving.policies import SchedulingPolicy
+    from repro_torch.serving.reliability import EnergyBudget
 
 
 class MultitaskFuture:
@@ -263,9 +291,20 @@ class ServingSession:
       sleep: backoff sleep hook (``time.sleep``); tests and simulated-clock
         runs inject a no-op.  Never called when the policy's backoff base
         is 0.
-      streaming, journal, checkpointing, energy: the reference's weight
-        streaming and intermittent-power arguments, not ported yet: any
-        value but the default raises ``NotImplementedError``.
+      streaming: double-buffered weight streaming (defaults to the engine's
+        ``EnginePolicy.streaming``): each group's non-resident block params
+        are prefetched behind the previous group's modelled compute window.
+        The first group of a session (and the group after any failure)
+        loads synchronously: there is no window to hide behind.  Requires a
+        warm-start engine.
+      journal: a write-ahead :class:`~repro_torch.serving.journal.Journal`
+        making the session power-failure-atomic (requires a warm-start
+        engine: the journal's residency records model weights living in the
+        durable tier across power cycles).
+      checkpointing: ``False`` keeps the journal's exactly-once semantics
+        but never cuts a suffix — the restart-from-scratch arm.
+      energy: an :class:`~repro_torch.serving.reliability.EnergyBudget`
+        duty-cycling the pump.
     """
 
     #: recent admission-latency samples kept in ``waits`` (aggregates in
@@ -283,21 +322,10 @@ class ServingSession:
         retry: Optional[RetryPolicy] = None,
         sleep: Optional[Callable[[float], None]] = None,
         streaming: Optional[bool] = None,
-        journal: Optional[Any] = None,
+        journal: Optional["Journal"] = None,
         checkpointing: bool = True,
-        energy: Optional[Any] = None,
+        energy: Optional["EnergyBudget"] = None,
     ):
-        unported = {
-            "streaming": bool(streaming), "journal": journal is not None,
-            "checkpointing": not checkpointing, "energy": energy is not None,
-        }
-        for name, given in unported.items():
-            if given:
-                raise NotImplementedError(
-                    f"ServingSession({name}=...) is not ported yet: weight "
-                    "streaming, the journal and energy budgets come with "
-                    "later slices of repro_torch"
-                )
         if overload not in ("reject", "shed"):
             raise ValueError(
                 f"overload must be 'reject' or 'shed', got {overload!r}"
@@ -318,6 +346,31 @@ class ServingSession:
         self.overload = overload
         self.retry = retry if retry is not None else RetryPolicy()
         self._sleep = sleep if sleep is not None else time.sleep
+        self.streaming = (
+            engine.policy.streaming if streaming is None else bool(streaming)
+        )
+        if self.streaming and not engine.warm_start:
+            raise ValueError(
+                "streaming sessions require a warm-start engine: a cold "
+                "reset before every group cancels any staged prefetch"
+            )
+        if self.streaming:
+            engine.executor.streamer.prepare()
+        self.journal = journal
+        self.checkpointing = bool(checkpointing)
+        self.energy = energy
+        if journal is not None and not engine.warm_start:
+            raise ValueError(
+                "journaled (intermittent) sessions require a warm-start "
+                "engine: the journal's residency records model weights "
+                "living in the durable tier across power cycles, which is "
+                "exactly what warm_start keeps — a cold engine would "
+                "discard the recovered residency before every group"
+            )
+        # The overlap window the next prefetch may hide behind: the modelled
+        # compute seconds of the last successfully executed group (zero at
+        # session start and after any group failure — synchronous recovery).
+        self._stream_budget = 0.0
         self._seq = 0
         # ------------------------------------------------- running counters
         self.stats = ExecutionStats()       # executed, cumulative
@@ -337,7 +390,18 @@ class ServingSession:
         self.plan_failures = 0          # planning batches that failed whole
         self.backoff_seconds = 0.0      # total retry backoff slept
         self.plan_seconds = 0.0
+        self.prefetches_issued = 0      # groups whose loads were streamed
+        self.prefetch_scheduled_bytes = 0.0
+        self.prefetch_failures = 0      # injected prefetch faults (degraded
+                                        # to synchronous loads)
+        # The last swallowed prefetch fault, kept for diagnosis.
+        self.last_prefetch_error: Optional[BaseException] = None
+        self.energy_pauses = 0          # groups that waited for harvest
+        self.energy_paused_seconds = 0.0
         self._group_seq = 0             # session-unique execution-group ids
+        # seq -> future for every request recovered from a journal (filled
+        # by ``ServingSession.recover``; empty for ordinary sessions).
+        self.recovered: Dict[int, MultitaskFuture] = {}
         # Admission-latency tracking: running aggregates over every admitted
         # request (exact for the session's whole lifetime) plus a bounded
         # window of recent samples — a long-lived session must not grow a
@@ -401,6 +465,14 @@ class ServingSession:
         self.requests_submitted += 1
         self.tenant_stats(entry.tenant).submitted += 1
         if self._admit_to_queue(entry):
+            # Write-ahead: the request is durable the moment it is queued,
+            # so a power failure never loses an acknowledged request.
+            if self.journal is not None:
+                self.journal.admit(
+                    entry.seq, request.x, request.tasks,
+                    deadline=request.deadline, priority=request.priority,
+                    tenant=request.tenant,
+                )
             self.queue.push(entry)
         return fut
 
@@ -451,6 +523,8 @@ class ServingSession:
             shed=True, seq=victim.seq, tasks=victim.subset,
             tenant=victim.tenant,
         ))
+        if self.journal is not None:
+            self.journal.request_failed(victim.seq)
         return True
 
     def _reject(self, entry: PendingRequest, scope: str) -> None:
@@ -517,6 +591,8 @@ class ServingSession:
                 f"({e.request.deadline:.6g}) at t={now:.6g} before planning",
                 seq=e.seq, tasks=e.subset, tenant=e.tenant,
             ))
+            if self.journal is not None:
+                self.journal.request_failed(e.seq)
 
     def _record_wait(self, entry: PendingRequest, now: float) -> None:
         wait = now - entry.arrival
@@ -556,20 +632,142 @@ class ServingSession:
                 group_id = self._group_seq
                 self._group_seq += 1
                 members = tuple(admitted[slot] for slot in group.indices)
+                if self.journal is not None:
+                    # Write-ahead: membership, order and identity of the
+                    # group are durable before anything executes, so a crash
+                    # inside it leaves an *open* group recovery resumes (or
+                    # re-runs) exactly once.
+                    self.journal.group_begin(
+                        group_id, [p.seq for p in members],
+                        self.engine.group_order(group), group.valid,
+                    )
+                if self.energy is not None and not self._energy_gate(
+                        group, members, group_id, now):
+                    # Infeasible forever: members failed, pump moves on.
+                    self._stream_budget = 0.0
+                    continue
+                if self.streaming and self._stream_budget > 0.0:
+                    # The previous group's kernels may still run on the card;
+                    # stream this group's non-resident weights behind them.
+                    self._prefetch(group)
                 execution, retries, degraded = self._run_group_guarded(
                     group, members, group_id)
                 if execution is None:
-                    continue  # ladder exhausted; members already failed
+                    # Ladder exhausted; members already failed.  No window
+                    # survives a failed group.
+                    self._stream_budget = 0.0
+                    continue
                 self.groups_executed += 1
+                if self.streaming:
+                    self._stream_budget = execution.predicted.compute_seconds(
+                        self.engine.hw
+                    )
+                if self.energy is not None:
+                    # Spend what the group actually cost (clamped at the
+                    # reservation so rounding at the boundary is benign).
+                    spent = execution.stats.energy(self.engine.hw)
+                    self.energy.drain(min(spent, self.energy.available))
                 self.stats = self.stats.merge(execution.stats)
                 self.predicted = self.predicted.merge(execution.predicted)
                 self.expected = self.expected.merge(execution.predicted)
+                if self.journal is not None:
+                    # Atomic commit: outputs + counters + the residency the
+                    # group leaves behind, in one durable record.  Futures
+                    # resolve only after this point, so a delivered response
+                    # is always a journaled response — exactly-once.
+                    self.journal.group_commit(
+                        group_id, [p.seq for p in members],
+                        execution.outputs,
+                        self.engine.executor.residency_state(),
+                        execution.stats,
+                    )
                 # Resolve immediately: building responses is host work over
                 # counters, and a failure in a later group must not strand
                 # futures whose group already ran.
                 completed.extend(self._resolve(
                     execution, members, retries=retries, degraded=degraded))
         return completed
+
+    # --------------------------------------------------- energy budgeting
+    def _group_required_joules(self, group: "RequestGroup") -> float:
+        """The joules executing ``group`` from the executor's *current*
+        residency will cost (checkpoint writes included) — the reservation
+        the energy gate holds against the storage capacitor."""
+        engine = self.engine
+        eff = engine.group_order(group)
+        resume = (
+            engine.executor.residency_state() if engine.warm_start else None
+        )
+        plan = None
+        if self.journal is not None and self.checkpointing:
+            plan = engine.cost_model.plan_checkpoints(
+                eff, batch_size=group.valid
+            )
+        pred = engine.cost_model.predicted_stats(
+            eff, batch_size=group.valid, resume=resume, checkpoints=plan
+        )
+        return pred.energy(engine.hw)
+
+    def _energy_gate(
+        self,
+        group: "RequestGroup",
+        members: Tuple[PendingRequest, ...],
+        group_id: int,
+        now: float,
+    ) -> bool:
+        """Duty-cycle the pump: wait for harvest until ``group`` fits.
+
+        Returns True when the group may execute.  A group whose predicted
+        joules exceed the storage capacity outright fails its members —
+        isolated to the group, like an exhausted retry ladder — and False
+        comes back.  Otherwise the pump sleeps precisely the deficit's
+        harvest time and credits precisely that harvest, so paused
+        executions are deterministic under real and simulated clocks.
+        """
+        budget = self.energy
+        budget.harvest(now)
+        need = self._group_required_joules(group)
+        wait = budget.seconds_until(need)
+        if wait == float("inf"):
+            self.groups_failed += 1
+            self._fail_batch(members, RuntimeError(
+                f"group {group_id} needs {need:.6g} J but the energy "
+                f"budget can never supply it (capacity "
+                f"{budget.capacity_joules:.6g} J, harvest "
+                f"{budget.harvest_watts:.6g} W)"
+            ), group_id=group_id)
+            return False
+        if wait > 0.0:
+            self.energy_pauses += 1
+            self.energy_paused_seconds += wait
+            self._sleep(wait)
+            budget.advance(wait)
+        return True
+
+    # ------------------------------------------------- weight streaming
+    def _prefetch(self, group: "RequestGroup") -> None:
+        """Stage ``group``'s weight stream behind the current overlap window.
+
+        Consumes the window either way (one compute window hides one
+        group's loads).  An injected ``"prefetch"`` fault is not fatal: the
+        streamer is cancelled and the group loads synchronously, counters
+        exact for the schedule it actually ran.  Any other error — a failed
+        copy, no CUDA stream — propagates.
+        """
+        budget = self._stream_budget
+        self._stream_budget = 0.0
+        try:
+            scheduled = self.engine.prefetch_group(
+                group, overlap_seconds=budget
+            )
+        except InjectedFault as err:
+            self.prefetch_failures += 1
+            self.last_prefetch_error = err
+            self.engine.executor.streamer.cancel()
+            return
+        if scheduled > 0.0:
+            self.prefetches_issued += 1
+            self.prefetch_scheduled_bytes += scheduled
 
     # ------------------------------------------------- failure recovery
     def _run_group_guarded(
@@ -593,7 +791,7 @@ class ServingSession:
                     self.backoff_seconds += pause
                     self._sleep(pause)
             try:
-                return self._attempt_group(group), failures, None
+                return self._attempt_group(group, group_id), failures, None
             except Exception as err:
                 failures += 1
                 last_err = err
@@ -603,7 +801,7 @@ class ServingSession:
             # failure path.
             self.engine.executor.fused = False
             try:
-                execution = self._attempt_group(group)
+                execution = self._attempt_group(group, group_id)
                 self.degraded_runs += 1
                 return execution, failures, "unfused"
             except Exception as err:
@@ -615,13 +813,26 @@ class ServingSession:
         self._fail_batch(members, last_err, group_id=group_id)
         return None, failures, None
 
-    def _attempt_group(self, group: "RequestGroup") -> "GroupExecution":
+    def _attempt_group(
+        self, group: "RequestGroup", group_id: Optional[int] = None
+    ) -> "GroupExecution":
         """One execution attempt with crash-consistent rollback: the
         residency snapshot taken here is restored on *any* exception, so a
-        mid-group crash is invisible to the next attempt's prediction."""
+        mid-group crash is invisible to the next attempt's prediction.  (A
+        :class:`~repro_torch.serving.reliability.PowerFailure` passes
+        through the rollback harmlessly: recovery re-seeds the executor
+        from the journal.)"""
+        intermittent = None
+        if self.journal is not None and group_id is not None:
+            from repro_torch.serving.engine import IntermittentContext
+
+            intermittent = IntermittentContext(
+                journal=self.journal, group_id=group_id,
+                checkpointing=self.checkpointing,
+            )
         snapshot = self.engine.executor.residency_state()
         try:
-            return self.engine._execute_group(group)
+            return self.engine._execute_group(group, intermittent=intermittent)
         except BaseException:
             self.engine.executor.set_residency(snapshot)
             raise
@@ -648,6 +859,10 @@ class ServingSession:
             )
             wrapped.__cause__ = err  # chain the original traceback
             p.future._fail(wrapped)
+            if self.journal is not None:
+                # Durable terminal outcome: recovery must not resurrect a
+                # request whose failure was already delivered.
+                self.journal.request_failed(p.seq)
 
     def _resolve(
         self,
@@ -663,3 +878,214 @@ class ServingSession:
             response.degraded = degraded
             entry.future._set(response)
         return responses
+
+    # ------------------------------------------------ power-failure recovery
+    @classmethod
+    def recover(
+        cls,
+        journal: "Journal",
+        engine: "MultitaskEngine",
+        use_checkpoints: bool = True,
+        now: Optional[float] = None,
+        **kwargs: Any,
+    ) -> "ServingSession":
+        """Rebuild a session from a durable journal after a power failure.
+
+        The journal is the only survivor of the crash; everything
+        session-shaped is reconstructed from its replay:
+
+        * **committed groups** are never re-run — their members' futures
+          come back resolved, rebuilt from the journaled outputs and
+          counters (``MultitaskResponse.recovered`` set).  Replay keeps the
+          *first* commit per group, so a journal holding a previous
+          recovery's duplicate records stays exactly-once.
+        * **the interrupted group** (begun, never committed) is resumed at
+          once under its original group id: residency is restored from the
+          last committed transition, and with ``use_checkpoints`` the
+          journaled activation checkpoint seeds the executor, the group's
+          order is rotated so the checkpointed task runs first, and its
+          suffix resumes from the checkpoint depth, not from block 0.
+          ``use_checkpoints=False`` re-runs it cold.
+        * **pending requests** (admitted, no durable outcome) are
+          re-enqueued under their original seqs with fresh futures.
+
+        Returns the new session; :attr:`recovered` maps every surviving seq
+        to its future (drive :meth:`drain` to finish the backlog).  Extra
+        keyword arguments forward to the constructor.  May itself die with a
+        :class:`~repro_torch.serving.reliability.PowerFailure` if the
+        injector strikes during the resumed group — the journal stays
+        consistent and a later ``recover`` picks up from the newest
+        checkpoint.
+        """
+        state = journal.replay()
+        kwargs.setdefault("checkpointing", use_checkpoints)
+        session = cls(engine, journal=journal, **kwargs)
+        t0 = session._now(now)
+        session._seq = max(state.admitted, default=-1) + 1
+        session._group_seq = state.next_group_id
+        # The durable residency transition: the last *committed* residency
+        # is what the rebooted executor wakes up with.  The scratch arm
+        # trusts nothing but the outputs.
+        if use_checkpoints and state.residency is not None:
+            engine.executor.set_residency(state.residency)
+        else:
+            engine.executor.reset()
+        for seq, rec in state.responses.items():
+            fut = MultitaskFuture(session, seq)
+            fut._set(session._rebuild_response(rec))
+            session.recovered[seq] = fut
+        pending = set(state.pending_seqs)
+        resumed: set = set()
+        if state.inflight is not None:
+            resumed = session._resume_inflight(state, use_checkpoints, pending)
+        for seq in state.pending_seqs:
+            if seq not in resumed:
+                session._reenqueue(state.admitted[seq], t0)
+        return session
+
+    def _rebuild_response(self, rec: Dict[str, Any]) -> "MultitaskResponse":
+        """A committed group's response, rebuilt from its journal record
+        (outputs back on the engine's device)."""
+        from repro_torch.serving.engine import MultitaskResponse
+
+        stats = dataclasses.replace(rec["stats"])
+        group_size = max(int(rec["group_size"]), 1)
+        return MultitaskResponse(
+            outputs={
+                int(t): torch.as_tensor(v).to(self.engine.device)
+                for t, v in rec["outputs"].items()
+            },
+            stats=stats,
+            order=self.engine.order,
+            predicted_seconds=stats.seconds(self.engine.hw) / group_size,
+            group_size=int(rec["group_size"]),
+            recovered=True,
+        )
+
+    @staticmethod
+    def _request_of(admit_rec: Dict[str, Any]) -> "MultitaskRequest":
+        from repro_torch.serving.engine import MultitaskRequest
+
+        tasks = admit_rec["tasks"]
+        return MultitaskRequest(
+            x=admit_rec["x"],
+            tasks=None if tasks is None else tuple(int(t) for t in tasks),
+            deadline=admit_rec["deadline"],
+            priority=int(admit_rec["priority"]),
+            tenant=admit_rec["tenant"],
+        )
+
+    def _reenqueue(self, admit_rec: Dict[str, Any], now: float) -> MultitaskFuture:
+        """Re-enqueue one journaled-but-unserved request under its original
+        seq.  Bypasses :meth:`submit` on purpose: the request is already
+        durable, and backpressure does not re-apply to work the previous
+        incarnation already accepted."""
+        seq = int(admit_rec["seq"])
+        request = self._request_of(admit_rec)
+        fut = MultitaskFuture(self, seq)
+        self.queue.push(PendingRequest(
+            seq=seq, request=request, arrival=now, future=fut,
+            subset=self.engine.normalized_subset(request.tasks),
+        ))
+        self.requests_submitted += 1
+        self.recovered[seq] = fut
+        return fut
+
+    def _resume_inflight(
+        self,
+        state: "JournalState",
+        use_checkpoints: bool,
+        pending: set,
+    ) -> set:
+        """Resume (or re-run) the journal's interrupted group right now.
+
+        Reconstructs the group from its members' admit records, restores the
+        journaled activation checkpoint when ``use_checkpoints``, and
+        executes under the *original* group id so the commit closes the open
+        ``group_begin``.  Returns the member seqs it completed; an empty set
+        means the group could not be resumed in place (its members re-enter
+        the queue and get re-planned).  Rotation is skipped for gated or
+        conditionally-constrained engines: gates read outputs-so-far, so a
+        prefix-rotated order could change what fires.
+        """
+        from repro_torch.core.executor import ActivationCheckpoint
+        from repro_torch.serving.engine import IntermittentContext
+
+        rec = state.inflight
+        gid = int(rec["group_id"])
+        member_seqs = [int(s) for s in rec["seqs"]]
+        if not member_seqs or any(s not in pending for s in member_seqs):
+            return set()
+        admits = [state.admitted.get(s) for s in member_seqs]
+        if any(a is None for a in admits):
+            return set()
+        requests = [self._request_of(a) for a in admits]
+        groups = self.engine.plan_groups(requests)
+        if len(groups) != 1 or groups[0].valid != len(requests):
+            return set()  # cannot reconstruct the exact group; replan
+        group = groups[0]
+        order = tuple(int(t) for t in rec["order"])
+        first_task_resume = 0
+        if use_checkpoints and state.checkpoint is not None:
+            ck = state.checkpoint
+            # Rotate by the checkpoint's *task*, never its recorded ``pos``:
+            # pos is relative to the order of the boot that wrote it, and a
+            # previous recovery may already have rotated that order.
+            ck_task = int(ck["task"])
+            pos = order.index(ck_task) if ck_task in order else -1
+            rotated = order[pos:] + order[:pos]
+            rotation_safe = (
+                not self.engine.gates
+                and (self.engine.constraints is None
+                     or self.engine.constraints.is_valid_order(rotated))
+            )
+            if rotation_safe and 0 <= pos < len(order):
+                order = rotated
+                first_task_resume = int(ck["depth"]) + 1
+                self.engine.executor.restore_activation(ActivationCheckpoint(
+                    depth=int(ck["depth"]),
+                    node=state.checkpoint_node(),
+                    value=ck["value"],
+                    act_shape=(
+                        tuple(int(s) for s in ck["act_shape"])
+                        if ck["act_shape"] is not None else None
+                    ),
+                ))
+        group = dataclasses.replace(group, order=order)
+        ctx = IntermittentContext(
+            journal=self.journal, group_id=gid,
+            checkpointing=self.checkpointing,
+        )
+        try:
+            execution = self.engine._execute_group(
+                group, intermittent=ctx,
+                first_task_resume=first_task_resume,
+                keep_activations=first_task_resume > 0,
+            )
+        except Exception:
+            # Roll back to the journaled state and let ordinary planning
+            # re-run the members.  (PowerFailure is a BaseException and
+            # deliberately propagates.)
+            if use_checkpoints and state.residency is not None:
+                self.engine.executor.set_residency(state.residency)
+            else:
+                self.engine.executor.reset()
+            return set()
+        self.groups_executed += 1
+        self.stats = self.stats.merge(execution.stats)
+        self.predicted = self.predicted.merge(execution.predicted)
+        self.expected = self.expected.merge(execution.predicted)
+        if self.energy is not None:
+            spent = execution.stats.energy(self.engine.hw)
+            self.energy.drain(min(spent, self.energy.available))
+        slot_seqs = [member_seqs[i] for i in group.indices]
+        self.journal.group_commit(
+            gid, slot_seqs, execution.outputs,
+            self.engine.executor.residency_state(), execution.stats,
+        )
+        responses = self.engine._group_responses(execution)
+        for seq, response in zip(slot_seqs, responses):
+            fut = MultitaskFuture(self, seq)
+            fut._set(response)
+            self.recovered[seq] = fut
+        return set(member_seqs)

@@ -452,3 +452,110 @@ def test_whisper_decode_matches_forward_on_the_card(cuda):
     torch.cuda.synchronize()
     assert flash_attention.launches == before
     torch.testing.assert_close(step, full[:, 19], rtol=3e-3, atol=3e-3)
+
+
+# --------------------------------------------------------------------------
+# Weight streaming and the journal on the card
+# --------------------------------------------------------------------------
+
+def _streamed_program(cuda, dim=2048):
+    """Four tasks over depth-3 blocks of (dim, dim) fp32 weights (16 MB a
+    node at 2048): copies long enough to still be in flight when the host
+    cancels them."""
+    from repro_torch.core import BlockCost, MultitaskProgram
+
+    graph = TaskGraph.from_groups([[[0, 1, 2, 3]], [[0, 1], [2, 3]], [[0], [1], [2], [3]]])
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    nodes = {n: torch.randn(dim, dim, device=cuda, generator=gen) / dim ** 0.5
+             for n in graph.nodes()}
+    heads = [torch.randn(dim, 3, device=cuda, generator=gen) for _ in range(4)]
+    return MultitaskProgram(
+        graph, [lambda p, x: torch.tanh(x @ p)] * graph.depth, nodes,
+        [lambda p, x: x @ p] * 4, heads,
+        [BlockCost(weight_bytes=4.0 * dim * dim, flops=2.0 * dim * dim)] * graph.depth)
+
+
+def test_streamer_side_stream_cancel_and_restage_never_corrupts(cuda):
+    """100 cycles of stage, cancel while the copies are in flight, restage
+    another batch and run on it: every committed copy equals its source bit
+    for bit, and the outputs equal the synchronous executor's."""
+    from repro_torch.core import GraphCostModel, MSP430
+
+    prog = _streamed_program(cuda)
+    cm = GraphCostModel(prog.graph, prog.block_costs, MSP430)
+    xs = torch.randn(4, 2048, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    sync = {tuple(o): TaskGraphExecutor(prog).run_batch(xs, o)[0]
+            for o in ([0, 1], [2, 3], [1, 3])}
+    ex = TaskGraphExecutor(prog)
+    ex.streamer.prepare()
+    assert all(h.is_pinned() for h in ex.streamer._host.values())
+    orders = list(sync)
+    for cycle in range(100):
+        ex.reset()
+        first, second = orders[cycle % 3], orders[(cycle + 1) % 3]
+        ex.streamer.stage(cm.plan_loads(first, ex.residency_state()))
+        if cycle % 2:
+            ex.streamer.cancel()
+        ex.streamer.stage(cm.plan_loads(second, ex.residency_state()))
+        out, stats = ex.run_batch(xs, list(second))
+        assert stats.prefetched_bytes == stats.weight_bytes_loaded > 0
+        for node, copy in ex._streamed_node.items():
+            assert torch.equal(copy, prog.node_params[node])
+        for t, y in sync[second].items():
+            assert torch.equal(out[t], y)
+    torch.cuda.synchronize()
+    nbytes, start, end = ex.streamer.copy_log[-1]
+    assert nbytes > 0 and start.elapsed_time(end) > 0
+
+
+def test_streamed_session_matches_synchronous_on_the_card(cuda):
+    """A streamed session on the card: counters exact, outputs bit-identical
+    to the synchronous session's."""
+    from repro_torch.core import MSP430
+    from repro_torch.serving import (
+        EnginePolicy, MultitaskEngine, MultitaskRequest, RequestGroupScheduler,
+    )
+
+    prog = _streamed_program(cuda, dim=512)
+    rng = np.random.default_rng(2)
+    subsets = ((0, 1), (2, 3), (0,), (1, 3), None)
+    reqs = [MultitaskRequest(x=torch.as_tensor(rng.standard_normal(512).astype(np.float32)),
+                             tasks=subsets[i % 5]) for i in range(12)]
+    results = []
+    for streaming in (False, True):
+        engine = MultitaskEngine(prog, hw=MSP430, policy=EnginePolicy(streaming=streaming),
+                                 scheduler=RequestGroupScheduler(batch_shapes=(1, 2, 4)))
+        session = engine.session()
+        futures = [session.submit(r) for r in reqs]
+        session.drain()
+        assert session.stats == session.predicted
+        results.append((session, [f.result() for f in futures]))
+    (sync, sync_r), (strm, strm_r) = results
+    assert strm.stats.prefetched_bytes > 0 and strm.prefetches_issued > 0
+    for a, b in zip(sync_r, strm_r):
+        for t in a.outputs:
+            assert torch.equal(a.outputs[t], b.outputs[t])
+
+
+def test_bf16_journal_round_trip_on_the_card(cuda, tmp_path):
+    """A bf16 activation on the card goes through the file journal and
+    restores bit-exactly, in bf16, on the executor's device."""
+    from repro_torch.core.executor import ActivationCheckpoint
+    from repro_torch.serving import FileJournalStore, Journal
+
+    prog = _streamed_program(cuda, dim=64)
+    value = torch.randn(4, 64, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(3)).to(torch.bfloat16)
+    node = prog.graph.path(2)[1]
+    path = str(tmp_path / "journal.jsonl")
+    journal = Journal(FileJournalStore(path))
+    journal.group_begin(0, [0], [2], 1)
+    journal.checkpoint(0, 0, 2, 1, node, value, tuple(value.shape))
+    state = Journal(FileJournalStore(path)).replay()
+    ex = TaskGraphExecutor(prog)
+    ex.restore_activation(ActivationCheckpoint(
+        depth=int(state.checkpoint["depth"]), node=state.checkpoint_node(),
+        value=state.checkpoint["value"], act_shape=tuple(state.checkpoint["act_shape"])))
+    back = ex.activation_checkpoint(2).value
+    assert back.device.type == "cuda" and back.dtype == torch.bfloat16
+    assert torch.equal(back.view(torch.int16), value.view(torch.int16))

@@ -228,16 +228,6 @@ def test_drain_raises_on_noncompliant_policy():
         session.drain()
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"streaming": True}, {"journal": object()}, {"checkpointing": False},
-    {"energy": object()},
-])
-def test_unported_session_arguments_raise(kwargs):
-    """Streaming, the journal and energy budgets come with later slices."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        MultitaskEngine(PROGRAM, hw=MSP430).session(**kwargs)
-
-
 # --------------------------------------------------------------------------
 # EnginePolicy config object
 # --------------------------------------------------------------------------

@@ -194,11 +194,23 @@ def test_dense_attention_and_multi_token_cache():
     out = p_layers.attention_dense(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(k),
                                    torch.as_tensor(pos), torch.as_tensor(pos), window=4)
     _close(out, ref)
-    cache = p_cache.kv_cache_zeros(pcfg, 2, 16, layers=1, device="cpu")
-    with pytest.raises(NotImplementedError):
-        p_layers.attention_block(
-            p_tf.layer_params(pp["layers"], 0)["attn"], torch.zeros(2, 3, pcfg.d_model),
-            pcfg, torch.arange(3), kv_cache=(cache.k[0], cache.v[0]), cache_len=4)
+    # Three new tokens over a 16-slot cache holding 4: the reference's
+    # chunked branch with ``kv_valid`` (tests/test_torch_lm_batching.py
+    # holds the ring and the chunk padding too).
+    ck = rng.standard_normal((2, 16, pcfg.n_kv_heads, pcfg.head_dim)).astype(np.float32)
+    cv = rng.standard_normal((2, 16, pcfg.n_kv_heads, pcfg.head_dim)).astype(np.float32)
+    x = rng.standard_normal((2, 3, pcfg.d_model)).astype(np.float32)
+    pos = np.arange(4, 7, dtype=np.int32)
+    r_out, (r_ck, r_cv) = r_layers.attention_block(
+        jax.tree_util.tree_map(lambda a: a[0], rp["layers"])["attn"], jnp.asarray(x), rcfg,
+        P, jnp.asarray(pos), kv_cache=(jnp.asarray(ck), jnp.asarray(cv)),
+        cache_len=jnp.asarray(4, jnp.int32))
+    p_out, (p_ck, p_cv) = p_layers.attention_block(
+        p_tf.layer_params(pp["layers"], 0)["attn"], torch.as_tensor(x), pcfg,
+        torch.as_tensor(pos), kv_cache=(torch.as_tensor(ck), torch.as_tensor(cv)), cache_len=4)
+    _close(p_out, r_out)
+    _close(p_ck, r_ck)
+    _close(p_cv, r_cv)
 
 
 # --------------------------------------------------------------------------
