@@ -39,7 +39,14 @@
    width (d_model 5120, GQA 32/8, head_dim 160, bf16), its 40 layers cut to
    8, sequences of 128 tokens, 256 random-token probes, 4 blocks of 2 layers;
    then the same sessions as the LeNet engine's, streamed and journaled
-   ones included (the journal in a ``MemoryJournalStore``).
+   ones included (the journal in a ``MemoryJournalStore``), and
+   input-adaptive sessions on ``EnginePolicy(adaptive=AdaptivePolicy(...))``
+   engines sharing the program (``adaptive_phase``): the all-blocks floor
+   (``threshold=inf``), the median block-1 confidence as threshold in both
+   gate modes and on the unfused rung, three thresholds in a row, an
+   online-calibrated re-serve, a two-rung deadline ladder, a journaled
+   session through a ``"suffix"`` power failure, and LeNet-5's engine at
+   the same policy.
 5. Drives ``LMServer.generate`` on the same configuration: 4 prompts of 512
    tokens, 16 greedy decode steps; then ``ContinuousBatcher`` on the same
    weights: 10 requests (prompts of 64-512 tokens, 4-16 new tokens, drawn
@@ -77,7 +84,15 @@ outputs match the fault-free session's, that streamed outputs are
 bit-identical to the synchronous session's, that journaled sessions answer
 every request exactly once through their power failures, resume an
 interrupted group from its checkpoint depth and restore journaled
-activations bit-exactly, that each batcher request's tokens equal
+activations bit-exactly, that the adaptive floor's outputs are
+bit-identical to the non-adaptive session's and every adaptive session
+launches flash as often as the floor (masking computes every row), that
+gated sessions gate rows with counters equal to the prediction, the two
+gate modes and the unfused rung agreeing on every gate trace, that a
+threshold change builds no new suffix program, that the calibrated
+expected flops come within 5 % of the realized, that each ladder group
+runs at its worst slack's rung, that nothing is gated on LeNet-5 (its
+blocks change shape), that each batcher request's tokens equal
 ``LMServer.generate`` on its wave, that the quickstart's loss falls, that Antler beats Vanilla,
 and that the first decode step agrees with ``forward``.  On a MoE that
 check runs at a capacity factor under which nothing drops, one row at a
@@ -115,6 +130,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.adaptive import AdaptivePolicy, mean_abs_confidence  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     MSP430, TPU_V5E, GAConfig, GraphCostModel, TaskGraph, TaskGraphExecutor,
@@ -1191,6 +1207,318 @@ def energy_phase(engine, requests, clean_responses, device, tol: float, label: s
 
 
 # --------------------------------------------------------------------------
+# Input-adaptive gating
+# --------------------------------------------------------------------------
+
+# The adaptive sessions run the window policy's trace.  The ladder's rungs:
+# a group whose worst deadline slack is at least ADAPTIVE_RUNGS[i][0]
+# seconds runs at ADAPTIVE_RUNGS[i][1] times the base threshold (lower: more
+# rows exit).  In ``serve_session`` a request's slack is DEADLINE_IN when its
+# burst is admitted at once and DEADLINE_IN - BURST_DT after one more burst.
+ADAPTIVE_RUNGS = ((0.0, 0.99), (DEADLINE_IN - BURST_DT / 2, 0.97))
+# Power failure of the journaled adaptive session (invocation index).
+ADAPTIVE_POWER_SCRIPT = {"suffix": (1,)}
+# The calibrated re-serve's expected flops within this share of the realized.
+CALIBRATION_TOL = 0.05
+
+
+def adaptive_engine(engine, **adaptive) -> MultitaskEngine:
+    """An ``EnginePolicy(adaptive=AdaptivePolicy(**adaptive))`` engine sharing
+    ``engine``'s program, hardware model and task order."""
+    return MultitaskEngine(engine.program, hw=engine.hw, order=engine.order,
+                           policy=EnginePolicy(adaptive=AdaptivePolicy(**adaptive)))
+
+
+def adaptive_session(engine, requests, policy=None) -> dict:
+    """``serve_session`` (the window policy by default) on an adaptive
+    engine, with each executed group's gate trace, the threshold the gater
+    ran it at, the fire-mask readbacks and their host seconds, and the
+    kernels' launches."""
+    policy = policy if policy is not None else SESSION_POLICIES[STREAM_POLICY]
+    groups = []
+    execute = engine._execute_group
+
+    def recorded(group, *args, **kw):
+        execution = execute(group, *args, **kw)
+        groups.append({"trace": execution.gate_trace, "asked": kw.get("adaptive_threshold"),
+                       "threshold": engine.executor.gater.threshold})
+        return execution
+
+    ex = engine.executor
+    readbacks, readback_s = ex.gate_readbacks, ex.gate_readback_seconds
+    engine._execute_group = recorded
+    reset_launch_counts()
+    try:
+        session, responses, by_request, planned, seconds, _busy = serve_session(
+            engine, requests, policy)
+    finally:
+        del engine._execute_group
+    out = {"session": session, "responses": responses, "by_request": by_request,
+           "planned": planned, "seconds": seconds, "groups": groups,
+           "launches": launch_counts(), "readbacks": ex.gate_readbacks - readbacks,
+           "readback_seconds": ex.gate_readback_seconds - readback_s}
+    check(session.stats == session.predicted,
+          f"adaptive session counters {session.stats} != predicted {session.predicted}")
+    return out
+
+
+def timed_sessions(engines: dict, requests, reps: int = 3) -> dict:
+    """Warm drain seconds of each engine's window session, taken in turns
+    (a, b, c, c, b, a, a, b, c for ``reps`` 3) so a drifting host weighs on each
+    alike; on the card also each one's device ms over one profiled session
+    and its busy share against the mean drain."""
+    policy = SESSION_POLICIES[STREAM_POLICY]
+    names = list(engines)
+    seconds = {name: [] for name in names}
+    for rep in range(reps):
+        for name in (names if rep % 2 == 0 else names[::-1]):
+            seconds[name].append(serve_session(engines[name], requests, policy)[4])
+    out = {}
+    for name, engine in engines.items():
+        row = {"drain_seconds": seconds[name], "mean_seconds": float(np.mean(seconds[name]))}
+        if engine.device.type == "cuda":
+            trace = device_breakdown(lambda: serve_session(engine, requests, policy),
+                                     row["mean_seconds"] * 1e3, warm=False, cpu=False)
+            check(trace["device_ms"] > 0, f"{name}: the profiler saw no device time")
+            row.update(busy=trace["busy"], device_ms=trace["device_ms"])
+        out[name] = row
+    return out
+
+
+def block1_threshold(engine, requests) -> float:
+    """The median, over ``requests``, of the confidence of block 1's input in
+    one ungated pass: block 0 of the path of the first task each request's
+    group runs, on that request alone."""
+    program, graph = engine.program, engine.program.graph
+    xs = torch.as_tensor(np.stack([np.asarray(r.x) for r in requests]), device=engine.device)
+    first = [next(t for t in engine.order if r.tasks is None or t in r.tasks) for r in requests]
+    conf = torch.empty(len(requests), dtype=torch.float32, device=engine.device)
+    block0 = engine.executor._block_fn(0, batched=True)
+    for node in {graph.path(t)[0] for t in first}:
+        rows = [i for i, t in enumerate(first) if graph.path(t)[0] == node]
+        h = block0(program.node_params[node], xs[rows])
+        conf[rows] = torch.vmap(mean_abs_confidence)(h).float()
+    return float(conf.median())
+
+
+def same_outputs(got, want, label: str, tol=None) -> float:
+    """Outputs of two response lists: ``torch.equal`` (``tol`` None) or
+    within ``tol``; returns the max abs difference."""
+    err = 0.0
+    for g, w in zip(got, want):
+        check(set(g.outputs) == set(w.outputs), f"{label}: tasks differ")
+        for t, y in g.outputs.items():
+            d = float((y.float() - w.outputs[t].float()).abs().max())
+            err = max(err, d)
+            check(torch.equal(y, w.outputs[t]) if tol is None else d <= tol,
+                  f"{label}: output of task {t} differs (max abs {d})")
+    return err
+
+
+def adaptive_phase(engine, requests, clean, lenet, device, tol: float, label: str,
+                   layers_per_block=None) -> dict:
+    """Input-adaptive gating on engines sharing ``engine``'s program, over the
+    window policy's trace (``clean`` is that trace's non-adaptive session:
+    its responses and row).  Gates, in order:
+
+    1. the all-blocks floor, ``threshold=inf``: outputs bit-identical to the
+       non-adaptive session's, no row gated, the same flash launches;
+    2. at the median block-1 confidence, in both modes: counters equal the
+       prediction, rows gated, fewer modelled flops than the floor, flash
+       launches equal to the floor's (masking computes every row), the two
+       modes' gate traces equal, the unfused rung's trace equal to the
+       fused one's and its outputs within ``tol``; on LeNet-5 (``lenet``:
+       its engine, requests and clean window responses) nothing gated at
+       the same policy, outputs bit-identical;
+    3. three thresholds in a row build no new suffix program;
+    4. after one calibrating pass, the re-served trace's a-priori expected
+       flops within ``CALIBRATION_TOL`` of the realized;
+    5. a two-rung deadline ladder: each group's threshold is
+       ``threshold_for_slack`` of its worst slack, deadline-free groups at
+       the base;
+    6. a journaled session with checkpoints and a ``"suffix"`` power
+       failure answers every request exactly once, the recovered group's
+       gate trace replaying into exact counters.
+
+    Then times the plain, floor and gated sessions warm, in turns
+    (:func:`timed_sessions`), and prints the ``adaptive`` line."""
+    cuda = device.type == "cuda"
+    flash = {}
+
+    def flash_ok(name: str, run: dict, want: int) -> None:
+        flash[name] = run["launches"]["flash_attention"]
+        if layers_per_block is not None and cuda:
+            check(flash[name] == want, f"{label}adaptive {name}: flash launched "
+                  f"{flash[name]} times, expected {want}")
+
+    # 1. The all-blocks floor.
+    floor_engine = adaptive_engine(engine, threshold=float("inf"))
+    floor = adaptive_session(floor_engine, requests)
+    fs = floor["session"].stats
+    check(fs.block_rows_gated == 0 and fs.flops_gated == 0 and fs.block_rows_fired > 0,
+          f"{label}adaptive floor gated rows: {fs}")
+    same_outputs(floor["responses"], clean["responses"], f"{label}adaptive floor")
+    clean_flash = clean["row"]["launches"]["flash_attention"]
+    flash_ok("floor", floor, clean_flash)
+    check(fs.blocks_executed == clean["row"]["blocks_executed"],
+          f"{label}adaptive floor executed {fs.blocks_executed} blocks")
+
+    # 2. Gated, both modes; the unfused rung; LeNet-5 at the same policy.
+    thr = block1_threshold(engine, requests)
+    gated, engines = {}, {}
+    for mode in ("early_exit", "per_block"):
+        engines[mode] = adaptive_engine(engine, threshold=thr, mode=mode)
+        gated[mode] = run = adaptive_session(engines[mode], requests)
+        st = run["session"].stats
+        check(st.block_rows_gated > 0 and st.flops_executed < fs.flops_executed,
+              f"{label}adaptive {mode}: {st.block_rows_gated} rows gated, flops "
+              f"{st.flops_executed} vs the floor's {fs.flops_executed}")
+        flash_ok(mode, run, flash["floor"])
+    ee = gated["early_exit"]
+    check([g["trace"] for g in ee["groups"]] == [g["trace"] for g in gated["per_block"]["groups"]],
+          f"{label}adaptive: early-exit and per-block gate traces differ")
+    unfused_engine = engines["early_exit"]
+    unfused_engine.executor.fused = False
+    try:
+        unfused = adaptive_session(unfused_engine, requests)
+    finally:
+        unfused_engine.executor.fused = True
+    check([g["trace"] for g in unfused["groups"]] == [g["trace"] for g in ee["groups"]],
+          f"{label}adaptive: the unfused rung's gate traces differ from the fused ones")
+    unfused_err = same_outputs(unfused["responses"], ee["responses"],
+                               f"{label}adaptive unfused", tol)
+    flash_ok("unfused", unfused, flash["floor"])
+    lenet_engine, lenet_requests, lenet_clean = lenet
+    lenet_run = adaptive_session(adaptive_engine(lenet_engine, threshold=thr), lenet_requests)
+    ls = lenet_run["session"].stats
+    check(ls.block_rows_gated == 0 and ls.block_rows_fired > 0,
+          f"lenet adaptive at threshold {thr}: {ls.block_rows_gated} rows gated")
+    same_outputs(lenet_run["responses"], lenet_clean, "lenet adaptive")
+
+    # 3. Three thresholds in a row: no new suffix program.
+    ex = engines["early_exit"].executor
+    programs = len(ex._compiled_fused)
+    for scale in (0.9, 1.1, 1.0):
+        ex.gater.threshold = thr * scale
+        adaptive_session(engines["early_exit"], requests)
+        check(len(ex._compiled_fused) == programs,
+              f"{label}adaptive: threshold {thr * scale} built "
+              f"{len(ex._compiled_fused) - programs} new suffix programs")
+
+    # 4. Online calibration.
+    cal_engine = adaptive_engine(engine, threshold=thr, calibrate_online=True)
+    adaptive_session(cal_engine, requests)
+    cal = adaptive_session(cal_engine, requests)["session"]
+    cal_err = abs(cal.expected.flops_executed - cal.stats.flops_executed) / cal.stats.flops_executed
+    check(cal_err <= CALIBRATION_TOL,
+          f"{label}adaptive: calibrated expected flops {cal.expected.flops_executed} vs "
+          f"realized {cal.stats.flops_executed} ({cal_err:.3%})")
+
+    # 5. The deadline ladder.
+    ladder = tuple((slack, thr * f) for slack, f in ADAPTIVE_RUNGS)
+    ladder_engine = adaptive_engine(engine, threshold=thr, ladder=ladder)
+    picks = []
+    pick = ServingSession._ladder_threshold
+
+    def recorded(self, members, now):
+        got = pick(self, members, now)
+        slacks = [p.slack(now) for p in members if p.deadline is not None]
+        picks.append((min(slacks) if slacks else None, got))
+        return got
+
+    ServingSession._ladder_threshold = recorded
+    try:
+        lad = adaptive_session(ladder_engine, requests)
+    finally:
+        ServingSession._ladder_threshold = pick
+    policy = ladder_engine.adaptive
+    check(len(picks) == len(lad["groups"]), f"{label}ladder: {len(picks)} picks")
+    for (slack, got), group in zip(picks, lad["groups"]):
+        check(got == policy.threshold_for_slack(slack) == group["asked"] == group["threshold"],
+              f"{label}ladder: slack {slack} picked {got}, ran at {group['threshold']}")
+        check(slack is not None or got == thr, f"{label}ladder: a deadline-free group at {got}")
+        check(slack is None or slack < ladder[-1][0] or got == ladder[-1][1],
+              f"{label}ladder: slack {slack} did not take the tight rung")
+    thresholds = sorted({got for _s, got in picks})
+    check(len(thresholds) >= 2, f"{label}ladder: every group ran at {thresholds}")
+
+    # 6. A journaled adaptive session through a "suffix" power failure.
+    recovered = []
+    execute = engines["early_exit"]._execute_group
+
+    def recovering(group, *args, **kw):
+        execution = execute(group, *args, **kw)
+        if kw.get("first_task_resume", 0) > 0:
+            recovered.append(execution)
+        return execution
+
+    engines["early_exit"]._execute_group = recovering  # journaled_session removes it
+    ex.gater.threshold = thr
+    journal = TimedJournal(MemoryJournalStore())
+    injector = PowerFailureInjector(script=ADAPTIVE_POWER_SCRIPT)
+    res = journaled_session(engines["early_exit"], requests, SESSION_POLICIES[STREAM_POLICY],
+                            journal, injector, True)
+    check(injector.injected["suffix"] == 1 and len(res["deaths"]) == 1,
+          f"{label}adaptive journal: deaths {res['deaths']}")
+    state = check_exactly_once(journal, len(requests), f"{label}adaptive journal ")
+    check(len(recovered) >= 1, f"{label}adaptive journal: no group resumed from a checkpoint")
+    for execution in recovered:
+        check(execution.stats == execution.predicted
+              and execution.gate_trace[0].fired is not None,
+              f"{label}adaptive journal: the recovered group's trace did not replay exactly")
+    journal_err = 0.0
+    for seq, want in enumerate(ee["responses"]):
+        for t, y in state.responses[seq]["outputs"].items():
+            journal_err = max(journal_err, float(
+                (y.to(device).float() - want.outputs[t].float()).abs().max()))
+    check(journal_err <= tol, f"{label}adaptive journal: outputs vs the gated session "
+          f"{journal_err}")
+
+    # Warm session seconds and busy share: the plain session, the floor and
+    # the gated one, in turns.
+    timed = timed_sessions({"non_adaptive": engine, "floor": floor_engine,
+                            "early_exit": engines["early_exit"]}, requests)
+
+    def row_of(run: dict, name: str = None) -> dict:
+        st = run["session"].stats
+        n = run["session"].groups_executed
+        out = {"first_drain_seconds": run["seconds"], "groups": n,
+               "readbacks_per_group": run["readbacks"] / n,
+               "readback_seconds_per_group": run["readback_seconds"] / n,
+               "block_rows_fired": st.block_rows_fired, "block_rows_gated": st.block_rows_gated,
+               "flops_gated_share_modelled": st.flops_gated / (st.flops_gated
+                                                               + st.flops_executed),
+               "launches": run["launches"]}
+        if name is not None:
+            warm = timed[name]
+            out.update(warm_drain_seconds=warm["drain_seconds"],
+                       busy=warm.get("busy"),
+                       device_ms_per_group=warm["device_ms"] / n if "device_ms" in warm else None)
+        return out
+
+    plain = timed["non_adaptive"]
+    row = {"engine": label.strip(), "policy": STREAM_POLICY, "threshold": thr,
+           "non_adaptive": {"first_drain_seconds": clean["row"]["drain_seconds"],
+                            "warm_drain_seconds": plain["drain_seconds"],
+                            "busy": plain.get("busy"),
+                            "device_ms_per_group": (plain["device_ms"] / clean["row"]["groups"]
+                                                    if "device_ms" in plain else None),
+                            "launches": clean["row"]["launches"]},
+           "floor": row_of(floor, "floor"), "early_exit": row_of(ee, "early_exit"),
+           "per_block": row_of(gated["per_block"]), "unfused": row_of(unfused),
+           "unfused_max_abs_err": unfused_err, "fused_programs": programs,
+           "calibrated_expected_flops_err": cal_err,
+           "ladder_thresholds": thresholds, "ladder_groups": len(picks),
+           "journal": {"deaths": res["deaths"], "resumes": res["resumes"],
+                       "recovered_groups": len(recovered), "max_abs_err": journal_err},
+           "lenet": {"block_rows_fired": ls.block_rows_fired,
+                     "block_rows_gated": ls.block_rows_gated},
+           "modelled_on": engine.hw.name}
+    print(json.dumps({"adaptive": row}), flush=True)
+    return {"row": row, "flash": flash}
+
+
+# --------------------------------------------------------------------------
 # Continuous batching
 # --------------------------------------------------------------------------
 
@@ -2042,6 +2370,8 @@ def main() -> int:
                        PIPELINE_TOL, "lenet ", "file", energy=True)
     print(json.dumps({"lenet_streaming_and_intermittent_seconds": time.perf_counter() - t1}),
           flush=True)
+    # Kept for the adaptive phase's LeNet-5 gate.
+    lenet = (result["engine"], result["requests"], lenet_clean["responses"])
     del result, lenet_sessions, lenet_stream, lenet_clean
     free_memory()
     # The quickstart's five steps at its reference sizes.
@@ -2064,6 +2394,14 @@ def main() -> int:
     print(json.dumps({"transformer_session_seconds": time.perf_counter() - t0}), flush=True)
     session_flash = {name: v["row"]["launches"]["flash_attention"]
                      for name, v in tf_sessions.items()}
+    # Input-adaptive gating on the same program and trace (and LeNet-5's).
+    t0 = time.perf_counter()
+    tf_adaptive = adaptive_phase(tf["engine"], tf["requests"], tf_sessions["window"], lenet,
+                                 device, TF_TOL, f"{ARCH} ", layers_per_block)
+    adaptive_flash = {f"transformer_adaptive_{name}": n
+                      for name, n in tf_adaptive["flash"].items()}
+    del lenet
+    print(json.dumps({"adaptive_phase_seconds": time.perf_counter() - t0}), flush=True)
     # Weight streaming on the same program, then journaled sessions through
     # power failures, with and without checkpoints.
     t0 = time.perf_counter()
@@ -2185,7 +2523,8 @@ def main() -> int:
         "launches": (prof["flash_attention"] + serve["flash_attention"]
                      + sum(session_flash.values())
                      + tf_chaos["launches"]["flash_attention"]
-                     + sum(stream_flash.values()) + batcher_flash
+                     + sum(stream_flash.values()) + sum(adaptive_flash.values())
+                     + batcher_flash
                      + lm["launches"]["flash_attention"] + zamba["launches"]["flash_attention"]
                      + moe_prof["flash_attention"] + moe_serve["flash_attention"]
                      + sum(family_flash.values())
@@ -2196,6 +2535,7 @@ def main() -> int:
                                 for name, n in session_flash.items()},
                              "transformer_session_chaos": tf_chaos["launches"]["flash_attention"],
                              **stream_flash,
+                             **adaptive_flash,
                              "batcher_prefill": batcher_flash,
                              "lm_prefill": lm["launches"]["flash_attention"],
                              "zamba2_prefill": zamba["launches"]["flash_attention"],

@@ -14,6 +14,7 @@ from repro_torch.core.executor import (
     MultitaskProgram,
     TaskGraphExecutor,
     VanillaExecutor,
+    WeightStreamer,
     run_in_order,
 )
 from repro_torch.core.genetic import GAConfig, genetic_order

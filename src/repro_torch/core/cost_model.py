@@ -7,7 +7,10 @@ matrix, the counter prediction the executor must match (cold, warm via
 realized ``gate_trace``), the weight-streaming terms (:meth:`plan_loads`,
 :meth:`prefetch_stall_seconds`, the overlapped loads of
 :meth:`PlanPredictor.append`) and the checkpoint terms
-(:meth:`plan_checkpoints` and the write costs it places).  The reference's
+(:meth:`plan_checkpoints` and the write costs it places), and the
+adaptive-gating terms: a trace's per-block fire counts, and the *expected*
+counters under a gate model (:meth:`expected_stats`,
+:attr:`PlanPredictor.expected`).  The reference's
 collective terms and its ``weight_shards`` divisor wait for the mesh slice;
 the :class:`~repro_torch.core.types.ExecutionStats` fields they fill stay.
 
@@ -225,6 +228,7 @@ class GraphCostModel:
         stats: ExecutionStats,
         gate_trace: Optional[Sequence[TaskGateRecord]] = None,
         first_task_resume: int = 0,
+        gate_model: Optional[Any] = None,
     ) -> None:
         """One group's counter prediction, mutating ``resident``/``stats``.
 
@@ -252,10 +256,22 @@ class GraphCostModel:
         callback skipped for the whole group — it never dispatched, so
         neither residency nor the activation walk advances past it — while a
         partial-weight record scales the per-request counters by the rows
-        that ran.  Records carrying a ``resume`` are cross-checked against
-        this walk's resume depth, so any prediction/execution divergence
-        raises instead of silently mis-counting.
+        that ran, and ``fired`` (adaptive gating) splits each executed
+        block's flops into fired vs gated rows.  Records carrying a
+        ``resume`` are cross-checked against this walk's resume depth, so
+        any prediction/execution divergence raises instead of silently
+        mis-counting.
+
+        ``gate_model`` (mutually exclusive) predicts *expected* counters:
+        flop/task/fire counters are weighted by the model's task and fire
+        probabilities, while the structural counters (block invocations,
+        weight bytes, residency evolution) keep the all-run walk — loads
+        are physical whether or not rows fire.  For pure per-block gating
+        (every task runs) the expected counters are the exact mean of the
+        realized ones by linearity.
         """
+        if gate_trace is not None and gate_model is not None:
+            raise ValueError("gate_trace and gate_model are mutually exclusive")
         if gate_trace is not None and len(gate_trace) != len(order):
             raise ValueError(
                 f"gate trace has {len(gate_trace)} records for "
@@ -275,6 +291,10 @@ class GraphCostModel:
                 stats.tasks_skipped += batch_size
                 continue
             w = int(rec.weight) if rec is not None else batch_size
+            p_t = (
+                gate_model.task_probability(t) if gate_model is not None
+                else 1.0
+            )
             path = self.graph.path(t)
             if prev is None:
                 shared = int(first_task_resume)
@@ -292,6 +312,15 @@ class GraphCostModel:
                         f"gate trace resume {rec.resume} for task {t} "
                         f"diverges from the predicted resume {shared}"
                     )
+            if (
+                rec is not None
+                and rec.fired is not None
+                and len(rec.fired) != self.graph.depth - shared
+            ):
+                raise ValueError(
+                    f"gate trace for task {t} has {len(rec.fired)} fire "
+                    f"counts for a {self.graph.depth - shared}-block suffix"
+                )
             for d in range(self.graph.depth):
                 bc = self.block_costs[d]
                 if d < shared:
@@ -302,18 +331,39 @@ class GraphCostModel:
                     # leaving residency as-is predicts the later reload.
                     stats.blocks_skipped += 1
                     stats.weight_bytes_skipped += bc.weight_bytes
-                    stats.flops_skipped += w * bc.flops
+                    stats.flops_skipped += (
+                        batch_size * p_t if gate_model is not None else w
+                    ) * bc.flops
                 else:
                     stats.blocks_executed += 1
                     if resident[d] == path[d]:
                         stats.weight_bytes_skipped += bc.weight_bytes
                     else:
                         stats.weight_bytes_loaded += bc.weight_bytes
-                    stats.flops_executed += w * bc.flops
+                    if rec is not None and rec.fired is not None:
+                        f = int(rec.fired[d - shared])
+                        stats.flops_executed += f * bc.flops
+                        stats.flops_gated += (w - f) * bc.flops
+                        stats.block_rows_fired += f
+                        stats.block_rows_gated += w - f
+                    elif gate_model is not None:
+                        q = gate_model.fire_probability(t, d)
+                        stats.flops_executed += batch_size * p_t * q * bc.flops
+                        stats.flops_gated += (
+                            batch_size * p_t * (1.0 - q) * bc.flops
+                        )
+                        stats.block_rows_fired += batch_size * p_t * q
+                        stats.block_rows_gated += batch_size * p_t * (1.0 - q)
+                    else:
+                        stats.flops_executed += w * bc.flops
                     resident[d] = path[d]
-            stats.tasks_run += w
-            if rec is not None:
-                stats.tasks_skipped += batch_size - w
+            if gate_model is not None:
+                stats.tasks_run += batch_size * p_t
+                stats.tasks_skipped += batch_size * (1.0 - p_t)
+            else:
+                stats.tasks_run += w
+                if rec is not None:
+                    stats.tasks_skipped += batch_size - w
             prev = t
 
     def predicted_stats(
@@ -359,6 +409,43 @@ class GraphCostModel:
         self._predict_into(
             order, batch_size, resident, stats, gate_trace,
             first_task_resume=first_task_resume,
+        )
+        for site in checkpoints or ():
+            stats.checkpoint_bytes += site.bytes
+            stats.checkpoint_seconds += site.seconds
+        return stats
+
+    def expected_stats(
+        self,
+        order: Sequence[int],
+        batch_size: int = 1,
+        resume: Optional[Residency] = None,
+        first_task_resume: int = 0,
+        checkpoints: Optional[Sequence["CheckpointSite"]] = None,
+        gate_model: Optional[Any] = None,
+    ) -> ExecutionStats:
+        """*Expected* counters under a gate model (defaults to this model's
+        :attr:`gate_model`).
+
+        The pre-execution estimate of what :meth:`predicted_stats` with the
+        realized ``gate_trace`` will report: flop/task/fire counters are
+        probability-weighted while structural counters keep the all-run
+        walk (see :meth:`_predict_into`).  With ``gate_model=None`` and no
+        model attached this is exactly :meth:`predicted_stats` — the
+        all-blocks floor.
+        """
+        gm = gate_model if gate_model is not None else self.gate_model
+        resident: List[Optional[NodeId]] = (
+            list(resume) if resume is not None else [None] * self.graph.depth
+        )
+        if len(resident) != self.graph.depth:
+            raise ValueError(
+                f"resume has {len(resident)} slots, expected {self.graph.depth}"
+            )
+        stats = ExecutionStats()
+        self._predict_into(
+            order, batch_size, resident, stats,
+            first_task_resume=first_task_resume, gate_model=gm,
         )
         for site in checkpoints or ():
             stats.checkpoint_bytes += site.bytes
@@ -581,8 +668,13 @@ class PlanPredictor:
     execution sequence and the tracked residency carries group-to-group
     exactly as the warm engine's executor does.  ``carry_residency=False``
     re-predicts every group from a cold slate (the ``warm_start=False``
-    engine's semantics).  ``stats`` is the cumulative prediction so far;
-    :meth:`append` returns the per-group delta.
+    engine's semantics).  ``stats`` is the cumulative prediction so far —
+    realized-conditional when groups append with their ``gate_trace``;
+    :meth:`append` returns the per-group delta.  ``expected`` accumulates
+    the parallel *pre-execution* prediction under the model's (or
+    per-append) gate model: its residency walk is tracked separately
+    because a trace's whole-group-gated tasks do not advance residency
+    while the expected (structural all-run) walk does.
     """
 
     def __init__(
@@ -601,7 +693,9 @@ class PlanPredictor:
             raise ValueError(
                 f"resume has {len(self._resident)} slots, expected {depth}"
             )
+        self._exp_resident: List[Optional[NodeId]] = list(self._resident)
         self.stats = ExecutionStats()
+        self.expected = ExecutionStats()
         self.groups = 0  # groups appended so far
 
     @property
@@ -618,6 +712,7 @@ class PlanPredictor:
         overlap_seconds: Optional[float] = None,
         first_task_resume: int = 0,
         checkpoints: Optional[Sequence[CheckpointSite]] = None,
+        gate_model: Optional[Any] = None,
     ) -> ExecutionStats:
         """Account one more admitted group; returns that group's delta.
 
@@ -634,18 +729,51 @@ class PlanPredictor:
         predict an intermittent-execution group: a crash-recovered group
         resuming its first task from a restored checkpoint, and the group's
         planned checkpoint writes.
+
+        ``gate_model`` (defaults to the model's own) drives the parallel
+        ``expected`` accumulator's delta — both walks run every append so
+        the two residency tracks stay consistent.
         """
         if not self.carry_residency:
             self._resident = [None] * self.model.graph.depth
+            self._exp_resident = [None] * self.model.graph.depth
+        gm = gate_model if gate_model is not None else self.model.gate_model
+        delta = self._delta(
+            order, batch_size, self._resident, overlap_seconds,
+            first_task_resume, checkpoints, gate_trace=gate_trace)
+        exp_delta = self._delta(
+            order, batch_size, self._exp_resident, overlap_seconds,
+            first_task_resume, checkpoints, gate_model=gm)
+        delta.tasks_skipped += int(extra_tasks_skipped)
+        exp_delta.tasks_skipped += int(extra_tasks_skipped)
+        self.stats = self.stats.merge(delta)
+        self.expected = self.expected.merge(exp_delta)
+        self.groups += 1
+        return delta
+
+    def _delta(
+        self,
+        order: Sequence[int],
+        batch_size: int,
+        resident: List[Optional[NodeId]],
+        overlap_seconds: Optional[float],
+        first_task_resume: int,
+        checkpoints: Optional[Sequence[CheckpointSite]],
+        gate_trace: Optional[Sequence[TaskGateRecord]] = None,
+        gate_model: Optional[Any] = None,
+    ) -> ExecutionStats:
+        """One group's delta over the residency track ``resident`` (advanced
+        in place): realized under ``gate_trace``, expected under
+        ``gate_model``."""
         loads = (
-            self.model.plan_loads(order, self._resident, gate_trace=gate_trace)
+            self.model.plan_loads(order, resident, gate_trace=gate_trace)
             if overlap_seconds is not None
             else []
         )
         delta = ExecutionStats()
         self.model._predict_into(
-            order, int(batch_size), self._resident, delta, gate_trace,
-            first_task_resume=first_task_resume,
+            order, int(batch_size), resident, delta, gate_trace,
+            first_task_resume=first_task_resume, gate_model=gate_model,
         )
         for site in checkpoints or ():
             delta.checkpoint_bytes += site.bytes
@@ -657,8 +785,5 @@ class PlanPredictor:
             delta.stream_stall_seconds = self.model.prefetch_stall_seconds(
                 [d for d, _node in loads], overlap_seconds
             )
-        delta.tasks_skipped += int(extra_tasks_skipped)
-        self.stats = self.stats.merge(delta)
-        self.groups += 1
         return delta
 

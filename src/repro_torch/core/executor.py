@@ -48,8 +48,21 @@ a hook journals the freshly cached activation, and
 executor resume an interrupted suffix from the checkpoint depth instead of
 0.
 
-Left for later slices: the mesh path and its collective calibration, and
-the adaptive gater.
+Input-adaptive gating: with a :class:`~repro_torch.adaptive.gating.\
+BlockGater` every dispatched suffix (fused, segmented or per-block) gates
+its shape-preserving blocks per request row.  As in the reference the gate
+*masks*: every block runs for every row, and ``torch.where`` keeps the old
+activation of a row whose confidence already cleared the threshold — so a
+gated suffix launches exactly the kernels the ungated one does, and gating
+saves modelled FLOPs (``flops_gated``), not device time.  The per-depth
+thresholds live on the activation's device, one float32 tensor per
+``(start, stop)`` refilled in place when the gater's threshold changes, and
+are not part of any program key.  Each task's fire masks come back to the
+host in one copy after its dispatches (one device sync per task, as the
+reference's readback), and the realized counts split each executed block's
+flops into fired and gated rows.
+
+Left for a later slice: the mesh path and its collective calibration.
 """
 from __future__ import annotations
 
@@ -60,6 +73,7 @@ from typing import (
     Any, Callable, Deque, Dict, FrozenSet, List, Optional, Sequence, Tuple,
 )
 
+import numpy as np
 import torch
 
 from repro_torch._device import first_tensor, tree_leaves, tree_map
@@ -137,6 +151,77 @@ def _row_batched(fn: Callable) -> Callable:
         return fn(params, xs.flatten(0, 1)).unflatten(0, xs.shape[:2])
 
     return batched
+
+
+def _gate_bcast(fire: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Reshape a per-row ``(B,)`` fire mask to broadcast against ``y``
+    (``(B, ...)``) inside ``torch.where``; scalar masks broadcast as-is."""
+    if fire.dim() == 0:
+        return fire
+    return fire.reshape(fire.shape + (1,) * (y.dim() - fire.dim()))
+
+
+def _all_alive(h: torch.Tensor, batched: bool) -> torch.Tensor:
+    """Every row of ``h`` alive: ``(B,)`` batched, a scalar unbatched."""
+    return torch.ones(h.shape[:1] if batched else (), dtype=torch.bool,
+                      device=h.device)
+
+
+def _gate_block(
+    y: torch.Tensor,
+    h: torch.Tensor,
+    alive: torch.Tensor,
+    thr: torch.Tensor,
+    conf_fn: Callable,
+    early: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gate one block's output ``y`` over its input ``h``.
+
+    A shape-preserving block fires for the rows that are still alive and
+    whose confidence (of ``h``, compared as float32 with ``thr``) is below
+    the threshold; the other rows keep ``h``.  ``early`` makes a row that
+    did not fire dead for the rest of the suffix (early exit); otherwise
+    every block re-decides (per block).  A shape-changing block cannot pass
+    a row through, so it always fires.  This is both of the reference's
+    masked variants — its ``lax.scan`` carry and its unrolled loop decide
+    identically, since every block of a scan suffix is shape-preserving.
+    Returns the gated output, the fire mask and the next alive mask.
+    """
+    if y.shape == h.shape and y.dtype == h.dtype:
+        fire = alive & (conf_fn(h).float() < thr)
+        return (torch.where(_gate_bcast(fire, y), y, h), fire,
+                fire if early else alive)
+    return y, torch.ones_like(alive), alive
+
+
+def _stack_fired(fired: List[torch.Tensor], alive: torch.Tensor) -> torch.Tensor:
+    """The ``(L, B)`` (``(L,)`` unbatched) fire masks of a suffix."""
+    if not fired:
+        return torch.zeros((0,) + tuple(alive.shape), dtype=torch.bool,
+                           device=alive.device)
+    return torch.stack(fired)
+
+
+def _masked_blocks(
+    fns: Sequence[Callable],
+    params_tuple: Sequence[Any],
+    thrs: torch.Tensor,
+    h: torch.Tensor,
+    conf_fn: Callable,
+    early: bool,
+    batched: bool,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Run ``fns`` over ``h``, each block gated per row (:func:`_gate_block`
+    with ``thrs[i]``).  Returns the per-depth activations and the fire
+    masks."""
+    alive = _all_alive(h, batched)
+    acts: List[torch.Tensor] = []
+    fired: List[torch.Tensor] = []
+    for i, (f, p) in enumerate(zip(fns, params_tuple)):
+        h, fire, alive = _gate_block(f(p, h), h, alive, thrs[i], conf_fn, early)
+        acts.append(h)
+        fired.append(fire)
+    return acts, _stack_fired(fired, alive)
 
 
 def _probe_output(
@@ -397,17 +482,36 @@ class TaskGraphExecutor:
       program: the bound multitask program.
       fused: execute each non-shared suffix as one fused program (default);
         ``False`` selects the per-block reference dispatch path.
+      gater: optional :class:`~repro_torch.adaptive.gating.BlockGater`
+        making execution input-conditional: shape-preserving blocks of every
+        dispatched suffix keep their output only for the batch rows whose
+        confidence is still below the gater's threshold (skipped rows pass
+        their activation through unchanged), and the realized per-(block,
+        row) fire counts land in ``ExecutionStats`` (``block_rows_fired`` /
+        ``flops_gated``) and :attr:`last_gate_record`.  Program keys gain
+        the gater's mode and confidence fn, never its threshold.
     """
 
-    def __init__(self, program: MultitaskProgram, fused: bool = True):
+    def __init__(
+        self,
+        program: MultitaskProgram,
+        fused: bool = True,
+        gater: Optional[Any] = None,
+    ):
         self.program = program
         self._fused = fused
-        # (task, resume, batched, x_shape, x_dtype) -> (callable, mode); mode
-        # is "scan" (one fn over a homogeneous suffix) or "unrolled".
+        self.gater = gater
+        # (task, resume, batched, x_shape, x_dtype, gate key) -> (callable,
+        # mode); mode is "scan" (one fn over a homogeneous suffix) or
+        # "unrolled".
         self._compiled_fused: Dict[Tuple, Tuple[Callable, str]] = {}
-        # (task, start, stop, batched, x_shape, x_dtype) -> (callable, mode):
-        # headless segment programs of checkpointed (intermittent) suffixes.
+        # (task, start, stop, batched, x_shape, x_dtype, gate key) ->
+        # (callable, mode): headless segment programs of checkpointed
+        # (intermittent) suffixes.
         self._compiled_segment: Dict[Tuple, Tuple[Callable, str]] = {}
+        # (start, stop, device) -> (thresholds held, float32 tensor): the
+        # gater's per-depth thresholds on the activation's device.
+        self._thresholds: Dict[Tuple, Tuple[Tuple[float, ...], torch.Tensor]] = {}
         # Streamed-and-committed parameter copies, value-identical to
         # program.node_params, dropped at every residency boundary.
         self._streamed_node: Dict[NodeId, Any] = {}
@@ -418,11 +522,32 @@ class TaskGraphExecutor:
         # not part of ExecutionStats (those are cost-model-predictable
         # logical counters — dispatches depend on the dispatch mode).
         self.dispatch_count = 0
-        # The finished task's TaskGateRecord, and the per-task trace of the
-        # last run/run_batch call.
+        # Adaptive gating: the current task's fire masks (``(start depth,
+        # bool tensor)`` fragments, one per dispatched segment), the finished
+        # task's TaskGateRecord, and the per-task trace of the last
+        # run/run_batch call.
+        self._fired_frags: List[Tuple[int, torch.Tensor]] = []
         self.last_gate_record: Optional[TaskGateRecord] = None
         self.last_trace: List[TaskGateRecord] = []
+        # Fire-mask readbacks (one device-to-host copy per gated task) and
+        # the host seconds spent waiting in them.  Telemetry, not counters.
+        self.gate_readbacks = 0
+        self.gate_readback_seconds = 0.0
         self.reset()
+
+    def _gate_key(self) -> Optional[Tuple]:
+        """Program-cache discriminator for the active gater: its mode and
+        confidence fn, so swapping either never reuses a program built for
+        other gate semantics.  Threshold changes do NOT change the key."""
+        if self.gater is None:
+            return None
+        return (self.gater.mode, self.gater.confidence_fn)
+
+    def _confidence(self, batched: bool) -> Callable:
+        """The gater's row confidence over a group (``torch.vmap`` over the
+        request axis, the reference's ``jax.vmap``) or one request."""
+        fn = self.gater.confidence_fn
+        return torch.vmap(fn) if batched else fn
 
     @property
     def fused(self) -> bool:
@@ -581,9 +706,13 @@ class TaskGraphExecutor:
         returns ``(per-depth activations, head output)`` — the intermediate
         activations feed the activation cache so later tasks can still
         resume mid-path.  ``shape``/``dtype`` describe the suffix's input.
+
+        With a gater the program takes the per-depth threshold tensor as
+        well and returns a third output, the ``(L, B)`` (``(L,)``
+        unbatched) boolean fire masks (:func:`_masked_blocks`).
         """
         shape = tuple(shape)
-        key = (task, resume, batched, shape, dtype)
+        key = (task, resume, batched, shape, dtype, self._gate_key())
         if key in self._compiled_fused:
             return self._compiled_fused[key]
 
@@ -594,7 +723,16 @@ class TaskGraphExecutor:
         mode = self._mode(
             suffix, self._suffix_params(task, resume), batched, shape, dtype)
 
-        if mode == "scan":
+        if self.gater is not None:
+            conf_fn = self._confidence(batched)
+            early = self.gater.mode == "early_exit"
+
+            def fused(params_tuple, thrs, head_p, h):
+                acts, fired = _masked_blocks(
+                    fns, params_tuple, thrs, h, conf_fn, early, batched)
+                return acts, head(head_p, acts[-1] if acts else h), fired
+
+        elif mode == "scan":
             step_fn = fns[0]
 
             def fused(params_tuple, head_p, h):
@@ -616,17 +754,43 @@ class TaskGraphExecutor:
         self._compiled_fused[key] = (fused, mode)
         return fused, mode
 
+    def _suffix_thresholds(
+        self, start: int, stop: int, device: torch.device
+    ) -> torch.Tensor:
+        """The gater's thresholds for blocks ``start .. stop-1`` as a float32
+        tensor on ``device``: built once per ``(start, stop, device)``, and
+        refilled in place (``fill_`` takes the value as a kernel argument, so
+        nothing is copied from the host) when the threshold has changed."""
+        values = self.gater.suffix_thresholds(start, stop)
+        key = (start, stop, device)
+        held = self._thresholds.get(key)
+        if held is None:
+            thrs = torch.tensor(values, dtype=torch.float32, device=device)
+            self._thresholds[key] = (values, thrs)
+            return thrs
+        old, thrs = held
+        if old != values:
+            for i, (a, b) in enumerate(zip(old, values)):
+                if a != b:
+                    thrs[i].fill_(b)
+            self._thresholds[key] = (values, thrs)
+        return thrs
+
     def _run_suffix_fused(
         self, task: int, resume: int, h: torch.Tensor, batched: bool
     ) -> torch.Tensor:
         """One dispatch for the whole (suffix + head) of ``task``."""
         graph = self.program.graph
         fn, _mode = self._fused_fn(task, resume, batched, tuple(h.shape), h.dtype)
-        acts, out = fn(
-            self._suffix_params(task, resume),
-            self.program.head_params[task],
-            h,
-        )
+        params = self._suffix_params(task, resume)
+        head_p = self.program.head_params[task]
+        if self.gater is not None:
+            acts, out, fired = fn(
+                params, self._suffix_thresholds(resume, graph.depth, h.device),
+                head_p, h)
+            self._fired_frags.append((resume, fired))
+        else:
+            acts, out = fn(params, head_p, h)
         self.dispatch_count += 1
         path = graph.path(task)
         for a, d in zip(acts, range(resume, graph.depth)):
@@ -651,9 +815,17 @@ class TaskGraphExecutor:
         run — and a power failure can strike — at the boundary between
         them.  Same mode rule as the full suffix; returns the per-depth
         activations only (the last segment runs through :meth:`_fused_fn`,
-        which owns the head)."""
+        which owns the head).
+
+        With a gater the segment takes the threshold tensor and returns
+        ``(acts, fired)``.  Each segment re-derives its alive mask from
+        scratch: for shape-preserving passthrough gating a skipped row's
+        activation — hence its confidence, hence its gate decision — is
+        unchanged at the boundary, so the re-derived mask equals the one an
+        uncut suffix would have carried.  That is also why crash recovery
+        replays identical gate decisions."""
         shape = tuple(shape)
-        key = (task, start, stop, batched, shape, dtype)
+        key = (task, start, stop, batched, shape, dtype, self._gate_key())
         if key in self._compiled_segment:
             return self._compiled_segment[key]
         segment = list(range(start, stop))
@@ -661,7 +833,15 @@ class TaskGraphExecutor:
         mode = self._mode(
             segment, self._segment_params(task, start, stop), batched, shape, dtype)
 
-        if mode == "scan":
+        if self.gater is not None:
+            conf_fn = self._confidence(batched)
+            early = self.gater.mode == "early_exit"
+
+            def seg(params_tuple, thrs, h):
+                return _masked_blocks(
+                    fns, params_tuple, thrs, h, conf_fn, early, batched)
+
+        elif mode == "scan":
             step_fn = fns[0]
 
             def seg(params_tuple, h):
@@ -709,7 +889,13 @@ class TaskGraphExecutor:
                 continue  # already covered, or past the last cut point
             fn, _mode = self._segment_fn(
                 task, cur, d + 1, batched, tuple(h.shape), h.dtype)
-            acts = fn(self._segment_params(task, cur, d + 1), h)
+            params = self._segment_params(task, cur, d + 1)
+            if self.gater is not None:
+                acts, fired = fn(
+                    params, self._suffix_thresholds(cur, d + 1, h.device), h)
+                self._fired_frags.append((cur, fired))
+            else:
+                acts = fn(params, h)
             self.dispatch_count += 1
             for a, dd in zip(acts, range(cur, d + 1)):
                 self._activations[dd] = a
@@ -731,18 +917,34 @@ class TaskGraphExecutor:
     ) -> torch.Tensor:
         """Reference path: one dispatch per block plus one for the head.
         Checkpoint hooks fire at the same block-depth boundaries as the
-        segmented fused path, so the unfused rung keeps journaling."""
+        segmented fused path, so the unfused rung keeps journaling.  With a
+        gater each block is gated as a fused suffix gates it
+        (:func:`_gate_block`), one block per dispatch."""
         graph = self.program.graph
         path = graph.path(task)
         cuts = {d for d in checkpoint_depths if resume <= d < graph.depth - 1}
+        gated = self.gater is not None
+        if gated:
+            conf_fn = self._confidence(batched)
+            early = self.gater.mode == "early_exit"
+            thrs = self._suffix_thresholds(resume, graph.depth, h.device)
+            alive = _all_alive(h, batched)
+            fired: List[torch.Tensor] = []
         for d in range(resume, graph.depth):
             node = path[d]
-            h = self._block_fn(d, batched)(self._node_param(node), h)
+            y = self._block_fn(d, batched)(self._node_param(node), h)
+            if gated:
+                y, fire, alive = _gate_block(
+                    y, h, alive, thrs[d - resume], conf_fn, early)
+                fired.append(fire)
+            h = y
             self.dispatch_count += 1
             self._activations[d] = h
             self._act_owner[d] = node
             if d in cuts and checkpoint_hook is not None:
                 checkpoint_hook(d)
+        if gated:
+            self._fired_frags.append((resume, _stack_fired(fired, alive)))
         out = self._head_fn(task, batched)(self.program.head_params[task], h)
         self.dispatch_count += 1
         return out
@@ -757,6 +959,7 @@ class TaskGraphExecutor:
         batched: bool,
         checkpoint_depths: Sequence[int] = (),
         checkpoint_hook: Optional[Callable[[int], None]] = None,
+        row_mask: Optional[Any] = None,
     ) -> torch.Tensor:
         """Shared body of the single-request and batched task execution.
 
@@ -765,10 +968,20 @@ class TaskGraphExecutor:
         scaling the per-request counters (flops/tasks), while load counters
         stay physical (once per invocation).  Accounting is dispatch-mode
         independent: the fused and per-block paths produce identical stats.
+
+        With a gater the per-block flop accounting is deferred until after
+        the dispatch: the fire masks are read back and each executed block's
+        flops split into ``flops_executed`` (rows that fired) and
+        ``flops_gated`` (rows whose gate skipped it).  Loads stay physical
+        and ungated.  ``row_mask`` (batched only) marks which rows of ``x``
+        are logically live — exactly ``weight`` of them; rows outside it
+        (padding, or rows a per-request gate turned off) execute but never
+        count.
         """
         graph = self.program.graph
         path = graph.path(task)
         self._guard_act_shape(tuple(x.shape))
+        self._fired_frags = []
 
         # Deepest block of this task's path whose activation is cached.  The
         # task graph is a tree, so an owner match at depth ``d`` pins the
@@ -779,6 +992,8 @@ class TaskGraphExecutor:
             if self._act_owner[d] == node and self._activations[d] is not None:
                 resume = d + 1
 
+        gated = self.gater is not None
+        executed_costs: List[BlockCost] = []
         for d in range(graph.depth):
             node = path[d]
             bc = self.program.block_costs[d]
@@ -806,7 +1021,10 @@ class TaskGraphExecutor:
                 # its input activation belongs to the current input.
                 stats.weight_bytes_skipped += bc.weight_bytes
             stats.blocks_executed += 1
-            stats.flops_executed += weight * bc.flops
+            if gated:
+                executed_costs.append(bc)
+            else:
+                stats.flops_executed += weight * bc.flops
         stats.tasks_run += weight
 
         h = self._activations[resume - 1] if resume > 0 else x
@@ -819,10 +1037,52 @@ class TaskGraphExecutor:
         else:
             out = self._run_suffix_blocks(
                 task, resume, h, batched, checkpoint_depths, checkpoint_hook)
-        self.last_gate_record = TaskGateRecord(
-            task=task, weight=weight, resume=resume
-        )
+        if gated:
+            fired_rows = self._collect_fired(weight, batched, row_mask)
+            if len(fired_rows) != len(executed_costs):
+                raise AssertionError(
+                    f"gate readback covered {len(fired_rows)} blocks, "
+                    f"expected {len(executed_costs)}"
+                )
+            for bc, f in zip(executed_costs, fired_rows):
+                stats.flops_executed += f * bc.flops
+                stats.flops_gated += (weight - f) * bc.flops
+                stats.block_rows_fired += f
+                stats.block_rows_gated += weight - f
+            self.last_gate_record = TaskGateRecord(
+                task=task, weight=weight, fired=tuple(fired_rows),
+                resume=resume,
+            )
+        else:
+            self.last_gate_record = TaskGateRecord(
+                task=task, weight=weight, resume=resume
+            )
         return out
+
+    def _collect_fired(
+        self, weight: int, batched: bool, row_mask: Optional[Any]
+    ) -> List[int]:
+        """Per executed block depth, how many live rows fired.
+
+        The task's fire masks come back in one device-to-host copy (a
+        device sync — the price of realized-count accounting) and are
+        reduced over the logically live rows: ``row_mask`` when given, else
+        the first ``weight`` rows (the scheduler pads at the tail), else the
+        whole single request.
+        """
+        frags = [f for _start, f in self._fired_frags if f.shape[0]]
+        if not frags:
+            return []
+        t0 = time.perf_counter()
+        masks = torch.cat(frags).cpu().numpy()
+        self.gate_readback_seconds += time.perf_counter() - t0
+        self.gate_readbacks += 1
+        if not batched:
+            return [int(bool(v)) * weight for v in masks]
+        if row_mask is not None:
+            live = np.asarray(row_mask, bool)
+            return [int(np.count_nonzero(row & live)) for row in masks]
+        return [int(np.count_nonzero(row[:weight])) for row in masks]
 
     def run_task(
         self, task: int, x: torch.Tensor, stats: ExecutionStats
@@ -870,6 +1130,7 @@ class TaskGraphExecutor:
         weight: Optional[int] = None,
         checkpoint_depths: Sequence[int] = (),
         checkpoint_hook: Optional[Callable[[int], None]] = None,
+        row_mask: Optional[Any] = None,
     ) -> torch.Tensor:
         """Run one task for a stacked request group ``xs``: ``(B, *sample)``.
 
@@ -884,12 +1145,17 @@ class TaskGraphExecutor:
         (intermittent) dispatch: the suffix is cut at those block-depth
         boundaries and the hook fires after each cut with the activation
         freshly cached — see :meth:`_run_suffix_segmented`.
+
+        ``row_mask`` (optional ``(B,)`` bool) marks which rows are logically
+        live for adaptive fire accounting — exactly ``weight`` of them; see
+        :meth:`_run_task_impl`.
         """
         w = int(xs.shape[0]) if weight is None else int(weight)
         return self._run_task_impl(
             task, xs, stats, w, batched=True,
             checkpoint_depths=checkpoint_depths,
             checkpoint_hook=checkpoint_hook,
+            row_mask=row_mask,
         )
 
     def run_batch(

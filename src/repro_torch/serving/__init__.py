@@ -9,7 +9,13 @@ machinery; ``serve_many`` is deprecated.  Reliability lives in
 ``repro_torch.serving.reliability``, the write-ahead journal of
 intermittent-power serving in ``repro_torch.serving.journal``, and
 ``ContinuousBatcher`` serves LM generation requests in waves.
+
+Input-adaptive serving lives in ``repro_torch.adaptive`` (``AdaptivePolicy``
+/ ``BlockGater`` / ``GateModel``; re-exported here for convenience): set
+``EnginePolicy.adaptive`` and the engine gates per-row block execution on
+a confidence threshold.
 """
+from repro_torch.adaptive import AdaptivePolicy, BlockGater, GateModel
 from repro_torch.serving.batching import (
     DEFAULT_BATCH_SHAPES, ContinuousBatcher, GenRequest, GenResult,
     RequestGroup, RequestGroupScheduler, effective_order, normalize_subset,
@@ -54,6 +60,10 @@ __all__ = [
     "WindowPolicy",
     "AffinityPolicy",
     "SloAwarePolicy",
+    # input-adaptive serving (re-exported from repro_torch.adaptive)
+    "AdaptivePolicy",
+    "BlockGater",
+    "GateModel",
     # reliability
     "RequestError",
     "DeadlineExceeded",

@@ -18,8 +18,13 @@ stages each group's weights behind the previous group's compute
 power-failure-atomically (:class:`IntermittentContext`: planned mid-suffix
 checkpoints, a :class:`~repro_torch.serving.reliability.\
 PowerFailureInjector` at the ``"group"``, ``"suffix"`` and ``"prefetch"``
-sites).  :class:`LMServer` runs batched prefill and greedy decode.
-Adaptive gating and the mesh wait for later slices.
+sites).  With ``EnginePolicy.adaptive`` the executor gates blocks per
+request row on a confidence threshold (:mod:`repro_torch.adaptive`), the
+cost model predicts *expected* counters from a gate model (calibrated
+online from the realized traces when the policy asks), and each group can
+run at the threshold its session's deadline ladder picks.
+:class:`LMServer` runs batched prefill and greedy decode.  The mesh waits
+for a later slice.
 """
 from __future__ import annotations
 
@@ -33,6 +38,9 @@ from typing import (
 import numpy as np
 import torch
 
+from repro_torch.adaptive.gate_model import GateModel, GateModelCalibrator
+from repro_torch.adaptive.gating import BlockGater
+from repro_torch.adaptive.policy import AdaptivePolicy
 from repro_torch.core.constraints import Constraints
 from repro_torch.core.cost_model import CheckpointSite, GraphCostModel
 from repro_torch.core.executor import MultitaskProgram, TaskGraphExecutor
@@ -134,7 +142,12 @@ class GroupExecution:
     the executed counters of this group alone; ``predicted`` the cost
     model's prediction for the same group from the executor's residency
     immediately before execution, conditioned on ``gate_trace`` (the
-    realized per-task gate outcomes).
+    realized per-task gate outcomes: whole-group skips and adaptive
+    per-block fire counts).  ``expected`` is the *a-priori* expected-counter
+    prediction under the engine's
+    :class:`~repro_torch.adaptive.gate_model.GateModel` — computed before
+    execution, without peeking at the trace — or ``None`` when the engine
+    is not adaptive.
     """
 
     group: RequestGroup
@@ -143,22 +156,8 @@ class GroupExecution:
     stats: ExecutionStats
     predicted: ExecutionStats
     warm_saved: float
+    expected: Optional[ExecutionStats] = None
     gate_trace: Optional[List[TaskGateRecord]] = None
-
-
-@dataclasses.dataclass(frozen=True)
-class _ConditionalProbabilities:
-    """Task execution probabilities of conditional constraints (Eq. 8) in
-    the cost model's gate-model interface — the reference's
-    ``GateModel.from_constraints`` for an engine without adaptive gating."""
-
-    constraints: Constraints
-
-    def task_probability(self, task: int) -> float:
-        return self.constraints.execution_probability(task)
-
-    def fire_probability(self, task: int, depth: int) -> float:
-        return 1.0
 
 
 class MultitaskEngine:
@@ -228,6 +227,21 @@ class MultitaskEngine:
                 "staged prefetch — nothing could ever stream"
             )
         self.policy = policy
+        # Input-adaptive gating: the executor's gater (its threshold is
+        # retuned per group) and, with online calibration, the running
+        # estimator of the cost model's gate model.
+        self.adaptive: Optional[AdaptivePolicy] = policy.adaptive
+        self._gater: Optional[BlockGater] = None
+        self._calibrator: Optional[GateModelCalibrator] = None
+        if self.adaptive is not None:
+            self._gater = BlockGater(
+                confidence_fn=self.adaptive.confidence,
+                mode=self.adaptive.mode,
+                threshold=float(self.adaptive.threshold),
+                min_blocks=self.adaptive.min_blocks,
+            )
+            if self.adaptive.calibrate_online:
+                self._calibrator = GateModelCalibrator()
         # Which tasks each runtime gate reads: {gated_task: (input_tasks,)}.
         self.gate_deps: Dict[int, Tuple[int, ...]] = {}
         if gate_deps is not None:
@@ -245,12 +259,25 @@ class MultitaskEngine:
         self._plan_constraints = self._build_plan_constraints(
             program.graph.num_tasks, constraints
         )
-        self.cost_model = GraphCostModel(program.graph, program.block_costs, hw)
+        self.cost_model = GraphCostModel(
+            program.graph, program.block_costs, hw,
+            gate_model=(
+                self.adaptive.gate_model if self.adaptive is not None else None
+            ),
+        )
         self._cost_matrix = self.cost_model.cost_matrix()
+        # Lazy per-plan re-solve matrix (expected costs when a gate model or
+        # conditional constraints exist); dirtied by online calibration.
         self._resolve_mat: Optional[np.ndarray] = None
         if order is None:
-            # optimal_order applies the Eq.-8 conditional weighting itself.
-            order = optimal_order(self._cost_matrix, constraints).order
+            # optimal_order applies the Eq.-8 conditional weighting itself,
+            # so the matrix folds in only the *adaptive* gate model here.
+            init_matrix = (
+                self.cost_model.expected_cost_matrix()
+                if self.cost_model.gate_model is not None
+                else self._cost_matrix
+            )
+            order = optimal_order(init_matrix, constraints).order
         self.order = tuple(order)
         if constraints is not None and not constraints.is_valid_order(self.order):
             raise ValueError("supplied order violates the constraints")
@@ -262,7 +289,7 @@ class MultitaskEngine:
                 "gate_deps edges conflict with the engine's task order: a "
                 "gate would read an output its order produces later"
             )
-        self.executor = TaskGraphExecutor(program)
+        self.executor = TaskGraphExecutor(program, gater=self._gater)
         if policy.streaming:
             self.executor.streamer.prepare()
         self.fault_injector = fault_injector
@@ -325,17 +352,30 @@ class MultitaskEngine:
             ),
         )
 
-    def _planning_gate_model(self) -> Optional[_ConditionalProbabilities]:
-        """``solve_suborder`` rebuilds precedence-only constraints, so the
-        conditional constraints' Eq.-8 probabilities are folded into the
-        re-solve's cost matrix instead."""
+    def _planning_gate_model(self) -> Optional[GateModel]:
+        """The gate model per-plan re-solves price costs with.
+
+        ``solve_suborder`` rebuilds precedence-only constraints, so the
+        conditional constraints' Eq.-8 execution probabilities are folded
+        into the gate model's task probabilities instead.  A *calibrated*
+        (adaptive) task probability wins over the constraints' prior where
+        both exist: it is the same quantity, measured rather than assumed.
+        """
+        gm = self.cost_model.gate_model
         if self.constraints is None or not self.constraints.conditional:
-            return None
-        return _ConditionalProbabilities(self.constraints)
+            return gm
+        cgm = GateModel.from_constraints(self.constraints)
+        if gm is None:
+            return cgm
+        task_fire = dict(cgm.task_fire)
+        task_fire.update(gm.task_fire)
+        return GateModel(fire=dict(gm.fire), task_fire=task_fire)
 
     def _resolve_matrix(self) -> np.ndarray:
-        """Switching-cost matrix for per-plan re-solving (expected costs
-        under conditional constraints, the exact matrix otherwise)."""
+        """Switching-cost matrix for per-plan re-solving: expected costs
+        when any probability surface exists (adaptive gate model and/or
+        conditional constraints), the exact matrix otherwise.  Cached;
+        online calibration dirties the cache."""
         if self._resolve_mat is None:
             gm = self._planning_gate_model()
             self._resolve_mat = (
@@ -441,6 +481,34 @@ class MultitaskEngine:
             )
         return predictor.stats
 
+    def expected_group_stats(
+        self, groups: Sequence[RequestGroup]
+    ) -> ExecutionStats:
+        """Expected-counter analogue of :meth:`predicted_group_stats`:
+        FLOP/task counters weighted by the cost model's gate model (fire and
+        task-execution probabilities) instead of the all-gates-fire floor.
+        With no gate model this equals :meth:`predicted_group_stats`
+        exactly; with a calibrated one it is the mean the realized counters
+        converge to over traffic drawn from the calibration distribution."""
+        predictor = self.cost_model.plan_predictor(
+            resume=(
+                self.executor.residency_state() if self.warm_start else None
+            ),
+            carry_residency=self.warm_start,
+        )
+        gm = (
+            (self.cost_model.gate_model or GateModel())
+            if self.adaptive is not None else None
+        )
+        for g in groups:
+            eff = self.group_order(g)
+            predictor.append(
+                eff, batch_size=g.valid,
+                extra_tasks_skipped=(len(self.order) - len(eff)) * g.valid,
+                gate_model=gm,
+            )
+        return predictor.expected
+
     # ------------------------------------------------------------ execution
     def _inject(self, site: str, **context: Any) -> None:
         """Fault-injection hook: delegates to :attr:`fault_injector` when
@@ -473,7 +541,12 @@ class MultitaskEngine:
         whose gate did not fire drop the task's output — exact, because a
         task's output depends only on its input row.  Flop/task counters are
         weighted by the fired-row count.  The third return value is the
-        group's realized gate trace, one record per task of ``eff``.
+        group's realized gate trace, one record per task of ``eff`` —
+        weight-0 records for tasks every row's gate skipped, per-block
+        fired-row counts when the executor carries an adaptive gater — with
+        ``offered`` the group's valid count: what the calibrator consumes
+        and what ``GraphCostModel.predicted_stats(..., gate_trace=...)``
+        replays to reproduce ``stats`` field-exactly.
 
         With ``intermittent`` the ``"group"`` power site fires before each
         task's dispatch, and a task with planned checkpoint sites
@@ -502,6 +575,12 @@ class MultitaskEngine:
                     "group", task=t, group_id=intermittent.group_id,
                     group_tasks=group.tasks, stats=stats,
                 )
+            row_mask = None
+            if ex.gater is not None:
+                # Realized-fire accounting must ignore padded rows and rows
+                # whose per-request gate kept them out of this task.
+                row_mask = np.zeros(int(group.xs.shape[0]), dtype=bool)
+                row_mask[:v] = fire
             sites = [s for s in (ckpt_plan or ()) if s.task == t]
             if sites and intermittent is not None:
                 out = ex.run_task_batch(
@@ -509,9 +588,11 @@ class MultitaskEngine:
                     checkpoint_depths=[s.depth for s in sites],
                     checkpoint_hook=self._checkpoint_hook(
                         stats, intermittent, t, sites, fired),
+                    row_mask=row_mask,
                 )
             else:
-                out = ex.run_task_batch(t, group.xs, stats, weight=fired)
+                out = ex.run_task_batch(
+                    t, group.xs, stats, weight=fired, row_mask=row_mask)
             trace.append(dataclasses.replace(ex.last_gate_record, offered=v))
             for i in range(v):
                 if fire[i]:
@@ -594,6 +675,7 @@ class MultitaskEngine:
         intermittent: Optional[IntermittentContext] = None,
         first_task_resume: int = 0,
         keep_activations: bool = False,
+        adaptive_threshold: Optional[float] = None,
     ) -> GroupExecution:
         """Run one planned group; the session's execution primitive.
 
@@ -605,7 +687,13 @@ class MultitaskEngine:
         predicts from the rolled-back residency), conditioned on the
         realized gate trace.  A group that consumed staged copies is
         predicted with them as prefetched bytes plus the staged batch's
-        modelled stall.
+        modelled stall.  An adaptive engine additionally computes
+        ``expected``, the a-priori expected-counter prediction under the
+        cost model's gate model, *before* the run (it must not peek), and
+        with online calibration folds the realized trace into the gate
+        model after it.  ``adaptive_threshold`` overrides the gater's
+        confidence threshold for this group (the session's deadline-ladder
+        rung); no suffix program is rebuilt for it.
 
         ``intermittent`` (journal + group id) selects the power-failure-
         atomic path: the cost model places mid-suffix checkpoints
@@ -634,6 +722,19 @@ class MultitaskEngine:
                 eff, batch_size=group.valid,
                 first_task_resume=first_task_resume,
             )
+        if self._gater is not None and adaptive_threshold is not None:
+            self._gater.threshold = float(adaptive_threshold)
+        expected: Optional[ExecutionStats] = None
+        if self.adaptive is not None:
+            # An uncalibrated engine uses the *empty* gate model (every fire
+            # probability 1.0), so the fire-row counters are present and the
+            # expectation degrades to the all-blocks floor.
+            expected = self.cost_model.expected_stats(
+                eff, batch_size=group.valid, resume=resume,
+                first_task_resume=first_task_resume, checkpoints=ckpt_plan,
+                gate_model=self.cost_model.gate_model or GateModel(),
+            )
+            expected.tasks_skipped += (len(self.order) - len(eff)) * group.valid
         streamer = self.executor.streamer
         # Snapshot the stream state before the run consumes staged copies.
         staged = streamer.staged_nodes()
@@ -673,9 +774,18 @@ class MultitaskEngine:
                 predicted.prefetched_bytes = pf_bytes
                 predicted.stream_stall_seconds = pending_stall
         predicted.tasks_skipped += (len(self.order) - len(eff)) * group.valid
+        if self._calibrator is not None:
+            # Online calibration: fold this group's realized trace into the
+            # gate model so expected-cost planning tracks traffic drift.
+            self._calibrator.observe(trace)
+            self.cost_model = dataclasses.replace(
+                self.cost_model, gate_model=self._calibrator.model()
+            )
+            self._resolve_mat = None
         return GroupExecution(
             group=group, eff=eff, outputs=per_request, stats=stats,
-            predicted=predicted, warm_saved=warm_saved, gate_trace=trace,
+            predicted=predicted, warm_saved=warm_saved,
+            expected=expected, gate_trace=trace,
         )
 
     def _group_responses(

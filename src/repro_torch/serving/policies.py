@@ -23,14 +23,14 @@ Four policies ship:
   oversubscribed buckets admit priority-first.
 
 :class:`EnginePolicy` folds everything schedule-shaped about the engine into
-one config object, weight streaming included.  The reference's ``mesh``,
-``sharding`` and ``adaptive`` fields come with the slices that port those
-subsystems.
+one config object, weight streaming and input-adaptive gating included.
+The reference's ``mesh`` and ``sharding`` fields come with the slice that
+ports the mesh.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, List, Optional, Protocol
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Protocol
 
 from repro_torch.serving.batching import RequestGroupScheduler, effective_order
 
@@ -323,6 +323,17 @@ class EnginePolicy:
         are unchanged, and ``session.stats == session.predicted`` stays
         exact.  Requires ``warm_start`` (a cold reset before every group
         would cancel every prefetch).
+      adaptive: optional :class:`~repro_torch.adaptive.policy.AdaptivePolicy`
+        turning on input-adaptive execution: the engine builds a per-row
+        confidence :class:`~repro_torch.adaptive.gating.BlockGater` for the
+        executor (early exit / per-block gating inside the suffixes), seeds
+        the cost model's expected-counter
+        :class:`~repro_torch.adaptive.gate_model.GateModel`, solves task
+        orders against *expected* switching costs, and lets sessions walk
+        the policy's deadline ladder to pick each group's confidence
+        threshold.  ``session.stats == session.predicted`` stays exact
+        (prediction replays the realized gate trace); ``session.expected``
+        carries the a-priori expected prediction.
 
     The defaults reproduce the reference engine: greedy one-shot admission,
     warm starts, cost-aware group ordering, global task order, synchronous
@@ -337,3 +348,4 @@ class EnginePolicy:
     )
     scheduler: Optional[RequestGroupScheduler] = None
     streaming: bool = False
+    adaptive: Optional[Any] = None

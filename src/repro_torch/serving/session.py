@@ -21,8 +21,14 @@ A :class:`ServingSession` decouples the three phases of serving:
 ``session.predicted`` the cost model's incremental prediction (each group
 predicted from the executor's actual residency right before it runs,
 conditioned on its realized gate trace), so the two are equal field for
-field.  ``session.expected`` is the a-priori prediction; with no adaptive
-gating (a later slice) it equals ``session.predicted``.
+field.  ``session.expected`` accumulates the *a-priori* expected
+prediction — on an input-adaptive engine the counters weighted by its
+:class:`~repro_torch.adaptive.gate_model.GateModel` probabilities, computed
+before each group runs; on a non-adaptive engine it equals
+``session.predicted``.  An adaptive engine whose policy carries a deadline
+``ladder`` additionally picks each group's confidence threshold from the
+group's worst remaining deadline slack (more slack -> a tighter threshold
+-> more early exits).
 
 Reliability (see :mod:`repro_torch.serving.reliability`): the session is the
 fault boundary of the serving stack, and its unit of failure is the
@@ -81,8 +87,8 @@ fault boundary of the serving stack, and its unit of failure is the
   included) fit the storage capacitor, else the pump sleeps exactly the
   harvest time the deficit needs.
 
-The mesh's ``"single_device"`` rung and the adaptive deadline ladder come
-with the slices that port the mesh and adaptive gating.
+The mesh's ``"single_device"`` rung comes with the slice that ports the
+mesh.
 
 Driving the loop: callers either poll :meth:`step` on their own cadence,
 call :meth:`flush` to force one admit-everything pass, or call :meth:`drain`
@@ -375,7 +381,7 @@ class ServingSession:
         # ------------------------------------------------- running counters
         self.stats = ExecutionStats()       # executed, cumulative
         self.predicted = ExecutionStats()   # realized-trace prediction
-        self.expected = ExecutionStats()    # a-priori prediction (= predicted)
+        self.expected = ExecutionStats()    # a-priori expected prediction
         self.requests_submitted = 0
         self.requests_admitted = 0
         self.requests_rejected = 0
@@ -651,7 +657,8 @@ class ServingSession:
                     # stream this group's non-resident weights behind them.
                     self._prefetch(group)
                 execution, retries, degraded = self._run_group_guarded(
-                    group, members, group_id)
+                    group, members, group_id,
+                    adaptive_threshold=self._ladder_threshold(members, now))
                 if execution is None:
                     # Ladder exhausted; members already failed.  No window
                     # survives a failed group.
@@ -669,7 +676,10 @@ class ServingSession:
                     self.energy.drain(min(spent, self.energy.available))
                 self.stats = self.stats.merge(execution.stats)
                 self.predicted = self.predicted.merge(execution.predicted)
-                self.expected = self.expected.merge(execution.predicted)
+                self.expected = self.expected.merge(
+                    execution.expected if execution.expected is not None
+                    else execution.predicted
+                )
                 if self.journal is not None:
                     # Atomic commit: outputs + counters + the residency the
                     # group leaves behind, in one durable record.  Futures
@@ -769,17 +779,39 @@ class ServingSession:
             self.prefetches_issued += 1
             self.prefetch_scheduled_bytes += scheduled
 
+    # --------------------------------------------- adaptive accuracy ladder
+    def _ladder_threshold(
+        self, members: Tuple[PendingRequest, ...], now: float
+    ) -> Optional[float]:
+        """The confidence threshold this group earns from its deadline room.
+
+        ``None`` (keep the gater's base threshold) unless the engine is
+        adaptive *and* its policy carries a ladder.  The group is scored by
+        its *worst* member: the minimum remaining slack over members with
+        deadlines (a group is as urgent as its most urgent request);
+        all-deadline-free groups look up the ladder with ``None`` and get
+        the base threshold.
+        """
+        adaptive = self.engine.adaptive
+        if adaptive is None or not adaptive.ladder:
+            return None
+        slacks = [p.slack(now) for p in members if p.deadline is not None]
+        return adaptive.threshold_for_slack(min(slacks) if slacks else None)
+
     # ------------------------------------------------- failure recovery
     def _run_group_guarded(
         self,
         group: "RequestGroup",
         members: Tuple[PendingRequest, ...],
         group_id: int,
+        adaptive_threshold: Optional[float] = None,
     ) -> Tuple[Optional["GroupExecution"], int, Optional[str]]:
         """Execute one group with rollback, bounded retries, and the
-        ``"unfused"`` rung.  Returns ``(execution, failed_attempts,
-        degraded_rung)``; ``execution`` is ``None`` when every rung failed
-        (the members' futures are failed before returning)."""
+        ``"unfused"`` rung, every attempt at ``adaptive_threshold`` (the
+        ladder's pick, ``None`` for the gater's base).  Returns
+        ``(execution, failed_attempts, degraded_rung)``; ``execution`` is
+        ``None`` when every rung failed (the members' futures are failed
+        before returning)."""
         retry = self.retry
         failures = 0
         last_err: Optional[BaseException] = None
@@ -791,7 +823,11 @@ class ServingSession:
                     self.backoff_seconds += pause
                     self._sleep(pause)
             try:
-                return self._attempt_group(group, group_id), failures, None
+                return (
+                    self._attempt_group(
+                        group, group_id, adaptive_threshold=adaptive_threshold),
+                    failures, None,
+                )
             except Exception as err:
                 failures += 1
                 last_err = err
@@ -801,7 +837,8 @@ class ServingSession:
             # failure path.
             self.engine.executor.fused = False
             try:
-                execution = self._attempt_group(group, group_id)
+                execution = self._attempt_group(
+                    group, group_id, adaptive_threshold=adaptive_threshold)
                 self.degraded_runs += 1
                 return execution, failures, "unfused"
             except Exception as err:
@@ -814,7 +851,10 @@ class ServingSession:
         return None, failures, None
 
     def _attempt_group(
-        self, group: "RequestGroup", group_id: Optional[int] = None
+        self,
+        group: "RequestGroup",
+        group_id: Optional[int] = None,
+        adaptive_threshold: Optional[float] = None,
     ) -> "GroupExecution":
         """One execution attempt with crash-consistent rollback: the
         residency snapshot taken here is restored on *any* exception, so a
@@ -832,7 +872,10 @@ class ServingSession:
             )
         snapshot = self.engine.executor.residency_state()
         try:
-            return self.engine._execute_group(group, intermittent=intermittent)
+            return self.engine._execute_group(
+                group, intermittent=intermittent,
+                adaptive_threshold=adaptive_threshold,
+            )
         except BaseException:
             self.engine.executor.set_residency(snapshot)
             raise
@@ -1074,7 +1117,10 @@ class ServingSession:
         self.groups_executed += 1
         self.stats = self.stats.merge(execution.stats)
         self.predicted = self.predicted.merge(execution.predicted)
-        self.expected = self.expected.merge(execution.predicted)
+        self.expected = self.expected.merge(
+            execution.expected if execution.expected is not None
+            else execution.predicted
+        )
         if self.energy is not None:
             spent = execution.stats.energy(self.engine.hw)
             self.energy.drain(min(spent, self.energy.available))

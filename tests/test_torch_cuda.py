@@ -559,3 +559,114 @@ def test_bf16_journal_round_trip_on_the_card(cuda, tmp_path):
     back = ex.activation_checkpoint(2).value
     assert back.device.type == "cuda" and back.dtype == torch.bfloat16
     assert torch.equal(back.view(torch.int16), value.view(torch.int16))
+
+
+def _on(program, device):
+    """``program`` with its params and heads moved to ``device``."""
+    import dataclasses
+
+    return dataclasses.replace(
+        program,
+        node_params={n: tree_map(lambda t: t.to(device), p)
+                     for n, p in program.node_params.items()},
+        head_params=[tree_map(lambda t: t.to(device), p) for p in program.head_params],
+    )
+
+
+def _adaptive_programs(kind):
+    """A CPU program of ``kind`` ("toy": ``tanh(x @ W)`` blocks on 8 features,
+    scan suffixes; "transformer": a 3-layer fp32 smoke mistral-nemo), its
+    inputs, and a threshold between two requests' block-1 confidences."""
+    import dataclasses
+
+    from repro_torch.adaptive import mean_abs_confidence
+    from repro_torch.core import BlockCost, MultitaskProgram
+
+    rng = np.random.default_rng(0)
+    graph = TaskGraph.from_groups([[[0, 1, 2]], [[0, 1], [2]], [[0], [1], [2]]])
+    if kind == "toy":
+        nodes = {n: torch.tensor(rng.normal(size=(8, 8)), dtype=torch.float32)
+                 for n in graph.nodes()}
+        heads = [torch.tensor(rng.normal(size=(8, 3)), dtype=torch.float32) for _ in range(3)]
+        prog = MultitaskProgram(graph, [lambda p, x: torch.tanh(x @ p)] * 3, nodes,
+                                [lambda p, x: x @ p] * 3, heads,
+                                [BlockCost(100.0, 10.0)] * 3)
+        scale = np.where(np.arange(8) % 3 == 0, 0.2, 2.0)[:, None]
+        return prog, torch.tensor(rng.normal(size=(8, 8)) * scale, dtype=torch.float32), 0.5
+    cfg = dataclasses.replace(get_smoke_config("mistral-nemo-12b"), num_layers=3,
+                              dtype="float32", param_dtype="float32")
+    prog = build_transformer_program(graph, cfg, [4, 3, 5], 16,
+                                     generator=torch.Generator().manual_seed(0), device="cpu")
+    xs = torch.tensor(rng.integers(0, 1000, (8, 1, 16)), dtype=torch.int32)
+    h = prog.block_fns[0](prog.node_params[graph.path(0)[0]], xs.flatten(0, 1))
+    conf = torch.vmap(mean_abs_confidence)(h.unflatten(0, (8, 1))).sort().values
+    return prog, xs, float(conf[3] + conf[4]) / 2  # halfway: no row near it
+
+
+@pytest.mark.parametrize("kind", ["toy", "transformer"])
+@pytest.mark.parametrize("mode", ["early_exit", "per_block"])
+def test_masked_fused_suffix_matches_the_cpu(cuda, kind, mode):
+    """fp32: the masked fused suffix on the card gates exactly as on the CPU
+    (equal traces and counters), outputs within 1e-5 (2e-4 through the
+    transformer), and the thresholds live on the card."""
+    from repro_torch.adaptive import BlockGater
+
+    prog, xs, thr = _adaptive_programs(kind)
+    order = [0, 2, 1]
+    cpu = TaskGraphExecutor(prog, gater=BlockGater(mode=mode, threshold=thr))
+    card = TaskGraphExecutor(_on(prog, cuda), gater=BlockGater(mode=mode, threshold=thr))
+    want, s_cpu = cpu.run_batch(xs, order)
+    got, s_card = card.run_batch(xs.to(cuda), order)
+    assert card.last_trace == cpu.last_trace
+    assert s_card == s_cpu and s_card.block_rows_gated > 0
+    for key, (values, thrs) in card._thresholds.items():
+        assert key[2].type == "cuda" and thrs.device.type == "cuda"
+    tol = 1e-5 if kind == "toy" else 2e-4
+    for t in order:
+        torch.testing.assert_close(got[t].cpu(), want[t], rtol=0, atol=tol)
+
+
+def test_adaptive_floor_is_bit_identical_to_ungated_on_the_card(cuda):
+    """bf16 smoke transformer on the card: ``threshold=inf`` gives the ungated
+    executor's outputs bit for bit, with the same flash launches."""
+    import dataclasses
+
+    from repro_torch.adaptive import BlockGater
+
+    cfg = dataclasses.replace(get_smoke_config("mistral-nemo-12b"), num_layers=4)
+    graph = TaskGraph.from_groups([[[0, 1, 2]], [[0, 1], [2]], [[0], [1], [2]]])
+    prog = build_transformer_program(
+        graph, cfg, [4, 3, 5], 16, generator=torch.Generator(device=cuda).manual_seed(0))
+    xs = torch.randint(0, 1000, (4, 1, 16), device=cuda)
+    launches = []
+    outs = []
+    for gater in (None, BlockGater()):
+        before = flash_attention.launches
+        out, stats = TaskGraphExecutor(prog, gater=gater).run_batch(xs, [0, 2, 1])
+        torch.cuda.synchronize()
+        launches.append(flash_attention.launches - before)
+        outs.append(out)
+    assert launches[0] == launches[1] > 0
+    for t in (0, 1, 2):
+        assert torch.equal(outs[0][t], outs[1][t])
+
+
+def test_threshold_changes_build_no_program_on_the_card(cuda):
+    """Three thresholds in a row: no new suffix program, one threshold tensor
+    per ``(start, stop)`` on the card, refilled in place."""
+    from repro_torch.adaptive import BlockGater
+
+    prog, xs, thr = _adaptive_programs("toy")
+    ex = TaskGraphExecutor(_on(prog, cuda), gater=BlockGater(threshold=thr))
+    xs = xs.to(cuda)
+    ex.run_batch(xs, [0, 1, 2])
+    programs = len(ex._compiled_fused)
+    tensors = {k: id(t) for k, (_v, t) in ex._thresholds.items()}
+    for scale in (0.5, 2.0, 1.0):
+        ex.gater.threshold = thr * scale
+        ex.run_batch(xs, [0, 1, 2])
+        assert len(ex._compiled_fused) == programs
+        assert {k: id(t) for k, (_v, t) in ex._thresholds.items()} == tensors
+        for (start, stop, device), (values, thrs) in ex._thresholds.items():
+            assert thrs.device.type == "cuda"
+            assert torch.equal(thrs.cpu(), torch.tensor(values, dtype=torch.float32))

@@ -21,6 +21,14 @@ def _modules():
     )
 
 
+def test_every_package_is_covered():
+    """The checks below walk every module of the port, the input-adaptive
+    package's included."""
+    assert {"repro_torch.adaptive", "repro_torch.adaptive.gating",
+            "repro_torch.adaptive.gate_model", "repro_torch.adaptive.policy",
+            "repro_torch.core.executor", "repro_torch.serving.session"} <= set(_modules())
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"
