@@ -14,7 +14,14 @@
    and times kernel, plain version and, where one exists, one library call
    (the yardstick only) with CUDA events; a bf16 SSD row also gives each of
    its three kernels' device time from one profiler window, the bytes each
-   must move and its scratch bytes.
+   must move and its scratch bytes.  The flash backward (three kernels
+   behind ``FlashAttentionFunction``) is held against the plain backward on
+   the forward's own output and logsumexp and against autograd through the
+   plain forward, in fp32 and bf16, at mistral's training shape, 1000
+   frames over 1024 zero-padded keys without the causal mask, a causal
+   window the sequence passes, and head_dim 80 and 128; two backward calls
+   give the same bits, and the forward without the logsumexp (inference)
+   the same bits as with it; SDPA's backward is its yardstick.
 3. Drives Antler's main path on the paper's LeNet-5 at full width: affinity
    profiling of 5 random-initialised per-task networks on 512 probes,
    task-graph selection, Held-Karp and GA ordering, then
@@ -66,7 +73,20 @@
    chameleon-34b at full depth (48 layers, 4 x 512, 16 steps) and
    whisper-medium at full depth (1500 frames of normals, 4 x 32 tokens, 32
    steps); then the serve launcher on whisper-medium.
-9. Prints one ``{"kernels": [...]}`` line, then the device line last.
+9. Trains mistral-nemo-12b at full width, 8 of its 40 layers, remat on:
+   one batch of 4 x 512 tokens from ``lm_batches`` through the kernels and
+   through the plain attention on the same card from the same params
+   (loss and grad norm within 2e-2, each attention weight's gradient
+   within 5e-2 of its largest |value|), with ``grad_accum=2`` (loss within
+   2e-2), then 6 AdamW steps through ``make_train_step`` (the loss falls;
+   step ms, tokens/s, model FLOPs over the bf16 peak, peak memory, busy
+   share and top kernels), and a checkpoint round trip (bit-exact).  Then
+   the train launcher (``repro_torch.launch.train``) in-process on
+   whisper-medium's full config, 3 steps of 4 x 128 (its encoder and
+   cross-attention run the backward over keys zero-padded to 1024), and
+   the SSD's guard: under grad on the card it raises, as does an SSM
+   train step.
+10. Prints one ``{"kernels": [...]}`` line, then the device line last.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the script checks that the kernels ran where the path runs
@@ -76,7 +96,9 @@ in serving and in every session — a journaled one's lost work included —,
 once per decoder layer of a prefill and of each batcher wave's prefill (8,
 24, 8, 48), 9 times in zamba2's, 72 times in whisper's (once per encoder
 layer, twice per decoder layer); the SSD once per Mamba2 layer of a
-prefill, 48 and 54; none in decode), that served counters equal the cost
+prefill, 48 and 54; none in decode; in training, flash twice per
+attention layer of a step, forward and remat, and its backward once),
+that served counters equal the cost
 model's prediction field for field (every session's too, faults,
 streamed loads and checkpoint writes included), that served outputs match
 the per-block executor, that every session request succeeds, that faulted
@@ -119,8 +141,10 @@ import gc
 import io
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -141,8 +165,9 @@ from repro_torch.core.tradeoff import select_task_graph  # noqa: E402
 from repro_torch.data import MultitaskDataset, train_test_split  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.examples.quickstart import branch_point_taps  # noqa: E402
-from repro_torch._device import tree_map  # noqa: E402
+from repro_torch._device import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_module  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     SOURCE as FLASH_SOURCE, flash_attention,
 )
@@ -150,13 +175,16 @@ from repro_torch.kernels.pearson_affinity import (  # noqa: E402
     SOURCE as PEARSON_SOURCE, pearson_dissimilarity,
 )
 from repro_torch.kernels.ref import (  # noqa: E402
-    flash_attention_bhsd_ref, flash_attention_ref, pearson_dissimilarity_ref, ssd_scan_ref,
+    flash_attention_bhsd_bwd_ref, flash_attention_bhsd_ref, flash_attention_ref,
+    pearson_dissimilarity_ref, ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     SOURCE as SSD_SOURCE, kernel_bytes as ssd_kernel_bytes, scratch_bytes as ssd_scratch_bytes,
     ssd_scan,
 )
+from repro_torch.data import lm_batches  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models.cnn import build_lenet5_blocks  # noqa: E402
 from repro_torch.models.multitask import (  # noqa: E402
     _split_layers, build_cnn_program, build_transformer_program,
@@ -172,6 +200,10 @@ from repro_torch.serving import (  # noqa: E402
     PowerFailureInjector, RetryPolicy, ServingSession, SloAwarePolicy, WindowPolicy,
 )
 from repro_torch.serving.engine import _grow_cache  # noqa: E402
+from repro_torch.training import (  # noqa: E402
+    AdamWConfig, AdamWState, adamw_init, global_norm, loss_and_grads, make_train_step,
+    restore_checkpoint, save_checkpoint,
+)
 
 N_TASKS, N_CLASSES, N_BRANCH_POINTS = 5, 4, 3
 N_PROBES = 512
@@ -253,6 +285,29 @@ FLASH_RAGGED = (
     ("bhsd", 2, 150, 150, 32, 8, 160, True, 24),
     ("bhsd", 4, 1024, 1024, 32, 32, 80, True, None),  # zamba2's prefill, fp32 too
 )
+# The flash backward's rows, model layout: (path, B, S, T, Hq, Hk, d, causal,
+# window, real keys), each in fp32 and bf16.  mistral-nemo-12b's train step;
+# 1000 frames over 1024 keys zero-padded past them, non-causal (as the
+# whisper encoder's chunked attention pads them); a causal window the
+# sequence passes; head_dim 80 (zamba2's attention) and 128 (qwen2-moe's).
+FLASH_BWD = (
+    ("train", 4, 512, 512, 32, 8, 160, True, None, None),
+    ("whisper_padded", 4, 1000, 1024, 16, 16, 64, False, None, 1000),
+    ("window", 2, 1024, 1024, 8, 2, 128, True, 256, None),
+    ("d80", 4, 1024, 1024, 32, 32, 80, True, None, None),
+    ("d128", 4, 512, 512, 16, 16, 128, True, None, None),
+)
+# Each gradient's max abs error over its largest |value|: fp32 sums in
+# another order; bf16 inputs, each gradient rounded to bf16 once (the
+# measured worst is ~4.5e-3 against autograd through the plain version).
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+# The training path: mistral-nemo-12b at full width, depth 40 -> 8, with
+# remat, B x S tokens from lm_batches, TRAIN_STEPS AdamW steps.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 512, 6
+TRAIN_LOSS_TOL = 2e-2   # kernel route vs plain route, relative: loss, grad norm, grad_accum 2
+TRAIN_GRAD_TOL = 5e-2   # an attention weight's grad, of its largest |value|
+TRAIN_LAUNCHER = ("whisper-medium", 3, 4, 128)  # arch, steps, batch, seq
 
 # The SSM paths at full width and depth: (arch, batch, prompt, steps).
 MAMBA2 = ("mamba2-780m", 4, 2048, 32)
@@ -366,12 +421,14 @@ def pearson_bound(k: int, f: int) -> dict:
 def launch_counts() -> dict:
     return {"pearson_gram": pearson_dissimilarity.launches,
             "flash_attention": flash_attention.launches,
+            "flash_attention_bwd": flash_attention.backward_launches,
             "ssd_scan": ssd_scan.launches}
 
 
 def reset_launch_counts() -> None:
     pearson_dissimilarity.launches = 0
     flash_attention.launches = 0
+    flash_attention.backward_launches = 0
     ssd_scan.launches = 0
 
 
@@ -1638,7 +1695,8 @@ def quickstart_phase(device: torch.device) -> dict:
 
 # Device kernel names of the port's kernels (both passes of the Pearson Gram).
 PORT_KERNELS = ("pearson_partial_kernel", "pearson_reduce_kernel", "flash_bf16_kernel",
-                "flash_fp32_kernel", "ssd_scan_kernel", "ssd_chunk_state_kernel",
+                "flash_fp32_kernel", "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+                "flash_bwd_dq_kernel", "ssd_scan_kernel", "ssd_chunk_state_kernel",
                 "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 # The bf16 SSD's three kernels, in launch order.
 SSD_BF16_KERNELS = PORT_KERNELS[-3:]
@@ -1813,6 +1871,123 @@ def flash_phase(device: torch.device) -> dict:
             print(json.dumps({"kernel": "flash_attention", "check": what, "max_abs_err": err}),
                   flush=True)
     return {"rows": rows, "max_abs_err": max_err}
+
+
+def flash_bwd_bound(q: torch.Tensor, k: torch.Tensor, causal: bool, window) -> dict:
+    """Least time on the card for the backward of model-layout ``q`` (B, S,
+    Hq, d) over ``k``/``v`` (B, T, Hk, d): 10 * B * Hq * pairs * d
+    operations (S = Q K^T again, dP = dO V^T, dV, dQ, dK: five products) at
+    the peak of the input type, vs q, k, v, o, dO and the fp32 logsumexp
+    read once and dQ, dK, dV written once."""
+    b, s, hq, d = q.shape
+    peak = BF16_PEAK_FLOPS if q.dtype == torch.bfloat16 else FP32_PEAK_FLOPS
+    ops_ms = 10.0 * b * hq * allowed_pairs(s, k.shape[1], causal, window) * d / peak * 1e3
+    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4 * b * hq * s
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bytes": nbytes,
+    }
+
+
+def sdpa_backward_ms(q, k, v, d_o, causal: bool, window) -> float:
+    """One ``scaled_dot_product_attention`` forward and backward under
+    autograd, less its forward alone: the yardstick of the backward only."""
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+    dot = d_o.transpose(1, 2)
+    fwd = sdpa_call(qt.transpose(1, 2), kt.transpose(1, 2), vt.transpose(1, 2), causal, window)
+
+    def both():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    def forward_only():
+        with torch.no_grad():
+            fwd()
+
+    return cuda_ms(both, reps=10) - cuda_ms(forward_only, reps=10)
+
+
+def flash_bwd_phase(device: torch.device) -> dict:
+    """The flash backward (through ``FlashAttentionFunction``) vs the plain
+    backward on the forward's own output and logsumexp, and vs autograd
+    through the plain forward, at every row of :data:`FLASH_BWD` in fp32
+    and bf16; two backward calls give the same bits; the forward without
+    the logsumexp (inference) gives the same bits as with it.  Times the
+    backward's three kernels (one wrapper call), the plain backward and
+    SDPA's backward (the yardstick only) with CUDA events."""
+    rng = np.random.default_rng(2)
+    rows, max_err, max_abs = [], 0.0, 0.0
+    for name, b, s, t, hq, hk, d, causal, window, real_t in FLASH_BWD:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn(rng, (b, s, hq, d), dtype, device)
+            k = _randn(rng, (b, t, hk, d), dtype, device)
+            v = _randn(rng, (b, t, hk, d), dtype, device)
+            d_o = _randn(rng, (b, s, hq, d), dtype, device)
+            if real_t is not None:
+                k[:, real_t:] = 0
+                v[:, real_t:] = 0
+            what = f"flash backward {name} {dtype}"
+            geo = flash_module._geometry(q, k, causal, window)
+            o_inf, _ = flash_module._forward(q, k, v, geo, with_lse=False)
+            o, lse = flash_module._forward(q, k, v, geo, with_lse=True)
+            check(torch.equal(o_inf, o), f"{what}: the forward differs with the logsumexp on")
+
+            def grads():
+                qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+                out = ops.flash_attention_bhsd(qg, kg, vg, causal=causal, window=window)
+                return torch.autograd.grad(out, (qg, kg, vg), d_o)
+
+            fwd0, bwd0 = flash_attention.launches, flash_attention.backward_launches
+            first, second = grads(), grads()
+            torch.cuda.synchronize()
+            check(flash_attention.launches - fwd0 == 2 and
+                  flash_attention.backward_launches - bwd0 == 2,
+                  f"{what}: launches {flash_attention.launches - fwd0} forward, "
+                  f"{flash_attention.backward_launches - bwd0} backward, expected 2 and 2")
+            check(all(torch.equal(x, y) for x, y in zip(first, second)),
+                  f"{what}: two backward calls differ")
+            plain = flash_attention_bhsd_bwd_ref(q, k, v, o, d_o, lse, causal, window)
+            qf, kf, vf = (x.detach().float().requires_grad_(True) for x in (q, k, v))
+            auto = torch.autograd.grad(
+                flash_attention_bhsd_ref(qf, kf, vf, causal, window), (qf, kf, vf), d_o.float())
+            errs, auto_errs, abs_err = [], [], 0.0
+            for got, want, ag in zip(first, plain, auto):
+                diff = float((got.float() - want.float()).abs().max())
+                abs_err = max(abs_err, diff)
+                errs.append(diff / max(float(want.float().abs().max()), 1e-30))
+                auto_errs.append(float((got.float() - ag).abs().max()
+                                       / ag.abs().max().clamp_min(1e-30)))
+            tol = FLASH_BWD_TOL[dtype]
+            check(max(errs) <= tol and max(auto_errs) <= tol,
+                  f"{what}: dq/dk/dv errors {errs} vs the plain backward, {auto_errs} vs "
+                  f"autograd of the plain forward, of each one's largest |value|, > {tol}")
+            max_err = max(max_err, *errs, *auto_errs)
+            max_abs = max(max_abs, abs_err)
+            del first, second, plain, auto, qf, kf, vf, o_inf
+            big = s * t > 1024 * 1024
+            row = {
+                "kernel": "flash_attention_bwd", "path": name, "B": b, "S": s, "T": t,
+                "Hq": hq, "Hk": hk, "d": d, "causal": causal, "window": window,
+                "real_keys": real_t, "dtype": str(dtype).removeprefix("torch."),
+                "max_abs_err": abs_err, "max_rel_err": errs, "max_rel_err_autograd": auto_errs,
+                "bit_identical": True,
+                "forward_unchanged_by_lse": True,
+                "kernel_ms": cuda_ms(
+                    lambda: flash_module._launch_bwd(q, k, v, o, d_o, lse, geo), reps=10),
+                "plain_ms": cuda_ms(
+                    lambda: flash_attention_bhsd_bwd_ref(q, k, v, o, d_o, lse, causal, window),
+                    reps=3 if big else 10, warmup=1 if big else 5),
+                "library_ms": sdpa_backward_ms(q, k, v, d_o, causal, window),
+                **flash_bwd_bound(q, k, causal, window),
+                "peak": ("bf16 tensor cores 989 TFLOP/s" if dtype == torch.bfloat16 else
+                         "fp32 CUDA cores 67 TFLOP/s") + ", HBM 3.35 TB/s (H100 SXM data sheet)",
+            }
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            del q, k, v, d_o, o, lse
+            free_memory()
+    return {"rows": rows, "max_rel_err": max_err, "max_abs_err": max_abs}
 
 
 # --------------------------------------------------------------------------
@@ -2208,7 +2383,8 @@ def prefill_launches(cfg) -> dict:
              "ssm": 0, "hybrid": cfg.num_layers // max(cfg.hybrid_attn_period, 1),
              "encdec": cfg.enc_layers + 2 * cfg.num_layers}[cfg.family]
     ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
-    return {"pearson_gram": 0, "flash_attention": flash, "ssd_scan": ssd}
+    return {"pearson_gram": 0, "flash_attention": flash, "flash_attention_bwd": 0,
+            "ssd_scan": ssd}
 
 
 def model_lm_phase(device: torch.device, cfg, batch: int, prompt_len: int, steps: int,
@@ -2284,6 +2460,259 @@ def launcher_phase(arch: str, steps: int = LAUNCHER_STEPS, extra_args=()) -> dic
     return {"launches": launches, "line": text.splitlines()[0]}
 
 
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_attention():
+    """The models' full-sequence attention through the plain version on the
+    card, under autograd (the plain route of the training gates): the flash
+    kernels do not run."""
+    kernel = ops.flash_attention_bhsd
+    ops.flash_attention_bhsd = flash_attention_bhsd_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention_bhsd = kernel
+
+
+def train_model_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one dense-transformer training step, remat's recompute
+    not counted: 6 per weight of every matrix product per token (Q, K, V and
+    O projections, the SwiGLU MLP, the unembedding; the embedding is a
+    gather) and 12 * d per kept query-key pair per query head and layer
+    (Q K^T and P V, forward and twice in the backward)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    per_layer = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + 3 * d * cfg.d_ff
+    weights = cfg.num_layers * per_layer + d * cfg.vocab_size
+    pairs = allowed_pairs(seq, seq, True, cfg.sliding_window)
+    return (6.0 * weights * batch * seq
+            + 12.0 * cfg.num_layers * batch * cfg.n_heads * pairs * hd)
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_phase(device: torch.device, cfg=None, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS) -> dict:
+    """LM training on mistral-nemo-12b at full width, 8 of its 40 layers,
+    remat on, B x S tokens of ``lm_batches(seed=0)``.  Gates: the first
+    batch's loss and grad norm through the kernels within 2e-2 of the plain
+    route's on the same card from the same params, and each attention
+    weight's gradient within 5e-2 of its largest |value|; ``grad_accum=2``
+    the same loss within 2e-2; flash twice per layer (forward and remat)
+    and its backward once per layer in every step; the loss falls over
+    ``TRAIN_STEPS`` AdamW steps; a checkpoint of params and optimizer state
+    restores bit-exactly.  Prints step ms, tokens/s, model FLOPs per second
+    over the bf16 peak, peak memory, the device's busy share and the top
+    kernels of one more step (on the card; on the CPU, for a rehearsal with
+    a smoke ``cfg``, the launch counts are 0 and not gated)."""
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+        check(cfg.remat, "the full config trains with remat")
+    on_card = device.type == "cuda"
+    fwd_per_layer = 2 if cfg.remat else 1
+    model = get_model(cfg)
+    layers = cfg.num_layers
+    laps = Laps(device)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    it = lm_batches(cfg.vocab_size, batch, seq, seed=0)
+    batches = [next(it) for _ in range(steps + 1)]
+    laps.lap("init")
+
+    # The plain route: the same loss and gradients with the plain attention.
+    reset_launch_counts()
+    with plain_attention():
+        loss_p, _, grads = loss_and_grads(model, params, batches[0])
+        gnorm_p = float(global_norm(grads))
+    plain_launches = launch_counts()
+    check(plain_launches["flash_attention"] == 0 == plain_launches["flash_attention_bwd"],
+          f"the plain route launched flash: {plain_launches}")
+    attn_plain = dict(grads["layers"]["attn"])
+    del grads
+    free_memory()
+    laps.lap("plain_route")
+
+    reset_launch_counts()
+    reset_peak(device)
+    loss_k, _, grads = loss_and_grads(model, params, batches[0])
+    grad_launches = launch_counts()
+    gnorm_k = float(global_norm(grads))
+    grads_peak = peak_gb(device)
+    check(not on_card or (grad_launches["flash_attention"] == fwd_per_layer * layers
+                          and grad_launches["flash_attention_bwd"] == layers),
+          f"one batch's gradients: launches {grad_launches}, expected flash "
+          f"{fwd_per_layer * layers} "
+          f"(forward and remat) and its backward {layers}")
+    loss_rel, gnorm_rel = rel(float(loss_k), float(loss_p)), rel(gnorm_k, gnorm_p)
+    check(loss_rel <= TRAIN_LOSS_TOL and gnorm_rel <= TRAIN_LOSS_TOL,
+          f"kernel vs plain route: loss {float(loss_k)} vs {float(loss_p)}, grad norm "
+          f"{gnorm_k} vs {gnorm_p}, > {TRAIN_LOSS_TOL} relative")
+    attn_err = {}
+    for name, want in attn_plain.items():
+        got = grads["layers"]["attn"][name]
+        check(float(got.abs().max()) > 0, f"attention weight {name} got no gradient")
+        attn_err[name] = float((got.float() - want.float()).abs().max()
+                               / want.float().abs().max().clamp_min(1e-30))
+    check(max(attn_err.values()) <= TRAIN_GRAD_TOL,
+          f"attention weights' gradients vs the plain route's: {attn_err} > {TRAIN_GRAD_TOL} "
+          "of each one's largest |value|")
+    del grads, attn_plain
+    free_memory()
+    laps.lap("kernel_route")
+
+    reset_launch_counts()
+    loss_a, _, grads = loss_and_grads(model, params, batches[0], grad_accum=2)
+    accum_launches = launch_counts()
+    del grads
+    free_memory()
+    accum_rel = rel(float(loss_a), float(loss_k))
+    check(accum_rel <= TRAIN_LOSS_TOL,
+          f"grad_accum 2 loss {float(loss_a)} vs {float(loss_k)} > {TRAIN_LOSS_TOL} relative")
+    check(not on_card or accum_launches["flash_attention_bwd"] == 2 * layers,
+          f"grad_accum 2: launches {accum_launches}")
+    laps.lap("grad_accum")
+
+    opt = adamw_init(params)
+    step_fn = make_train_step(
+        model, AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps))
+    reset_launch_counts()
+    reset_peak(device)
+    losses, gnorms, step_ms = [], [], []
+    for tokens in batches[:steps]:
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, tokens)
+        sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    step_launches = launch_counts()
+    step_peak = peak_gb(device)
+    check(not on_card or (step_launches["flash_attention"] == fwd_per_layer * layers * steps
+                          and step_launches["flash_attention_bwd"] == layers * steps),
+          f"{steps} train steps: launches {step_launches}, expected flash "
+          f"{fwd_per_layer * layers} and its backward {layers} a step")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"the loss did not fall over {steps} steps: {losses}")
+    laps.lap("steps")
+
+    # One more step under the profiler (its launches are not the gates').
+    steady_ms = statistics.median(step_ms[1:])
+    state = {"params": params, "opt": opt}
+
+    def one_step():
+        state["params"], state["opt"], _ = step_fn(state["params"], state["opt"], batches[-1])
+
+    breakdown = (device_breakdown(one_step, steady_ms, top=8, warm=False, cpu=False)
+                 if on_card else {"busy": None})
+    params, opt = state["params"], state["opt"]
+    laps.lap("profiled_step")
+
+    # A checkpoint of params and optimizer state round-trips bit-exactly:
+    # bf16 weights, fp32 moments, the int32 step.
+    tree = {"params": {"final_norm": params["final_norm"],
+                       "layers": {"attn": {"wo": params["layers"]["attn"]["wo"]}}},
+            "opt": AdamWState(step=opt.step, mu={"final_norm": opt.mu["final_norm"]},
+                              nu={"final_norm": opt.nu["final_norm"]})}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"ckpt_{steps}.npz")
+        save_checkpoint(path, tree, step=steps)
+        restored, step = restore_checkpoint(path, tree)
+    pairs = list(zip(tree_leaves(tree), tree_leaves(restored)))
+    check(step == steps and all(a.dtype == b.dtype and a.device == b.device
+                                      and torch.equal(a, b) for a, b in pairs),
+          "the checkpoint did not round-trip bit-exactly")
+    laps.lap("checkpoint")
+
+    flops = train_model_flops(cfg, batch, seq)
+    row = {
+        "arch": cfg.name, "layers": layers, "batch": batch, "seq": seq,
+        "remat": cfg.remat, "steps": steps,
+        "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "loss_rel": loss_rel,
+        "grad_norm_kernel": gnorm_k, "grad_norm_plain": gnorm_p, "grad_norm_rel": gnorm_rel,
+        "attn_grad_rel_err": attn_err, "loss_grad_accum_2": float(loss_a),
+        "grad_accum_rel": accum_rel, "losses": losses, "grad_norms": gnorms,
+        "step_ms": step_ms, "steady_step_ms": steady_ms,
+        "tokens_per_s": batch * seq / (steady_ms / 1e3),
+        "model_flops_per_step": flops,
+        "model_flops_share_of_bf16_peak": flops / (steady_ms / 1e3) / BF16_PEAK_FLOPS,
+        "peak_memory_gb": {"gradients": grads_peak, "steps": step_peak},
+        "launches": {"gradients": grad_launches, "grad_accum_2": accum_launches,
+                     "steps": step_launches},
+        "busy": breakdown["busy"], "device_breakdown": breakdown,
+        "checkpoint_bit_exact": True, "seconds": laps.seconds,
+    }
+    print(json.dumps({"train": row}), flush=True)
+    del params, opt, state, tree, restored, pairs
+    free_memory()
+    return row
+
+
+def train_launcher_phase(arch: str, steps: int, batch: int, seq: int, extra_args=()) -> dict:
+    """``python -m repro_torch.launch.train --arch <arch>`` in-process at the
+    full config: whisper-medium's encoder and cross-attention run the flash
+    backward without the causal mask over keys zero-padded to its
+    ``attn_chunk``.  Checks its step lines and tokens/s line, finite losses,
+    flash twice per attention layer per step (forward and remat) and its
+    backward once."""
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+            *extra_args]
+    on_card = "cpu" not in extra_args
+    buf = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        out = train_launcher.main(argv)
+    launches = launch_counts()
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    attn_layers = prefill_launches(cfg)["flash_attention"]  # one launch per attention layer
+    check("step    0 loss" in text and "tok/s" in text, f"train launcher printed {text!r}")
+    check(all(np.isfinite(h["loss"]) for h in out["history"]), f"losses {out['history']}")
+    check(not on_card or (launches["flash_attention"] == 2 * attn_layers * steps
+                          and launches["flash_attention_bwd"] == attn_layers * steps),
+          f"train launcher: launches {launches}, expected flash {2 * attn_layers} and its "
+          f"backward {attn_layers} a step")
+    del out
+    free_memory()
+    return {"launches": launches, "line": text.strip().splitlines()[-1]}
+
+
+def ssd_guard_phase(device: torch.device) -> dict:
+    """The SSD has no backward kernel yet: on the card, with grad enabled and
+    an input that requires grad, the wrapper raises, and so does a train
+    step of an SSM model; without grad it runs."""
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (1, 128, 2, 64), torch.float32, device).requires_grad_(True)
+    dt = torch.full((1, 128, 2), 0.1, device=device)
+    a = -torch.ones(2, device=device)
+    b_in = _randn(rng, (1, 128, 128), torch.float32, device)
+    c_in = _randn(rng, (1, 128, 128), torch.float32, device)
+    raised = []
+    try:
+        ssd_scan(x, dt, a, b_in, c_in, 64)
+    except NotImplementedError as err:
+        raised.append(str(err))
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(MAMBA2[0])
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    try:
+        loss_and_grads(model, params, np.zeros((1, 32), dtype=np.int32))
+    except NotImplementedError as err:
+        raised.append(str(err))
+    check(len(raised) == 2, f"the SSD under grad on the card did not raise: {raised}")
+    with torch.no_grad():
+        y, _ = ssd_scan(x, dt, a, b_in, c_in, 64)
+    check(not y.requires_grad and bool(torch.isfinite(y).all()), "the SSD without grad")
+    row = {"ssd_guard": {"raised": len(raised), "message": raised[0]}}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def check_pipeline_launches(tf: dict, cfg, label: str) -> int:
     """A transformer pipeline's launches: flash twice per tapped block of
     each task in the profile (2 layers a block, 3 taps), Pearson once per
@@ -2338,6 +2767,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = kernel_phase(device)
     flash = flash_phase(device)
+    flash_bwd = flash_bwd_phase(device)
     ssd = ssd_phase(device)
     print(json.dumps({"kernel_checks_seconds": time.perf_counter() - t0}), flush=True)
 
@@ -2479,6 +2909,15 @@ def main() -> int:
           f"whisper launcher: launches {launcher_whisper['launches']}")
     print(json.dumps({"launcher": launcher_whisper}), flush=True)
     free_memory()
+
+    # Training: mistral-nemo-12b (8 layers) through the flash backward, the
+    # train launcher on whisper-medium, and the SSD's guard.
+    t0 = time.perf_counter()
+    train = train_phase(device)
+    train_launch = train_launcher_phase(*TRAIN_LAUNCHER)
+    print(json.dumps({"train_launcher": train_launch}), flush=True)
+    ssd_guard_phase(device)
+    print(json.dumps({"training_phases_seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"smoke_seconds": time.perf_counter() - t_start}), flush=True)
 
     pearson_row = kernels["rows"][0]
@@ -2489,6 +2928,12 @@ def main() -> int:
                     for arch in family}
     flash_row = flash["rows"][0]
     ssd_main = [r for r in ssd["rows"] if r["path"] in ("mamba2_prefill", "zamba2_prefill")]
+    train_flash = {f"train_{k}": v["flash_attention"] for k, v in train["launches"].items()}
+    train_flash["whisper_train_launcher"] = train_launch["launches"]["flash_attention"]
+    train_bwd = {f"train_{k}": v["flash_attention_bwd"] for k, v in train["launches"].items()}
+    train_bwd["whisper_train_launcher"] = train_launch["launches"]["flash_attention_bwd"]
+    bwd_row = next(r for r in flash_bwd["rows"]
+                   if r["path"] == "train" and r["dtype"] == "bfloat16")
     ssd_by_path = {"mamba2_prefill": mamba["launches"]["ssd_scan"],
                    "zamba2_prefill": zamba["launches"]["ssd_scan"],
                    "launcher": launcher["launches"]["ssd_scan"]}
@@ -2528,7 +2973,8 @@ def main() -> int:
                      + lm["launches"]["flash_attention"] + zamba["launches"]["flash_attention"]
                      + moe_prof["flash_attention"] + moe_serve["flash_attention"]
                      + sum(family_flash.values())
-                     + launcher_whisper["launches"]["flash_attention"]),
+                     + launcher_whisper["launches"]["flash_attention"]
+                     + sum(train_flash.values())),
         "launches_by_path": {"transformer_profile": prof["flash_attention"],
                              "transformer_serve": serve["flash_attention"],
                              **{f"transformer_session_{name}": n
@@ -2542,7 +2988,8 @@ def main() -> int:
                              "moe_profile": moe_prof["flash_attention"],
                              "moe_serve": moe_serve["flash_attention"],
                              **family_flash,
-                             "whisper_launcher": launcher_whisper["launches"]["flash_attention"]},
+                             "whisper_launcher": launcher_whisper["launches"]["flash_attention"],
+                             **train_flash},
         "max_abs_err": flash["max_abs_err"],
         "ms": flash_row["kernel_ms"],
         "plain_ms": flash_row["plain_ms"],
@@ -2551,6 +2998,25 @@ def main() -> int:
         "library_ms": flash_row["library_ms"],
         "shape": flash_row["shape"],
         "by_path": {r["path"]: {k: r[k] for k in ("shape", *timed)} for r in flash["rows"]},
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        # No pallas_call: the reference differentiates its jnp attention
+        # (attention_chunked) with XLA's autodiff.
+        "replaces": "src/repro/models/layers.py:176",
+        "launches": sum(train_bwd.values()),
+        "launches_by_path": train_bwd,
+        "max_abs_err": flash_bwd["max_abs_err"],
+        "max_rel_err": flash_bwd["max_rel_err"],
+        "ms": bwd_row["kernel_ms"],
+        "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"],
+        "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"],
+        "shape": [bwd_row[k] for k in ("B", "S", "T", "Hq", "Hk", "d")],
+        "by_path": {f"{r['path']}_{r['dtype']}": {k: r[k] for k in timed}
+                    for r in flash_bwd["rows"]},
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -21,12 +21,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a params tree (dicts, lists and
-    tuples of tensors — the layout of the reference's pytrees)."""
+    """Apply ``fn`` to every tensor leaf of a params tree (dicts, lists,
+    tuples and NamedTuples of tensors — the layout of the reference's
+    pytrees)."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     return tree

@@ -94,6 +94,7 @@ struct Args {
   int causal;
   int window;  // <= 0: no window
   float scale;
+  float* lse;  // (batch * hq, s) fp32 logsumexp of each row's scaled scores, or null
 };
 
 // KV tiles of `bk` keys that some query of [q0, q0 + bq) may attend to.
@@ -260,6 +261,8 @@ flash_fp32_kernel(const Args a) {
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
       o[qi * a.o_ss + tx + 16 * j] = acc[r][j] / denom;
+    // Every thread of the row holds the same m and l (shuffle all-reduce).
+    if (a.lse != nullptr && tx == 0) a.lse[static_cast<long long>(bh) * a.s + qi] = m[r] + logf(denom);
   }
 }
 
@@ -289,6 +292,7 @@ constexpr int kBk = 64;        // keys per ring stage: the N of S, 4 k-steps of 
 constexpr int kStages = 2;     // K/V ring
 constexpr int kQBufs = 2;      // Q: this item's and the next's
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Q, K and V tiles are Tiles of D columns (hopper_tma_wgmma.cuh): the wgmma
 // descriptors read an atom K-major for Q and K (8-row groups 1024 bytes
@@ -517,6 +521,10 @@ flash_bf16_kernel(const Args a, const __grid_constant__ CUtensorMap q_map,
       const int qi = row_a + 8 * r;
       if (qi >= a.s) continue;
       const float inv = 1.0f / fmaxf(l, 1e-30f);  // one division per row, not per output
+      // m and l are in log2 units: the logsumexp in natural ones.
+      if (a.lse != nullptr && qd == 0)
+        a.lse[(static_cast<long long>(x.b) * a.hq + x.h) * a.s + qi] =
+            (m[r] + log2f(fmaxf(l, 1e-30f))) * kLn2;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
         const __nv_bfloat162 val = __floats2bfloat162_rn(o_acc[4 * i + 2 * r] * inv,
@@ -583,16 +591,390 @@ int dispatch_dim(const Args& a, int batch, int d, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward, fp32 and bf16, on the CUDA cores
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+constexpr int kB = 64;         // queries of a query tile, keys of a KV tile
+constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 score micro-tile each
+constexpr int kLd = kB + 1;    // padded leading dim of the transposed tiles
+
+// Tensors of the backward, in the order of their strides.
+enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV, kTensors };
+
+struct Args {
+  const void* ptr[kTensors];  // q, k, v, o, dO, then the dq, dk, dv outputs
+  const float* lse;          // (batch * hq, s), natural units
+  float* delta;              // (batch * hq, s) scratch: rowsum(dO * O)
+  int batch, hq, hk, s, t;
+  long long st[kTensors][3];  // (batch, sequence, head) element strides
+  int causal;
+  int window;  // <= 0: no window
+  float scale;
+};
+
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// Row 0 of head h of batch row b of tensor i.
+template <typename T>
+__device__ __forceinline__ T* head(const Args& a, int i, int b, int h) {
+  return static_cast<T*>(const_cast<void*>(a.ptr[i])) + b * a.st[i][0] + h * a.st[i][2];
+}
+
+__device__ __forceinline__ bool allowed(const Args& a, int q_pos, int k_pos) {
+  bool ok = q_pos < a.s && k_pos < a.t;
+  if (a.causal) ok = ok && q_pos >= k_pos;
+  if (a.window > 0) ok = ok && (q_pos - k_pos) < a.window;
+  return ok;
+}
+
+// Rows r0 .. r0 + kB - 1 of a (rows, D) tile with row stride `rs`, into
+// dst[c * kLd + r] in fp32, zero past row n: coalesced reads, a column of
+// the transposed tile written with stride kLd (distinct banks).
+template <typename T, int D>
+__device__ __forceinline__ void load_t(float* dst, const T* src, long long rs, int r0, int n) {
+  for (int l = threadIdx.x; l < kB * D; l += kThreads) {
+    const int r = l / D;
+    const int c = l % D;
+    const int i = r0 + r;
+    dst[c * kLd + r] = i < n ? load(src + i * rs + c) : 0.0f;
+  }
+}
+
+// Query tiles whose rows attend to some key of the KV tile at kv0: from the
+// causal diagonal to the window's reach.
+__device__ __forceinline__ void q_tiles(const Args& a, int kv0, int& begin, int& end) {
+  begin = a.causal ? kv0 / kB : 0;
+  int last = a.s - 1;
+  if (a.window > 0) last = min(last, kv0 + kB - 1 + a.window - 1);
+  end = last / kB + 1;
+}
+
+// KV tiles that some query of the query tile at q0 attends to (the
+// forward's kv_tiles).
+__device__ __forceinline__ void k_tiles(const Args& a, int q0, int& begin, int& end) {
+  const int q_last = min(q0 + kB, a.s) - 1;
+  begin = 0;
+  if (a.window > 0 && q0 - a.window + 1 > 0) begin = (q0 - a.window + 1) / kB;
+  end = (a.t + kB - 1) / kB;
+  if (a.causal) end = min(end, q_last / kB + 1);
+}
+
+// For queries q0 + ty + 16 r and keys kv0 + tx + 16 c of the staged tiles:
+// P = exp(scale * q k - lse), 0 where masked, and dS = P (dO v - delta).
+template <int D>
+__device__ __forceinline__ void probs(const Args& a, const float* q_t, const float* k_t,
+                                      const float* do_t, const float* v_t,
+                                      const float* lse_s, const float* dl_s, int q0, int kv0,
+                                      float p[4][4], float ds[4][4]) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  float dp[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) p[r][c] = dp[r][c] = 0.0f;
+#pragma unroll 4
+  for (int c = 0; c < D; ++c) {
+    float qa[4], da[4], kb[4], vb[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      qa[r] = q_t[c * kLd + ty + 16 * r];
+      da[r] = do_t[c * kLd + ty + 16 * r];
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      kb[cc] = k_t[c * kLd + tx + 16 * cc];
+      vb[cc] = v_t[c * kLd + tx + 16 * cc];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        p[r][cc] = fmaf(qa[r], kb[cc], p[r][cc]);
+        dp[r][cc] = fmaf(da[r], vb[cc], dp[r][cc]);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ty + 16 * r;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const bool ok = allowed(a, q0 + i, kv0 + tx + 16 * cc);
+      p[r][cc] = ok ? expf(p[r][cc] * a.scale - lse_s[i]) : 0.0f;
+      ds[r][cc] = p[r][cc] * (dp[r][cc] - dl_s[i]);
+    }
+  }
+}
+
+// The query tile's dO, lse and delta rows, zero past S.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(const Args& a, float* q_t, float* do_t, float* lse_s,
+                                          float* dl_s, int b, int h, int q0) {
+  load_t<T, D>(q_t, head<const T>(a, kQ, b, h), a.st[kQ][1], q0, a.s);
+  load_t<T, D>(do_t, head<const T>(a, kDO, b, h), a.st[kDO][1], q0, a.s);
+  const long long row = (static_cast<long long>(b) * a.hq + h) * a.s;
+  if (threadIdx.x < kB) {
+    const int i = q0 + threadIdx.x;
+    lse_s[threadIdx.x] = i < a.s ? a.lse[row + i] : 0.0f;
+    dl_s[threadIdx.x] = i < a.s ? a.delta[row + i] : 0.0f;
+  }
+}
+
+// delta = rowsum(dO * O) in fp32: one warp per (batch, head, query) row.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(const Args a) {
+  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<long long>(a.batch) * a.hq * a.s) return;
+  const int i = static_cast<int>(row % a.s);
+  const int bh = static_cast<int>(row / a.s);
+  const int b = bh / a.hq;
+  const int h = bh % a.hq;
+  const T* o = head<const T>(a, kO, b, h) + i * a.st[kO][1];
+  const T* d_o = head<const T>(a, kDO, b, h) + i * a.st[kDO][1];
+  float acc = 0.0f;
+  for (int c = lane; c < D; c += 32) acc = fmaf(load(o + c), load(d_o + c), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) a.delta[row] = acc;
+}
+
+template <int D>
+constexpr size_t dkdv_smem_bytes() {
+  // k_t, v_t, q_t, do_t [D][kLd]; p, ds [kB][kLd]; lse, delta [kB]
+  return sizeof(float) * (4 * D * kLd + 2 * kB * kLd + 2 * kB);
+}
+
+// dK and dV of one KV tile of one KV head: the block walks every query head
+// of the head's GQA group, in order, and each of its query tiles that
+// attends to the tile, accumulating in registers: no atomics, one fixed
+// order of summation.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args a) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int kCols = D / 16;
+  extern __shared__ float smem[];
+  float* k_t = smem;
+  float* v_t = k_t + D * kLd;
+  float* q_t = v_t + D * kLd;
+  float* do_t = q_t + D * kLd;
+  float* p_s = do_t + D * kLd;   // [query][key]
+  float* ds_s = p_s + kB * kLd;  // [query][key]
+  float* lse_s = ds_s + kB * kLd;
+  float* dl_s = lse_s + kB;
+
+  const int tx = threadIdx.x % 16;  // head dims tx + 16 j
+  const int ty = threadIdx.x / 16;  // keys ty + 16 r
+  const int b = blockIdx.x / a.hk;
+  const int hk = blockIdx.x % a.hk;
+  const int rep = a.hq / a.hk;
+  const int kv0 = blockIdx.y * kB;
+
+  load_t<T, D>(k_t, head<const T>(a, kK, b, hk), a.st[kK][1], kv0, a.t);
+  load_t<T, D>(v_t, head<const T>(a, kV, b, hk), a.st[kV][1], kv0, a.t);
+
+  float dk[4][kCols], dv[4][kCols];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) dk[r][j] = dv[r][j] = 0.0f;
+
+  int begin, end;
+  q_tiles(a, kv0, begin, end);
+  for (int g = 0; g < rep; ++g) {
+    const int h = hk * rep + g;
+    for (int qt = begin; qt < end; ++qt) {
+      const int q0 = qt * kB;
+      __syncthreads();  // the last tile's q_t, do_t, p_s and ds_s are consumed
+      load_rows<T, D>(a, q_t, do_t, lse_s, dl_s, b, h, q0);
+      __syncthreads();
+      float p[4][4], ds[4][4];
+      probs<D>(a, q_t, k_t, do_t, v_t, lse_s, dl_s, q0, kv0, p, ds);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          p_s[(ty + 16 * r) * kLd + tx + 16 * cc] = p[r][cc];
+          ds_s[(ty + 16 * r) * kLd + tx + 16 * cc] = ds[r][cc];
+        }
+      __syncthreads();
+      // dV += P^T dO and dK += dS^T Q over the tile's queries.
+#pragma unroll 2
+      for (int i = 0; i < kB; ++i) {
+        float pr[4], dr[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pr[r] = p_s[i * kLd + ty + 16 * r];
+          dr[r] = ds_s[i * kLd + ty + 16 * r];
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const float dov = do_t[(tx + 16 * j) * kLd + i];
+          const float qv = q_t[(tx + 16 * j) * kLd + i];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            dv[r][j] = fmaf(pr[r], dov, dv[r][j]);
+            dk[r][j] = fmaf(dr[r], qv, dk[r][j]);
+          }
+        }
+      }
+    }
+  }
+
+  T* d_k = head<T>(a, kDK, b, hk);
+  T* d_v = head<T>(a, kDV, b, hk);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = kv0 + ty + 16 * r;
+    if (j >= a.t) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      store(d_k + j * a.st[kDK][1] + tx + 16 * c, dk[r][c] * a.scale);
+      store(d_v + j * a.st[kDV][1] + tx + 16 * c, dv[r][c]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // q_t, do_t, k_t, v_t [D][kLd]; ds [kB][kLd]; lse, delta [kB]
+  return sizeof(float) * (4 * D * kLd + kB * kLd + 2 * kB);
+}
+
+// dQ of one query tile of one query head: the block walks the KV tiles the
+// tile attends to, in order.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  constexpr int kCols = D / 16;
+  extern __shared__ float smem[];
+  float* q_t = smem;
+  float* do_t = q_t + D * kLd;
+  float* k_t = do_t + D * kLd;
+  float* v_t = k_t + D * kLd;
+  float* ds_s = v_t + D * kLd;  // [query][key]
+  float* lse_s = ds_s + kB * kLd;
+  float* dl_s = lse_s + kB;
+
+  const int tx = threadIdx.x % 16;  // head dims tx + 16 j
+  const int ty = threadIdx.x / 16;  // queries ty + 16 r
+  const int b = blockIdx.x / a.hq;
+  const int h = blockIdx.x % a.hq;
+  const int hk = h / (a.hq / a.hk);
+  const int q0 = blockIdx.y * kB;
+  load_rows<T, D>(a, q_t, do_t, lse_s, dl_s, b, h, q0);
+
+  float dq[4][kCols];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) dq[r][j] = 0.0f;
+
+  int begin, end;
+  k_tiles(a, q0, begin, end);
+  for (int tile = begin; tile < end; ++tile) {
+    const int kv0 = tile * kB;
+    __syncthreads();  // the last tile's k_t, v_t and ds_s are consumed
+    load_t<T, D>(k_t, head<const T>(a, kK, b, hk), a.st[kK][1], kv0, a.t);
+    load_t<T, D>(v_t, head<const T>(a, kV, b, hk), a.st[kV][1], kv0, a.t);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    probs<D>(a, q_t, k_t, do_t, v_t, lse_s, dl_s, q0, kv0, p, ds);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) ds_s[(ty + 16 * r) * kLd + tx + 16 * cc] = ds[r][cc];
+    __syncthreads();
+    // dQ += dS K over the tile's keys.
+#pragma unroll 2
+    for (int j = 0; j < kB; ++j) {
+      float dr[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dr[r] = ds_s[(ty + 16 * r) * kLd + j];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float kv = k_t[(tx + 16 * c) * kLd + j];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dq[r][c] = fmaf(dr[r], kv, dq[r][c]);
+      }
+    }
+  }
+
+  T* d_q = head<T>(a, kDQ, b, h);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q0 + ty + 16 * r;
+    if (i >= a.s) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) store(d_q + i * a.st[kDQ][1] + tx + 16 * c, dq[r][c] * a.scale);
+  }
+}
+
+template <typename K>
+cudaError_t set_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// The three kernels in order on `stream`: delta, dK/dV, dQ.
+template <typename T, int D>
+int launch(const Args& a, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(a.batch) * a.hq * a.s;
+  const int rows_per_block = kThreads / 32;
+  flash_bwd_delta_kernel<T, D><<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
+                                 kThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr size_t kv_bytes = dkdv_smem_bytes<D>();
+  err = set_smem(flash_bwd_dkdv_kernel<T, D>, kv_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_kernel<T, D><<<dim3(a.batch * a.hk, (a.t + kB - 1) / kB), kThreads, kv_bytes,
+                                stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  constexpr size_t q_bytes = dq_smem_bytes<D>();
+  err = set_smem(flash_bwd_dq_kernel<T, D>, q_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_kernel<T, D><<<dim3(a.batch * a.hq, (a.s + kB - 1) / kB), kThreads, q_bytes,
+                              stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_dim(const Args& a, int d, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch<T, 16>(a, stream);
+    case 32: return launch<T, 32>(a, stream);
+    case 64: return launch<T, 64>(a, stream);
+    case 80: return launch<T, 80>(a, stream);
+    case 128: return launch<T, 128>(a, stream);
+    case 160: return launch<T, 160>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // dtype 0 = fp32, 1 = bf16.  Strides are in elements, per tensor as
 // (batch, sequence, head).  bf16 needs 16-byte aligned rows: every pointer
-// 16-byte aligned and every stride a multiple of 8.  Launches on `stream`
-// and returns cudaGetLastError() (0 = launched); an unsupported dtype or
-// head_dim, or unaligned bf16 rows, return cudaErrorInvalidValue without
-// launching, and a refused tensor map 1000 + its CUresult.
+// 16-byte aligned and every stride a multiple of 8.  `lse`, when not null,
+// receives each row's fp32 logsumexp of its scaled, masked scores in natural
+// units, laid out (batch * hq, s): what the backward reads; null leaves the
+// forward as it is without it.  Launches on `stream` and returns
+// cudaGetLastError() (0 = launched); an unsupported dtype or head_dim, or
+// unaligned bf16 rows, return cudaErrorInvalidValue without launching, and a
+// refused tensor map 1000 + its CUresult.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
     int batch, int hq, int hk, int s, int t, int d,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -603,7 +985,7 @@ extern "C" int flash_attention_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q, k, v, o, batch, hq, hk, s, t,
          q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
-         causal, window, scale};
+         causal, window, scale, lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_dim<float>(a, batch, d, st);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -612,4 +994,42 @@ extern "C" int flash_attention_fwd(
   for (long long x : {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh})
     if (x % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_dim<__nv_bfloat16>(a, batch, d, st);
+}
+
+// The backward of flash_attention_fwd: dq, dk and dv (in the inputs' dtype,
+// 0 = fp32, 1 = bf16) from q, k, v, the output o, its gradient dout and the
+// forward's logsumexp `lse` ((batch * hq, s) fp32).  `delta` is fp32
+// scratch of the same shape.  `strides` holds 24 element strides, (batch,
+// sequence, head) of q, k, v, o, dout, dq, dk and dv in that order; every
+// head dim is contiguous.  Three kernels on `stream`: delta, dK/dV, dQ.
+// Returns 0 once all three are launched, else the first launch's
+// cudaGetLastError(); an unsupported dtype or head_dim returns
+// cudaErrorInvalidValue without launching.
+extern "C" int flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const float* lse, void* dq, void* dk, void* dv, float* delta, int dtype,
+    int batch, int hq, int hk, int s, int t, int d, const long long* strides,
+    int causal, int window, float scale, void* stream) {
+  if (hk <= 0 || hq % hk != 0 || s <= 0 || t <= 0 || batch <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bwd::Args a{};
+  const void* tensors[bwd::kTensors] = {q, k, v, o, dout, dq, dk, dv};
+  for (int i = 0; i < bwd::kTensors; ++i) {
+    a.ptr[i] = tensors[i];
+    for (int j = 0; j < 3; ++j) a.st[i][j] = strides[3 * i + j];
+  }
+  a.lse = lse;
+  a.delta = delta;
+  a.batch = batch;
+  a.hq = hq;
+  a.hk = hk;
+  a.s = s;
+  a.t = t;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return bwd::dispatch_dim<float>(a, d, st);
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd::dispatch_dim<__nv_bfloat16>(a, d, st);
 }

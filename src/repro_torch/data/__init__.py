@@ -1,2 +1,2 @@
-"""Synthetic multitask classification data."""
-from repro_torch.data.synthetic import MultitaskDataset, train_test_split
+"""Synthetic data: LM token streams and multitask classification."""
+from repro_torch.data.synthetic import MultitaskDataset, lm_batches, train_test_split

@@ -1,12 +1,16 @@
-"""Synthetic multitask data (a copy of ``repro.data.synthetic``).
+"""Synthetic datasets (a copy of ``repro.data.synthetic``).
 
-:class:`MultitaskDataset` is the paper-style setting: one shared domain
-``X`` and ``n`` classification tasks over it.  Samples are mixtures of
-per-factor prototypes; each task labels a different latent factor, and
-tasks sharing factors exhibit the affinity structure Antler exploits (tasks
-2i and 2i+1 share factor groups -> high pairwise affinity).  It draws from
-``np.random.default_rng``, so it reproduces the reference bit for bit.  The
-reference's LM token streams wait for the training slice.
+Two generators, both drawing from ``np.random.default_rng``, so they
+reproduce the reference bit for bit:
+
+* :func:`lm_batches` — Zipf-distributed token streams with a planted Markov
+  structure, so LM training loss decreases measurably within a few hundred
+  steps (the train launcher's data).
+* :class:`MultitaskDataset` — the paper-style setting: one shared domain
+  ``X`` and ``n`` classification tasks over it.  Samples are mixtures of
+  per-factor prototypes; each task labels a different latent factor, and
+  tasks sharing factors exhibit the affinity structure Antler exploits
+  (tasks 2i and 2i+1 share factor groups -> high pairwise affinity).
 """
 from __future__ import annotations
 
@@ -14,6 +18,47 @@ import dataclasses
 from typing import Iterator, Tuple
 
 import numpy as np
+
+
+# --------------------------------------------------------------------------
+# Language-model streams
+# --------------------------------------------------------------------------
+
+def lm_batches(
+    vocab_size: int,
+    batch: int,
+    seq_len: int,
+    seed: int = 0,
+    order: int = 2,
+) -> Iterator[np.ndarray]:
+    """Infinite iterator of (batch, seq_len) int32 token arrays.
+
+    Tokens follow a sparse random ``order``-gram process over a Zipf
+    unigram prior: predictable enough that a model visibly learns.
+    """
+    rng = np.random.default_rng(seed)
+    # Zipf unigram prior over the first min(vocab, 4096) types.
+    v_eff = min(vocab_size, 4096)
+    ranks = np.arange(1, v_eff + 1)
+    prior = 1.0 / ranks
+    prior /= prior.sum()
+    # Each context hashes to a small candidate set -> planted structure.
+    table = rng.integers(0, v_eff, size=(8192, 4))
+
+    while True:
+        out = np.empty((batch, seq_len), dtype=np.int32)
+        state = rng.choice(v_eff, size=(batch, order), p=prior)
+        for t in range(seq_len):
+            ctx = (state[:, 0] * 31 + state[:, 1] * 7) % 8192
+            cands = table[ctx]                       # (batch, 4)
+            pick = rng.integers(0, 4, size=batch)
+            nxt = cands[np.arange(batch), pick]
+            # 10% noise from the prior keeps entropy non-trivial.
+            noise = rng.random(batch) < 0.1
+            nxt = np.where(noise, rng.choice(v_eff, size=batch, p=prior), nxt)
+            out[:, t] = nxt
+            state = np.concatenate([state[:, 1:], nxt[:, None]], axis=1)
+        yield out
 
 
 # --------------------------------------------------------------------------

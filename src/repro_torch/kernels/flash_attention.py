@@ -30,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,7 +47,13 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.flash_attention_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    fn = lib.flash_attention_bwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -100,30 +106,143 @@ def _check_rows(s: int, t: int, window: Optional[int]) -> None:
         )
 
 
+class _Geometry(NamedTuple):
+    """How the kernels index one call: ``batch`` rows of ``hq`` query heads
+    over ``hk`` KV heads, ``s`` queries, ``t`` keys.  ``rep`` is None for the
+    model layout (B, S, H, d); for the flat layout (BH, S, d) it is BH / BHk,
+    and the kernels see batch BHk, ``rep`` query heads and one KV head."""
+
+    batch: int
+    hq: int
+    hk: int
+    s: int
+    t: int
+    rep: Optional[int]
+    causal: bool
+    window: Optional[int]
+
+
+def _geometry(q: torch.Tensor, k: torch.Tensor, causal: bool, window: Optional[int]) -> _Geometry:
+    if q.dim() == 3:
+        bh, s, _d = q.shape
+        bhk, t, _ = k.shape
+        rep = bh // bhk
+        return _Geometry(bhk, rep, 1, s, t, rep, causal, window)
+    b, s, hq, _d = q.shape
+    return _Geometry(b, hq, k.shape[2], s, k.shape[1], None, causal, window)
+
+
+def _strides(x: torch.Tensor, g: _Geometry, kv: bool) -> Tuple[int, int, int]:
+    """(batch, seq, head) element strides of ``x`` as the kernels index it:
+    the model layout as it lies; a flat query-side tensor (q, o and their
+    gradients) as (BH / rep, S, rep, d); a flat K/V-side one as (BHk, T, 1,
+    d), its one head without a stride."""
+    if g.rep is None:
+        return x.stride(0), x.stride(1), x.stride(2)
+    if kv:
+        return x.stride(0), x.stride(1), 0
+    return g.rep * x.stride(0), x.stride(1), x.stride(0)
+
+
 def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-    batch: int, hq: int, hk: int, s: int, t: int,
-    strides, causal: bool, window: Optional[int],
+    lse: Optional[torch.Tensor], g: _Geometry,
 ) -> None:
-    """One kernel launch; ``strides`` are (batch, seq, head) element strides
-    of q, k, v and o in that order."""
-    if batch * hq == 0 or s == 0:
+    """One forward launch, writing ``o`` and, when given, the fp32
+    logsumexp ``lse`` ((batch, hq, s) in the kernels' geometry)."""
+    if g.batch * g.hq == 0 or g.s == 0:
         return
-    _check_rows(s, t, window)
+    _check_rows(g.s, g.t, g.window)
     lib = _library()
     d = q.shape[-1]
-    flat = [int(x) for st in strides for x in st]
+    flat = [int(x) for t, kv in ((q, False), (k, True), (v, True), (o, False))
+            for x in _strides(t, g, kv)]
     with _build.on_device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPE_CODES[q.dtype], batch, hq, hk, s, t, d, *flat,
-            int(causal), 0 if window is None else int(window),
+            None if lse is None else lse.data_ptr(),
+            _DTYPE_CODES[q.dtype], g.batch, g.hq, g.hk, g.s, g.t, d, *flat,
+            int(g.causal), 0 if g.window is None else int(g.window),
             1.0 / math.sqrt(d), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
+
+
+def _launch_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    d_o: torch.Tensor, lse: torch.Tensor, g: _Geometry,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's three kernels (delta, dK/dV, dQ) on the current
+    stream: dq, dk and dv, contiguous, in the inputs' dtype and shapes.
+    :attr:`flash_attention.backward_launches` counts the call once."""
+    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))
+    if g.batch * g.hq == 0 or g.s == 0:
+        return dq, dk.zero_(), dv.zero_()
+    if d_o.stride(-1) != 1:
+        raise ValueError("the flash backward needs dO's head dim contiguous")
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    roles = ((q, False), (k, True), (v, True), (o, False), (d_o, False),
+             (dq, False), (dk, True), (dv, True))
+    strides = (ctypes.c_longlong * 24)(*(int(x) for t, kv in roles for x in _strides(t, g, kv)))
+    lib = _library()
+    d = q.shape[-1]
+    with _build.on_device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), d_o.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            _DTYPE_CODES[q.dtype], g.batch, g.hq, g.hk, g.s, g.t, d, strides,
+            int(g.causal), 0 if g.window is None else int(g.window),
+            1.0 / math.sqrt(d), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err}")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+def _forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: _Geometry, with_lse: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The output, contiguous in ``q``'s shape, and the logsumexp if asked."""
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((g.batch, g.hq, g.s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    _launch(q, k, v, o, lse, g)
+    return o, lse
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The kernel under autograd.  The forward also writes the logsumexp,
+    and saves q, k, v, o and it; the backward launches the backward
+    kernels.  ``geometry`` says how the kernels index the tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, geometry: _Geometry):
+        o, lse = _forward(q, k, v, geometry, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.geometry = geometry
+        return o
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, o, grad_o.contiguous(), lse, ctx.geometry)
+        return dq, dk, dv, None
+
+
+def _attend(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: _Geometry,
+) -> torch.Tensor:
+    """The forward alone where no gradient is wanted (inference asks for no
+    logsumexp), else through :class:`FlashAttentionFunction`."""
+    q, k, v = (_aligned(x) for x in (q, k, v))
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, g)
+    return _forward(q, k, v, g, with_lse=False)[0]
 
 
 def flash_attention(
@@ -135,29 +254,18 @@ def flash_attention(
     ``q`` is (BH, S, d); ``k`` and ``v`` are (BHk, T, d) with BH a multiple
     of BHk (query slice ``i`` reads KV slice ``i // (BH / BHk)``).  Returns
     (BH, S, d) in ``q``'s dtype.  On CUDA the kernel launches on the current
-    stream and :attr:`flash_attention.launches` counts it.
+    stream and :attr:`flash_attention.launches` counts it; under autograd
+    the backward kernels give the inputs' gradients.
     """
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
     if q.dim() != 3 or k.dim() != 3:
         raise ValueError(f"flash_attention takes (BH, S, d) tensors, got {tuple(q.shape)}")
-    bh, s, _d = q.shape
-    bhk, t, _ = k.shape
+    bh, bhk = q.shape[0], k.shape[0]
     if bhk == 0 or bh % bhk != 0:
         raise ValueError(f"BH {bh} is not a multiple of BHk {bhk}")
-    q, k, v = (_aligned(x) for x in (q, k, v))
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    # Batch = the KV slices, heads = the query slices sharing one of them.
-    rep = bh // bhk
-    strides = [
-        (rep * q.stride(0), q.stride(1), q.stride(0)),
-        (k.stride(0), k.stride(1), 0),
-        (v.stride(0), v.stride(1), 0),
-        (rep * o.stride(0), o.stride(1), o.stride(0)),
-    ]
-    _launch(q, k, v, o, bhk, rep, 1, s, t, strides, causal, window)
-    return o
+    return _attend(q, k, v, _geometry(q, k, causal, window))
 
 
 def flash_attention_bhsd_kernel(
@@ -170,15 +278,12 @@ def flash_attention_bhsd_kernel(
     _check(q, k, v, window)
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"expected (B, S, H, d) tensors, got {tuple(q.shape)}")
-    b, s, hq, _d = q.shape
-    bk, t, hk, _ = k.shape
+    b, _s, hq, _d = q.shape
+    bk, _t, hk, _ = k.shape
     if bk != b or hk == 0 or hq % hk != 0:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not group")
-    q, k, v = (_aligned(x) for x in (q, k, v))
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    strides = [(x.stride(0), x.stride(1), x.stride(2)) for x in (q, k, v, o)]
-    _launch(q, k, v, o, b, hq, hk, s, t, strides, causal, window)
-    return o
+    return _attend(q, k, v, _geometry(q, k, causal, window))
 
 
 flash_attention.launches = 0
+flash_attention.backward_launches = 0

@@ -84,10 +84,17 @@ def pearson_dissimilarity(z: torch.Tensor) -> torch.Tensor:
 
     A CUDA ``z`` must be fp32, 2-D and contiguous; both passes launch on
     the current stream and :attr:`pearson_dissimilarity.launches` counts
-    the call once.
+    the call once.  The kernel has no backward: on CUDA, with grad enabled
+    and ``z`` requiring grad, it raises ``NotImplementedError`` rather than
+    return an output cut off from autograd.
     """
     if z.device.type == "cpu":
         return pearson_dissimilarity_ref(z)
+    if torch.is_grad_enabled() and z.requires_grad:
+        raise NotImplementedError(
+            "pearson_dissimilarity has no backward kernel: the affinity analysis needs no "
+            "gradient, so call it under torch.no_grad() or on a detached tensor"
+        )
     if z.dtype != torch.float32:
         raise TypeError(f"pearson_dissimilarity takes fp32, got {z.dtype}")
     if z.dim() != 2:

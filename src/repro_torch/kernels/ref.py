@@ -50,6 +50,88 @@ def flash_attention_ref(
     return torch.einsum("bst,btd->bsd", w, v.float()).to(q.dtype)
 
 
+def _flash_scores(
+    q: torch.Tensor, k: torch.Tensor, causal: bool, window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 scaled scores (BH, S, T) of flat ``q`` over the repeated ``k``,
+    and the mask (S, T) of the pairs kept."""
+    rep = q.shape[0] // k.shape[0]
+    kf = k.float().repeat_interleave(rep, dim=0)
+    s = torch.einsum("bsd,btd->bst", q.float(), kf) / math.sqrt(q.shape[-1])
+    qp = torch.arange(q.shape[1], device=q.device)[:, None]
+    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones(s.shape[1:], dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= (qp - kp) < window
+    return s, mask
+
+
+def flash_attention_lse_ref(
+    q: torch.Tensor, k: torch.Tensor, causal: bool = True, window: Optional[int] = None,
+) -> torch.Tensor:
+    """The fp32 logsumexp (BH, S) of each query row's scaled scores over the
+    keys it keeps: what the kernel's forward saves for its backward."""
+    s, mask = _flash_scores(q, k, causal, window)
+    return torch.logsumexp(torch.where(mask[None], s, torch.full_like(s, NEG_INF)), dim=-1)
+
+
+def flash_attention_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    d_o: torch.Tensor, lse: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The textbook gradients of :func:`flash_attention_ref` in fp32 from
+    what the forward saves: flat ``q`` (BH, S, d), ``k``/``v`` (BHk, T, d),
+    the output ``o``, its gradient ``d_o`` and the logsumexp ``lse`` (BH, S).
+
+    ``P = exp(S - lse)`` on the kept pairs (0 elsewhere), ``dV = P^T dO``,
+    ``dP = dO V^T``, ``dS = P (dP - rowsum(dO o))``, ``dQ = dS K / sqrt(d)``
+    and ``dK = dS^T Q / sqrt(d)``; dK and dV summed over the query heads of
+    each KV head.  Returns (dq, dk, dv) in the inputs' dtypes.
+    """
+    rep = q.shape[0] // k.shape[0]
+    s, mask = _flash_scores(q, k, causal, window)
+    p = torch.where(mask[None], torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
+    dof = d_o.float()
+    kf = k.float().repeat_interleave(rep, dim=0)
+    vf = v.float().repeat_interleave(rep, dim=0)
+    dv = torch.einsum("bst,bsd->btd", p, dof)
+    dp = torch.einsum("bsd,btd->bst", dof, vf)
+    ds = p * (dp - (dof * o.float()).sum(-1, keepdim=True))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bst,btd->bsd", ds, kf) * scale
+    dk = torch.einsum("bst,bsd->btd", ds, q.float()) * scale
+
+    def group(x: torch.Tensor) -> torch.Tensor:
+        return x.unflatten(0, (k.shape[0], rep)).sum(1)
+
+    return dq.to(q.dtype), group(dk).to(k.dtype), group(dv).to(v.dtype)
+
+
+def flash_attention_bhsd_bwd_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    d_o: torch.Tensor, lse: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_bwd_ref` in model layout: ``q``, ``o``,
+    ``d_o`` (B, S, Hq, d), ``k``/``v`` (B, T, Hk, d), ``lse`` (B, Hq, S)."""
+    b, s, hq, d = q.shape
+    hk = k.shape[2]
+
+    def flat(x: torch.Tensor, h: int) -> torch.Tensor:
+        return x.transpose(1, 2).reshape(b * h, -1, d)
+
+    dq, dk, dv = flash_attention_bwd_ref(
+        flat(q, hq), flat(k, hk), flat(v, hk), flat(o, hq), flat(d_o, hq),
+        lse.reshape(b * hq, s), causal=causal, window=window,
+    )
+    return (dq.reshape(b, hq, s, d).transpose(1, 2),
+            dk.reshape(b, hk, -1, d).transpose(1, 2),
+            dv.reshape(b, hk, -1, d).transpose(1, 2))
+
+
 def flash_attention_bhsd_ref(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool = True, window: Optional[int] = None,

@@ -204,10 +204,19 @@ def ssd_scan(
 
     On CUDA the kernel launches on the current stream and
     :attr:`ssd_scan.launches` counts it; on the CPU the plain version runs.
+    The kernel has no backward yet: on CUDA, with grad enabled and an input
+    that requires grad, it raises ``NotImplementedError`` rather than return
+    an output cut off from autograd.
     """
     check_devices(x, dt, a, b_in, c_in)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, a, b_in, c_in, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_in, c_in)):
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet: training an SSM or hybrid model on CUDA "
+            "waits for the slice that ports the SSD backward (ROADMAP.md, Queue 1); "
+            "the CPU's plain version is differentiable"
+        )
     _check(x, dt, a, b_in, c_in, chunk)
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]

@@ -152,13 +152,16 @@ def encode(params: Params, features: Any, cfg: ModelConfig) -> torch.Tensor:
     t = features.shape[1]
     x = features.to(cfg.activation_dtype()) @ params["frontend_proj"]
     x = x + sinusoids(t, cfg.d_model, x.device).to(x.dtype)[None]
-    for i in range(num_stacked(params["enc_layers"])):
-        lp = layer_params(params["enc_layers"], i)
+
+    def body(lp: Params, x: torch.Tensor) -> torch.Tensor:
         h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
         k, v = L.project_kv(lp["attn"], h)
         x = x + _attend(lp["attn"], h, k, v, cfg, causal=False, chunked=True)
         h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + L.mlp_block(lp["mlp"], h, cfg)
+        return x + L.mlp_block(lp["mlp"], h, cfg)
+
+    for i in range(num_stacked(params["enc_layers"])):
+        x = L.remat(cfg, body, layer_params(params["enc_layers"], i), x)
     return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -181,8 +184,8 @@ def _decoder(
     every attention takes its chunked path."""
     layers = params["dec_layers"]
     caches = []
-    for i in range(num_stacked(layers)):
-        lp = layer_params(layers, i)
+
+    def body(lp: Params, x: torch.Tensor, enc_out: torch.Tensor):
         h = L.rmsnorm(lp["self_norm"], x, cfg.norm_eps)
         sk, sv = L.project_kv(lp["self_attn"], h)
         chunked = sk.shape[1] > cfg.attn_chunk or not cached
@@ -192,9 +195,12 @@ def _decoder(
         chunked = ck.shape[1] > cfg.attn_chunk or not cached
         x = x + _attend(lp["cross_attn"], h, ck, cv, cfg, causal=False, chunked=chunked)
         h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + L.mlp_block(lp["mlp"], h, cfg)
+        return x + L.mlp_block(lp["mlp"], h, cfg), (sk, sv, ck, cv)
+
+    for i in range(num_stacked(layers)):
+        x, kv = L.remat(cfg, body, layer_params(layers, i), x, enc_out)
         if cached:
-            caches.append((sk, sv, ck, cv))
+            caches.append(kv)
     if not cached:
         return x, None
     sks, svs, cks, cvs = (torch.stack(parts) for parts in zip(*caches))

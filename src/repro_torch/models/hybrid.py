@@ -167,10 +167,14 @@ def forward(
     tokens = _tokens(tokens, params)
     x = L.embed_tokens(params["embed"], tokens, cfg)
     q_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+
+    def inner(lp: Params, x: torch.Tensor) -> torch.Tensor:
+        y, _ = M.mamba_block(lp, x, cfg)
+        return x + y
+
     for i in range(n_inv):
         for j in range(period):
-            y, _ = M.mamba_block(_mamba(params, i, j), x, cfg)
-            x = x + y
+            x = L.remat(cfg, inner, _mamba(params, i, j), x)
         inv_norm, inv_lora = _invocation(params, i)
         x, _ = _shared_attn_apply(params, inv_norm, x, cfg, q_pos, inv_lora=inv_lora)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -18,7 +18,8 @@ Conventions, as in the reference:
   branch in jnp too, outside any Pallas kernel).
 
 The reference's sharding ``policy`` arguments are no-ops on one device and
-are dropped.
+are dropped.  Where the reference wraps a layer body in ``jax.checkpoint``
+under ``cfg.remat``, the port calls it through :func:`remat`.
 """
 from __future__ import annotations
 
@@ -27,13 +28,28 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch._device import tree_leaves
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
 NEG_INF = -1e30
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, rematerialised in training: under ``cfg.remat``, with
+    grad enabled and some tensor of ``args`` requiring grad, through
+    ``torch.utils.checkpoint`` (non-reentrant), so that the layer body's
+    activations are recomputed in the backward instead of kept — the
+    reference's ``jax.checkpoint`` of the body.  Elsewhere (inference) a
+    plain call: nothing is recomputed and no kernel launches twice."""
+    if (cfg.remat and torch.is_grad_enabled()
+            and any(t.requires_grad for t in tree_leaves(list(args)))):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # --------------------------------------------------------------------------

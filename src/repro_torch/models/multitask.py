@@ -15,7 +15,8 @@ and parameters:
   reference's serving analogue), weights drawn on the generator's device;
 * :func:`transformer_program_from_reference` /
   :func:`params_from_reference` — the JAX transformer program's and model's
-  weights, carried over;
+  weights, carried over; :func:`adamw_state_from_reference` — the JAX
+  optimizer's state;
 * :func:`multitask_forward` — the uncached forward of every task;
 * :func:`program_trainable_params` / :func:`program_with_params` /
   :func:`multitask_loss` — the joint multitask training surface (gradients
@@ -37,6 +38,7 @@ from repro_torch.models import cnn
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.training.optimizer import AdamWState
 
 Params = Dict[str, Any]
 NodeId = Tuple[int, Tuple[int, ...]]
@@ -277,6 +279,18 @@ def params_from_reference(params: Mapping[str, Any], *, device: DeviceLike = Non
     stack and its optional ``inv_lora``, the enc-dec's two stacks and
     frontend — so the tree carries over leaf for leaf."""
     return _tree_from_numpy(params, resolve_device(device))
+
+
+def adamw_state_from_reference(state: Any, *, device: DeviceLike = None) -> AdamWState:
+    """The reference's ``AdamWState`` (``step``, ``mu``, ``nu``; numpy
+    leaves) as the port's: the step as a CPU int32 scalar, the fp32 moments
+    on ``device`` in the params' layout."""
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32),
+        mu=_tree_from_numpy(state.mu, dev),
+        nu=_tree_from_numpy(state.nu, dev),
+    )
 
 
 def transformer_program_from_reference(

@@ -301,9 +301,13 @@ def forward(
     """Full-sequence logits (B, S, V) and a zero aux loss."""
     tokens = _tokens(tokens, params)
     x = L.embed_tokens(params["embed"], tokens, cfg)
+
+    def body(lp: Params, x: torch.Tensor) -> torch.Tensor:
+        y, _ = mamba_block(lp, x, cfg)
+        return x + y
+
     for i in range(num_stacked(params["layers"])):
-        y, _ = mamba_block(layer_params(params["layers"], i), x, cfg)
-        x = x + y
+        x = L.remat(cfg, body, layer_params(params["layers"], i), x)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

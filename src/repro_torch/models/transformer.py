@@ -192,8 +192,13 @@ def forward(
     x = L.embed_tokens(params["embed"], tokens, cfg)
     q_pos = _positions(tokens.shape[1], x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(lp: Params, x: torch.Tensor):
+        x, _, a = _layer_apply(lp, x, cfg, q_pos)
+        return x, a
+
     for i in range(num_stacked(params["layers"])):
-        x, _, a = _layer_apply(layer_params(params["layers"], i), x, cfg, q_pos)
+        x, a = L.remat(cfg, body, layer_params(params["layers"], i), x)
         aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg), aux
@@ -221,10 +226,13 @@ def prefill(
     x = L.embed_tokens(params["embed"], tokens, cfg)
     q_pos = _positions(s, x.device)
     ks, vs = [], []
+
+    def body(lp: Params, x: torch.Tensor):
+        x, kv, _ = _layer_apply(lp, x, cfg, q_pos, return_kv=True)
+        return x, kv
+
     for i in range(num_stacked(params["layers"])):
-        x, (k, v), _ = _layer_apply(
-            layer_params(params["layers"], i), x, cfg, q_pos, return_kv=True
-        )
+        x, (k, v) = L.remat(cfg, body, layer_params(params["layers"], i), x)
         ks.append(k)
         vs.append(v)
     x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)

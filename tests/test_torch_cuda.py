@@ -670,3 +670,188 @@ def test_threshold_changes_build_no_program_on_the_card(cuda):
         for (start, stop, device), (values, thrs) in ex._thresholds.items():
             assert thrs.device.type == "cuda"
             assert torch.equal(thrs.cpu(), torch.tensor(values, dtype=torch.float32))
+
+
+# --------------------------------------------------------------------------
+# The flash backward and the kernels' grad guards
+# --------------------------------------------------------------------------
+
+# Relative to each gradient's largest |value|: fp32 inputs on the CUDA
+# cores, fp32 sums in another order; bf16 inputs, each gradient rounded to
+# bf16 once.
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _flash_grads(q, k, v, d_o, causal, window):
+    """(o, dq, dk, dv) through the kernel under autograd (flat or model layout)."""
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    attend = flash_attention if q.dim() == 3 else ops.flash_attention_bhsd
+    o = attend(q, k, v, causal=causal, window=window)
+    return (o.detach(), *torch.autograd.grad(o, (q, k, v), d_o))
+
+
+def _plain_grads(q, k, v, d_o, causal, window):
+    """Autograd through the plain version in fp32 (flat or model layout)."""
+    q, k, v = (x.detach().float().requires_grad_(True) for x in (q, k, v))
+    attend = flash_attention_ref if q.dim() == 3 else flash_attention_bhsd_ref
+    return torch.autograd.grad(attend(q, k, v, causal, window), (q, k, v), d_o.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,bhk,s,t,d,causal,window", FLASH_CASES)
+def test_flash_backward_matches_plain_version(cuda, bh, bhk, s, t, d, causal, window, dtype):
+    """dQ, dK and dV against the plain backward on the forward's own output
+    and logsumexp, and against autograd through the plain forward; one
+    forward and one backward launch counted."""
+    from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_lse_ref
+
+    q, k, v = (_randn(sh, dtype, cuda, i) for i, sh in
+               enumerate(((bh, s, d), (bhk, t, d), (bhk, t, d)), 11))
+    d_o = _randn((bh, s, d), dtype, cuda, 14)
+    fwd, bwd = flash_attention.launches, flash_attention.backward_launches
+    o, dq, dk, dv = _flash_grads(q, k, v, d_o, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention.backward_launches == bwd + 1
+    assert (dq.dtype, dk.dtype, dv.dtype) == (dtype,) * 3
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    lse = flash_attention_lse_ref(q, k, causal, window)
+    tol = FLASH_BWD_TOL[dtype]
+    for got, want in zip((dq, dk, dv), flash_attention_bwd_ref(q, k, v, o, d_o, lse, causal,
+                                                                window)):
+        assert _rel_err(got, want) <= tol
+    for got, want in zip((dq, dk, dv), _plain_grads(q, k, v, d_o, causal, window)):
+        assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 160])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+def test_flash_backward_model_layout_every_head_dim(cuda, d, causal, window, dtype):
+    """GQA 8/2 on the model layout, K and V views of one projection as in the
+    model, at every head_dim the kernels take."""
+    q = _randn((2, 150, 8, d), dtype, cuda, 21)
+    kv = _randn((2, 150, 2, 2, d), dtype, cuda, 22)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    d_o = _randn((2, 150, 8, d), dtype, cuda, 23)
+    _o, dq, dk, dv = _flash_grads(q, k, v, d_o, causal, window)
+    torch.cuda.synchronize()
+    for got, want in zip((dq, dk, dv), _plain_grads(q, k, v, d_o, causal, window)):
+        assert _rel_err(got, want) <= FLASH_BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_bit_identical_across_calls(cuda, dtype):
+    """No atomics: dK and dV summed over a GQA group in one fixed order."""
+    q = _randn((4, 512, 32, 160), dtype, cuda, 31)
+    k = _randn((4, 512, 8, 160), dtype, cuda, 32)
+    v = _randn((4, 512, 8, 160), dtype, cuda, 33)
+    d_o = _randn((4, 512, 32, 160), dtype, cuda, 34)
+    first = _flash_grads(q, k, v, d_o, True, None)
+    second = _flash_grads(q, k, v, d_o, True, None)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_is_unchanged_by_the_logsumexp(cuda, dtype):
+    """Inference asks for no logsumexp: its output is bit-identical to the
+    forward that writes one (under autograd), which equals the plain
+    version's logsumexp."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import flash_attention_lse_ref
+
+    q = _randn((2, 300, 8, 128), dtype, cuda, 41)
+    k = _randn((2, 300, 2, 128), dtype, cuda, 42)
+    v = _randn((2, 300, 2, 128), dtype, cuda, 43)
+    g = fa._geometry(q, k, True, 100)
+    plain, none = fa._forward(q, k, v, g, with_lse=False)
+    with_lse, lse = fa._forward(q, k, v, g, with_lse=True)
+    graded = ops.flash_attention_bhsd(q.requires_grad_(True), k, v, window=100)
+    torch.cuda.synchronize()
+    assert none is None
+    assert torch.equal(plain, with_lse) and torch.equal(plain, graded.detach())
+    want = flash_attention_lse_ref(q.detach().transpose(1, 2).reshape(16, 300, 128),
+                                   k.transpose(1, 2).reshape(4, 300, 128), True, 100)
+    torch.testing.assert_close(lse.reshape(16, 300), want, rtol=0, atol=1e-5)
+
+
+def test_flash_function_agrees_with_autograd_of_the_plain_version(cuda):
+    """``FlashAttentionFunction``'s gradients in fp32 at a small shape
+    against autograd through the plain version, flowing on into an input
+    and a projection (no detached output): within 1e-5 of each gradient's
+    largest |value|, as the kernel's own tests.  The projection is scaled
+    by 1 / sqrt(fan-in), as the models initialise theirs, so the scores
+    stay unit-scale."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFunction, _geometry
+
+    x = _randn((2, 40, 32), torch.float32, cuda, 51).requires_grad_(True)
+    w = (_randn((32, 3, 4, 16), torch.float32, cuda, 52) / 32 ** 0.5).requires_grad_(True)
+
+    def loss_of(attend):
+        q, k, v = torch.einsum("bsd,dphk->pbshk", x, w).unbind(0)
+        out = attend(q.contiguous(), k.contiguous(), v.contiguous())
+        return (out * out).sum()
+
+    gx, gw = torch.autograd.grad(
+        loss_of(lambda q, k, v: FlashAttentionFunction.apply(q, k, v,
+                                                             _geometry(q, k, True, None))),
+        (x, w))
+    gx_ref, gw_ref = torch.autograd.grad(
+        loss_of(lambda q, k, v: flash_attention_bhsd_ref(q, k, v, True, None)), (x, w))
+    assert _rel_err(gx, gx_ref) <= 1e-5
+    assert _rel_err(gw, gw_ref) <= 1e-5
+
+
+def test_ssd_and_pearson_refuse_grad_on_the_card(cuda):
+    """Neither has a backward kernel yet: with grad enabled and an input
+    that requires grad each raises instead of returning a tensor cut off
+    from autograd; without grad each runs."""
+    x = _randn((1, 64, 2, 64), torch.float32, cuda, 61).requires_grad_(True)
+    dt = torch.full((1, 64, 2), 0.1, device=cuda)
+    a = -torch.ones(2, device=cuda)
+    b_in = _randn((1, 64, 128), torch.float32, cuda, 62)
+    c_in = _randn((1, 64, 128), torch.float32, cuda, 63)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd_scan(x, dt, a, b_in, c_in, 64)
+    with torch.no_grad():
+        y, _ = ssd_scan(x, dt, a, b_in, c_in, 64)
+    assert not y.requires_grad
+    z = ops.standardize_rows(_randn((16, 64), torch.float32, cuda, 64)).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        pearson_dissimilarity(z)
+    assert pearson_dissimilarity(z.detach()).shape == (16, 16)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One AdamW step of a 2-layer fp32 smoke transformer on the card: every
+    leaf gets a gradient (the attention weights through the flash backward,
+    one backward launch per layer) within 1e-4 of its largest |value| of the
+    CPU's (autograd through the plain version)."""
+    from repro_torch._device import tree_leaves
+    from repro_torch.training import AdamWConfig, adamw_init, loss_and_grads, make_train_step
+
+    cfg = get_smoke_config("mistral-nemo-12b")
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = tree_map(lambda p: p.to(cuda), params)
+    tokens = np.random.default_rng(0).integers(0, cfg.raw_vocab_size, (2, 64))
+    fwd, bwd = flash_attention.launches, flash_attention.backward_launches
+    loss, _, grads = loss_and_grads(model, on_card, tokens)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - fwd == cfg.num_layers
+    assert flash_attention.backward_launches - bwd == cfg.num_layers
+    loss_cpu, _, grads_cpu = loss_and_grads(model, params, tokens)
+    torch.testing.assert_close(loss.cpu(), loss_cpu, rtol=2e-5, atol=0)
+    for got, want in zip(tree_leaves(grads), tree_leaves(grads_cpu)):
+        assert _rel_err(got.cpu(), want) <= 1e-4
+    new, opt, m = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))(
+        on_card, adamw_init(on_card), tokens)
+    assert int(opt.step) == 1 and np.isfinite(float(m["loss"]))
+    assert all(p.device.type == "cuda" for p in tree_leaves(new))

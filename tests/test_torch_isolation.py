@@ -23,10 +23,13 @@ def _modules():
 
 def test_every_package_is_covered():
     """The checks below walk every module of the port, the input-adaptive
-    package's included."""
+    package's and the training slice's included."""
     assert {"repro_torch.adaptive", "repro_torch.adaptive.gating",
             "repro_torch.adaptive.gate_model", "repro_torch.adaptive.policy",
-            "repro_torch.core.executor", "repro_torch.serving.session"} <= set(_modules())
+            "repro_torch.core.executor", "repro_torch.serving.session",
+            "repro_torch.training", "repro_torch.training.optimizer",
+            "repro_torch.training.train_loop", "repro_torch.training.checkpoint",
+            "repro_torch.launch.train", "repro_torch.data.synthetic"} <= set(_modules())
 
 
 def test_importing_every_module_loads_no_jax():
@@ -70,3 +73,12 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         build_cnn_program(TaskGraph.fully_separate(2, 3), [4, 4],
                           generator=torch.Generator().manual_seed(0))
+
+
+def test_train_launcher_raises_without_cuda():
+    from repro_torch.launch import train
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "mistral-nemo-12b", "--smoke", "--steps", "1"])
