@@ -21,7 +21,13 @@
    frames over 1024 zero-padded keys without the causal mask, a causal
    window the sequence passes, and head_dim 80 and 128; two backward calls
    give the same bits, and the forward without the logsumexp (inference)
-   the same bits as with it; SDPA's backward is its yardstick.
+   the same bits as with it; SDPA's backward is its yardstick.  The SSD
+   backward (eight CUDA-core kernels behind ``SSDScanFunction``) is held
+   against the plain backward ``ssd_scan_bwd_ref`` at mamba2-780m's and
+   zamba2-2.7b's training shapes in fp32 and bf16 and at a ragged length
+   with a final-state cotangent; two calls give the same bits, and under
+   autograd the forward gives the inference forward's bits and the
+   gradients the backward kernels'.
 3. Drives Antler's main path on the paper's LeNet-5 at full width: affinity
    profiling of 5 random-initialised per-task networks on 512 probes,
    task-graph selection, Held-Karp and GA ordering, then
@@ -83,10 +89,21 @@
    share and top kernels), and a checkpoint round trip (bit-exact).  Then
    the train launcher (``repro_torch.launch.train``) in-process on
    whisper-medium's full config, 3 steps of 4 x 128 (its encoder and
-   cross-attention run the backward over keys zero-padded to 1024), and
-   the SSD's guard: under grad on the card it raises, as does an SSM
-   train step.
-10. Prints one ``{"kernels": [...]}`` line, then the device line last.
+   cross-attention run the backward over keys zero-padded to 1024).
+10. Trains mamba2-780m (48 layers, 4 x 2048) and zamba2-2.7b (54 layers,
+   4 x 1024) at full width and depth, remat on: the first batch through
+   the kernels and through the plain SSD and attention (loss and grad norm
+   within 2e-2; each Mamba2 leaf's gradient, all of which pass through the
+   SSD backward, nonzero and within 5e-2 of its largest |value|), then 6
+   AdamW steps (the loss falls; step ms, tokens/s, peak memory, busy share
+   and top kernels); then the train launcher on mamba2-780m (3 steps of 4
+   x 512).  Then the two examples: ``repro_torch.examples.train_multitask``
+   at its reference size (the ~100M granite-family backbone, 10 task-graph
+   nodes, 40 AdamW steps of 16 x 128: the loss falls; step ms, tokens/s)
+   and ``repro_torch.examples.serve_multitask`` whole (Antler beats
+   Vanilla, counters equal the prediction, the LM generates its tokens);
+   and Pearson's guard: under grad on the card it raises.
+11. Prints one ``{"kernels": [...]}`` line, then the device line last.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the script checks that the kernels ran where the path runs
@@ -97,7 +114,11 @@ once per decoder layer of a prefill and of each batcher wave's prefill (8,
 24, 8, 48), 9 times in zamba2's, 72 times in whisper's (once per encoder
 layer, twice per decoder layer); the SSD once per Mamba2 layer of a
 prefill, 48 and 54; none in decode; in training, flash twice per
-attention layer of a step, forward and remat, and its backward once),
+attention layer of a step, forward and remat, and its backward once; the
+SSD twice per Mamba2 layer of a step and its backward once, zamba2's
+shared attention once forward and once backward per invocation; the
+multitask example's flash and its backward once per layer of each of its
+10 nodes, 20 a step),
 that served counters equal the cost
 model's prediction field for field (every session's too, faults,
 streamed loads and checkpoint writes included), that served outputs match
@@ -164,6 +185,8 @@ from repro_torch.core.affinity import affinity_matrix, profile_task  # noqa: E40
 from repro_torch.core.tradeoff import select_task_graph  # noqa: E402
 from repro_torch.data import MultitaskDataset, train_test_split  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
+from repro_torch.examples import serve_multitask as serve_example  # noqa: E402
+from repro_torch.examples import train_multitask as train_example  # noqa: E402
 from repro_torch.examples.quickstart import branch_point_taps  # noqa: E402
 from repro_torch._device import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -176,18 +199,19 @@ from repro_torch.kernels.pearson_affinity import (  # noqa: E402
 )
 from repro_torch.kernels.ref import (  # noqa: E402
     flash_attention_bhsd_bwd_ref, flash_attention_bhsd_ref, flash_attention_ref,
-    pearson_dissimilarity_ref, ssd_scan_ref,
+    pearson_dissimilarity_ref, ssd_scan_bwd_ref, ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    SOURCE as SSD_SOURCE, kernel_bytes as ssd_kernel_bytes, scratch_bytes as ssd_scratch_bytes,
-    ssd_scan,
+    SOURCE as SSD_SOURCE, backward_scratch_bytes as ssd_backward_scratch_bytes,
+    kernel_bytes as ssd_kernel_bytes, scratch_bytes as ssd_scratch_bytes, ssd_scan,
+    ssd_scan_backward,
 )
 from repro_torch.data import lm_batches  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models.cnn import build_lenet5_blocks  # noqa: E402
 from repro_torch.models.multitask import (  # noqa: E402
-    _split_layers, build_cnn_program, build_transformer_program,
+    _split_layers, build_cnn_program, build_transformer_program, multitask_loss,
     transformer_block_costs,
 )
 from repro_torch.models.registry import get_model  # noqa: E402
@@ -344,6 +368,36 @@ SSD_SHAPES = (
     ("sweep", 2, 64, 4, 16, 16, 32, torch.float32),
 )
 SSD_FP32_TOL, SSD_BF16_TOL = 2e-4, 5e-2  # abs and rel: the reference sweep's
+# The SSD backward's rows (path, B, S, H, P, N, chunk, dtype, with a
+# cotangent of the final state): mamba2-780m's and zamba2-2.7b's training
+# shapes (the models discard the final state), then a ragged length with a
+# nonzero final-state cotangent at mamba2's widths (bf16) and at four heads
+# (fp32).  x, B and C are views of one conv output, as in the model.
+SSD_BWD = (
+    ("mamba2_train", 4, 2048, 48, 64, 128, 64, torch.bfloat16, False),
+    ("mamba2_train", 4, 2048, 48, 64, 128, 64, torch.float32, False),
+    ("zamba2_train", 4, 1024, 80, 64, 64, 256, torch.bfloat16, False),
+    ("zamba2_train", 4, 1024, 80, 64, 64, 256, torch.float32, False),
+    ("ragged_final", 2, 200, 48, 64, 128, 64, torch.bfloat16, True),
+    ("ragged_final", 2, 200, 4, 64, 128, 64, torch.float32, True),
+)
+# Each gradient's max abs error over its largest |value|: fp32 sums in
+# other orders; bf16 inputs widened, dx, dB and dC rounded to bf16 once.
+SSD_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+# SSM training at full width and depth, remat on: (arch, batch, seq, steps).
+TRAIN_SSMS = (("mamba2-780m", 4, 2048, 6), ("zamba2-2.7b", 4, 1024, 6))
+# Each leaf's gradient, kernel vs plain route, is gated on an fp32 copy of
+# the config at full width cut to a few layers (a multiple of the hybrid's
+# attention period), where bf16 roundings do not compound over the depth:
+# within 1e-3 of its largest |value| (fp32 sums in other orders through
+# the layers; the kernels alone agree to 2e-4).  At full depth in bf16 the
+# routes' Mamba2 gradients differ by 4-8 % of their largest |value| on an
+# H100 (PERF.md, section 6): printed, not gated.
+SSM_FP32_CHECK_LAYERS = {"ssm": 2, "hybrid": 6}
+SSM_FP32_GRAD_TOL = 1e-3
+TRAIN_SSM_LAUNCHER = ("mamba2-780m", 3, 4, 512)  # arch, steps, batch, seq
+# The multitask training example at its reference size: steps, batch, seq.
+TRAIN_MULTITASK = (40, 16, 128)
 
 
 def check(ok: bool, what: str) -> None:
@@ -422,7 +476,8 @@ def launch_counts() -> dict:
     return {"pearson_gram": pearson_dissimilarity.launches,
             "flash_attention": flash_attention.launches,
             "flash_attention_bwd": flash_attention.backward_launches,
-            "ssd_scan": ssd_scan.launches}
+            "ssd_scan": ssd_scan.launches,
+            "ssd_scan_bwd": ssd_scan.backward_launches}
 
 
 def reset_launch_counts() -> None:
@@ -430,6 +485,7 @@ def reset_launch_counts() -> None:
     flash_attention.launches = 0
     flash_attention.backward_launches = 0
     ssd_scan.launches = 0
+    ssd_scan.backward_launches = 0
 
 
 def free_memory() -> None:
@@ -1694,12 +1750,15 @@ def quickstart_phase(device: torch.device) -> dict:
 
 
 # Device kernel names of the port's kernels (both passes of the Pearson Gram).
+# The bf16 SSD's three kernels, in launch order.
+SSD_BF16_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
+# The SSD backward's eight kernels, in launch order.
+SSD_BWD_KERNELS = ("ssd_bwd_chunk_kernel", "ssd_bwd_cb_kernel", "ssd_bwd_state_kernel",
+                   "ssd_bwd_dkey_kernel", "ssd_bwd_dquery_kernel", "ssd_bwd_cum_kernel",
+                   "ssd_bwd_reduce_kernel", "ssd_bwd_da_kernel")
 PORT_KERNELS = ("pearson_partial_kernel", "pearson_reduce_kernel", "flash_bf16_kernel",
                 "flash_fp32_kernel", "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel", "ssd_scan_kernel", "ssd_chunk_state_kernel",
-                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
-# The bf16 SSD's three kernels, in launch order.
-SSD_BF16_KERNELS = PORT_KERNELS[-3:]
+                "flash_bwd_dq_kernel", "ssd_scan_kernel", *SSD_BF16_KERNELS, *SSD_BWD_KERNELS)
 
 
 def device_breakdown(fn, timed_ms: float, top: int = 6, warm: bool = True,
@@ -2082,6 +2141,105 @@ def ssd_phase(device: torch.device) -> dict:
     return {"rows": rows, "max_abs_err": max_err}
 
 
+def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int, dtype: torch.dtype,
+                  with_final: bool) -> dict:
+    """Least time on the card for one SSD backward: B nc [2 Qc N + H (4 Qc P
+    + 4 Qc N + 10 Q N P)] operations at the peak of the input type (C.B and
+    dy.x over the causal pairs, dx from the pairs, dB and dC from the pairs;
+    the chunk's state, U_c, G_c B, G_c^T x and h_c^T dy), against x, dy, dt,
+    a, B, C (and the final state's cotangent) read once and dx, ddt, da, dB,
+    dC written once."""
+    nc, qc = -(-s // q), q * (q + 1) // 2
+    ops_count = b * nc * (2 * qc * n + h * (4 * qc * p + 4 * qc * n + 10 * q * n * p))
+    peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else FP32_PEAK_FLOPS
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (es * (3 * b * s * h * p + 4 * b * s * n) + 4 * (2 * b * s * h + 2 * h)
+              + (4 * b * h * p * n if with_final else 0))
+    ops_ms = ops_count / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "operations": ops_count, "bytes": nbytes}
+
+
+def ssd_bwd_phase(device: torch.device) -> dict:
+    """The SSD backward kernels (``ssd_scan_backward``) vs the plain backward
+    ``ssd_scan_bwd_ref`` at every row of :data:`SSD_BWD`: each gradient
+    within :data:`SSD_BWD_TOL` of its largest |value|, finite, and two calls
+    bit-identical; the gradients through ``SSDScanFunction`` equal the
+    backward kernels' and its forward the inference forward's bits.  Times
+    the eight kernels (one wrapper call) and the plain backward with CUDA
+    events, and each kernel's device time from one profiler window at the
+    model shapes; no single PyTorch call computes the SSD's backward."""
+    rng = np.random.default_rng(6)
+    rows, max_err, max_abs = [], 0.0, 0.0
+    names = ("dx", "ddt", "da", "dB", "dC")
+    for path, b, s, h, p, n, q, dtype, with_final in SSD_BWD:
+        x, dt, a, bb, cc = ssd_inputs(rng, b, s, h, p, n, dtype, device)
+        dy = _randn(rng, (b, s, h, p), dtype, device)
+        d_final = _randn(rng, (b, h, p, n), torch.float32, device) if with_final else None
+        what = f"ssd backward {path} B {b} S {s} H {h} P {p} N {n} chunk {q} {dtype}"
+        bwd0 = ssd_scan.backward_launches
+        first = ssd_scan_backward(x, dt, a, bb, cc, dy, d_final, q)
+        second = ssd_scan_backward(x, dt, a, bb, cc, dy, d_final, q)
+        torch.cuda.synchronize()
+        check(ssd_scan.backward_launches - bwd0 == 2, f"{what}: backward launches")
+        check(all(torch.equal(u, v) for u, v in zip(first, second)),
+              f"{what}: two backward calls differ")
+        plain = ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, d_final, q)
+        errs, abs_err = {}, 0.0
+        for name, got, want in zip(names, first, plain):
+            check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: {name} dtype/shape")
+            check(bool(torch.isfinite(got.float()).all()), f"{what}: non-finite {name}")
+            diff = float((got.float() - want.float()).abs().max())
+            abs_err = max(abs_err, diff)
+            errs[name] = diff / max(float(want.float().abs().max()), 1e-30)
+        tol = SSD_BWD_TOL[dtype]
+        check(max(errs.values()) <= tol,
+              f"{what}: errors {errs} of each gradient's largest |value| > {tol}")
+        max_err, max_abs = max(max_err, *errs.values()), max(max_abs, abs_err)
+        if not with_final:
+            # Through autograd: the inference forward's bits, the kernels' gradients.
+            with torch.no_grad():
+                y0, f0 = ops.ssd_scan(x, dt, a, bb, cc, q)
+            leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, bb, cc)]
+            y1, f1 = ops.ssd_scan(*leaves, q)
+            check(torch.equal(y1.detach(), y0) and torch.equal(f1.detach(), f0),
+                  f"{what}: the forward under grad differs from inference")
+            auto = torch.autograd.grad(y1, leaves, dy)
+            check(all(torch.equal(u, v) for u, v in zip(auto, first)),
+                  f"{what}: SSDScanFunction's gradients differ from the kernels'")
+            del y0, f0, y1, f1, auto, leaves
+        del second, plain
+        free_memory()
+        big = s >= 1024
+        row = {
+            "kernel": "ssd_scan_bwd", "path": path, "shape": [b, s, h, p, n, q],
+            "dtype": str(dtype).removeprefix("torch."), "d_final": with_final,
+            "max_abs_err": abs_err, "max_rel_err": errs, "bit_identical": True,
+            "kernel_ms": cuda_ms(lambda: ssd_scan_backward(x, dt, a, bb, cc, dy, d_final, q),
+                                 reps=10 if big else 20),
+            "plain_ms": cuda_ms(lambda: ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, d_final, q),
+                                reps=3 if big else 10, warmup=1 if big else 3),
+            "library_ms": None,
+            "scratch_bytes": ssd_backward_scratch_bytes(b, s, h, p, n, q),
+            **ssd_bwd_bound(b, s, h, p, n, q, dtype, with_final),
+            "peak": ("bf16 tensor cores 989 TFLOP/s" if dtype == torch.bfloat16 else
+                     "fp32 CUDA cores 67 TFLOP/s") + ", HBM 3.35 TB/s (H100 SXM data sheet)",
+        }
+        if big:
+            trace = device_breakdown(lambda: ssd_scan_backward(x, dt, a, bb, cc, dy, d_final, q),
+                                     row["kernel_ms"])
+            row["sub_kernels"] = {k: trace["port_kernels"].get(k, {}).get("ms")
+                                  for k in SSD_BWD_KERNELS}
+            row["busy"] = trace["busy"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del x, dt, a, bb, cc, dy, d_final, first
+        free_memory()
+    return {"rows": rows, "max_rel_err": max_err, "max_abs_err": max_abs}
+
+
 # --------------------------------------------------------------------------
 # The transformer paths
 # --------------------------------------------------------------------------
@@ -2384,7 +2542,7 @@ def prefill_launches(cfg) -> dict:
              "encdec": cfg.enc_layers + 2 * cfg.num_layers}[cfg.family]
     ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     return {"pearson_gram": 0, "flash_attention": flash, "flash_attention_bwd": 0,
-            "ssd_scan": ssd}
+            "ssd_scan": ssd, "ssd_scan_bwd": 0}
 
 
 def model_lm_phase(device: torch.device, cfg, batch: int, prompt_len: int, steps: int,
@@ -2477,6 +2635,40 @@ def plain_attention():
         ops.flash_attention_bhsd = kernel
 
 
+class PlainSSDFunction(torch.autograd.Function):
+    """The SSD's plain versions under autograd: ``ssd_scan_ref`` forward,
+    ``ssd_scan_bwd_ref`` backward (the plain route of the SSM training
+    gates; autograd through ``ssd_chunked`` itself gives NaN for dt and a
+    where a masked exp overflows, ``tests/test_torch_ssd_backward.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_in, c_in, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b_in, c_in)
+        ctx.chunk = chunk
+        return ssd_scan_ref(x, dt, a, b_in, c_in, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, a, b_in, c_in = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return (*ssd_scan_bwd_ref(x, dt, a, b_in, c_in, dy, d_final, ctx.chunk), None)
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """The models' SSD through its plain versions on the card: the SSD
+    kernels do not run."""
+    kernel = ops.ssd_scan
+    ops.ssd_scan = lambda x, dt, a, b_in, c_in, chunk=128: PlainSSDFunction.apply(
+        x, dt, a, b_in, c_in, chunk)
+    try:
+        yield
+    finally:
+        ops.ssd_scan = kernel
+
+
 def train_model_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one dense-transformer training step, remat's recompute
     not counted: 6 per weight of every matrix product per token (Q, K, V and
@@ -2493,6 +2685,40 @@ def train_model_flops(cfg, batch: int, seq: int) -> float:
 
 def rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train_steps(device: torch.device, model, params, batches, steps: int) -> dict:
+    """``steps`` AdamW steps (lr 3e-4, warmup 1) through ``make_train_step``
+    on ``batches[:steps]``, each timed on the host clock to a sync, the
+    launch counts zeroed before them; then one more step on ``batches[-1]``
+    under the profiler (its launches are not the gates'; on the CPU it is
+    not profiled).  Returns the new params and optimizer state, the losses,
+    grad norms, step ms and their median after the first, the steps'
+    launches and peak memory, and the profiled step's breakdown."""
+    opt = adamw_init(params)
+    step_fn = make_train_step(model, AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps))
+    reset_launch_counts()
+    reset_peak(device)
+    losses, gnorms, step_ms = [], [], []
+    for tokens in batches[:steps]:
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, tokens)
+        sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches, peak = launch_counts(), peak_gb(device)
+    steady_ms = statistics.median(step_ms[1:])
+    state = {"params": params, "opt": opt}
+
+    def one_step():
+        state["params"], state["opt"], _ = step_fn(state["params"], state["opt"], batches[-1])
+
+    breakdown = (device_breakdown(one_step, steady_ms, top=8, warm=False, cpu=False)
+                 if device.type == "cuda" else {"busy": None})
+    return {"params": state["params"], "opt": state["opt"], "losses": losses,
+            "grad_norms": gnorms, "step_ms": step_ms, "steady_ms": steady_ms,
+            "launches": launches, "peak_gb": peak, "breakdown": breakdown}
 
 
 def train_phase(device: torch.device, cfg=None, batch: int = TRAIN_BATCH,
@@ -2575,40 +2801,16 @@ def train_phase(device: torch.device, cfg=None, batch: int = TRAIN_BATCH,
           f"grad_accum 2: launches {accum_launches}")
     laps.lap("grad_accum")
 
-    opt = adamw_init(params)
-    step_fn = make_train_step(
-        model, AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps))
-    reset_launch_counts()
-    reset_peak(device)
-    losses, gnorms, step_ms = [], [], []
-    for tokens in batches[:steps]:
-        t0 = time.perf_counter()
-        params, opt, metrics = step_fn(params, opt, tokens)
-        sync(device)
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
-        gnorms.append(float(metrics["grad_norm"]))
-    step_launches = launch_counts()
-    step_peak = peak_gb(device)
+    run = train_steps(device, model, params, batches, steps)
+    params, opt, losses, step_launches = run["params"], run["opt"], run["losses"], run["launches"]
+    steady_ms, breakdown = run["steady_ms"], run["breakdown"]
     check(not on_card or (step_launches["flash_attention"] == fwd_per_layer * layers * steps
                           and step_launches["flash_attention_bwd"] == layers * steps),
           f"{steps} train steps: launches {step_launches}, expected flash "
           f"{fwd_per_layer * layers} and its backward {layers} a step")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
           f"the loss did not fall over {steps} steps: {losses}")
-    laps.lap("steps")
-
-    # One more step under the profiler (its launches are not the gates').
-    steady_ms = statistics.median(step_ms[1:])
-    state = {"params": params, "opt": opt}
-
-    def one_step():
-        state["params"], state["opt"], _ = step_fn(state["params"], state["opt"], batches[-1])
-
-    breakdown = (device_breakdown(one_step, steady_ms, top=8, warm=False, cpu=False)
-                 if on_card else {"busy": None})
-    params, opt = state["params"], state["opt"]
-    laps.lap("profiled_step")
+    laps.lap("steps_and_profiled_step")
 
     # A checkpoint of params and optimizer state round-trips bit-exactly:
     # bf16 weights, fp32 moments, the int32 step.
@@ -2633,19 +2835,19 @@ def train_phase(device: torch.device, cfg=None, batch: int = TRAIN_BATCH,
         "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "loss_rel": loss_rel,
         "grad_norm_kernel": gnorm_k, "grad_norm_plain": gnorm_p, "grad_norm_rel": gnorm_rel,
         "attn_grad_rel_err": attn_err, "loss_grad_accum_2": float(loss_a),
-        "grad_accum_rel": accum_rel, "losses": losses, "grad_norms": gnorms,
-        "step_ms": step_ms, "steady_step_ms": steady_ms,
+        "grad_accum_rel": accum_rel, "losses": losses, "grad_norms": run["grad_norms"],
+        "step_ms": run["step_ms"], "steady_step_ms": steady_ms,
         "tokens_per_s": batch * seq / (steady_ms / 1e3),
         "model_flops_per_step": flops,
         "model_flops_share_of_bf16_peak": flops / (steady_ms / 1e3) / BF16_PEAK_FLOPS,
-        "peak_memory_gb": {"gradients": grads_peak, "steps": step_peak},
+        "peak_memory_gb": {"gradients": grads_peak, "steps": run["peak_gb"]},
         "launches": {"gradients": grad_launches, "grad_accum_2": accum_launches,
                      "steps": step_launches},
         "busy": breakdown["busy"], "device_breakdown": breakdown,
         "checkpoint_bit_exact": True, "seconds": laps.seconds,
     }
     print(json.dumps({"train": row}), flush=True)
-    del params, opt, state, tree, restored, pairs
+    del params, opt, run, tree, restored, pairs
     free_memory()
     return row
 
@@ -2654,9 +2856,10 @@ def train_launcher_phase(arch: str, steps: int, batch: int, seq: int, extra_args
     """``python -m repro_torch.launch.train --arch <arch>`` in-process at the
     full config: whisper-medium's encoder and cross-attention run the flash
     backward without the causal mask over keys zero-padded to its
-    ``attn_chunk``.  Checks its step lines and tokens/s line, finite losses,
-    flash twice per attention layer per step (forward and remat) and its
-    backward once."""
+    ``attn_chunk``; mamba2-780m's Mamba2 layers the SSD backward.  Checks
+    its step lines and tokens/s line, finite losses, flash twice per
+    attention layer per step (forward and remat) and its backward once, and
+    the SSD twice per Mamba2 layer and its backward once."""
     cfg = get_config(arch)
     argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
             *extra_args]
@@ -2668,47 +2871,259 @@ def train_launcher_phase(arch: str, steps: int, batch: int, seq: int, extra_args
     launches = launch_counts()
     text = buf.getvalue()
     print(text, end="", flush=True)
-    attn_layers = prefill_launches(cfg)["flash_attention"]  # one launch per attention layer
+    once = prefill_launches(cfg)  # one launch per attention layer, per Mamba2 layer
+    attn_layers, ssd_layers = once["flash_attention"], once["ssd_scan"]
     check("step    0 loss" in text and "tok/s" in text, f"train launcher printed {text!r}")
     check(all(np.isfinite(h["loss"]) for h in out["history"]), f"losses {out['history']}")
     check(not on_card or (launches["flash_attention"] == 2 * attn_layers * steps
-                          and launches["flash_attention_bwd"] == attn_layers * steps),
+                          and launches["flash_attention_bwd"] == attn_layers * steps
+                          and launches["ssd_scan"] == 2 * ssd_layers * steps
+                          and launches["ssd_scan_bwd"] == ssd_layers * steps),
           f"train launcher: launches {launches}, expected flash {2 * attn_layers} and its "
-          f"backward {attn_layers} a step")
+          f"backward {attn_layers}, the SSD {2 * ssd_layers} and its backward {ssd_layers} "
+          "a step")
     del out
     free_memory()
     return {"launches": launches, "line": text.strip().splitlines()[-1]}
 
 
-def ssd_guard_phase(device: torch.device) -> dict:
-    """The SSD has no backward kernel yet: on the card, with grad enabled and
-    an input that requires grad, the wrapper raises, and so does a train
-    step of an SSM model; without grad it runs."""
+def ssm_leaves(cfg, tree) -> dict:
+    """The Mamba2 layers' leaves of a params or gradient tree (the SSM
+    family's ``layers``, the hybrid's ``mamba``), by name: their gradients
+    all pass through the SSD's backward (x and its projection, dt and
+    ``dt_bias``, a and ``a_log``, B, C and their projections, the conv)."""
+    return tree["layers"] if cfg.family == "ssm" else tree["mamba"]
+
+
+SSM_SSD_LEAVES = ("w_zx", "wb", "wc", "wdt", "dt_bias", "a_log", "conv")
+
+
+def train_ssm_phase(device: torch.device, cfg, batch: int, seq: int, steps: int) -> dict:
+    """SSM or hybrid training at ``cfg``'s width and depth, remat on, B x S
+    tokens of ``lm_batches(seed=0)``.  Gates: the first batch's loss and
+    grad norm through the kernels within 2e-2 of the plain route's (the
+    SSD's plain forward and backward, the plain attention) on the same card
+    from the same params; every leaf's gradient finite, and each Mamba2
+    leaf whose gradient passes through the SSD backward nonzero; the SSD
+    twice per Mamba2 layer (forward and remat) and its backward once, and a
+    hybrid's flash forward and backward once per shared-attention
+    invocation, in every step; the loss falls over ``steps`` AdamW steps;
+    on an fp32 copy of ``cfg`` cut to :data:`SSM_FP32_CHECK_LAYERS`, every
+    leaf's gradient within :data:`SSM_FP32_GRAD_TOL` of the plain route's.
+    Prints step ms, tokens/s, peak memory, the device's busy share and the
+    top kernels of one more step (on the CPU, for a rehearsal with a smoke
+    ``cfg``, the launch counts are 0 and not gated)."""
+    on_card = device.type == "cuda"
+    model = get_model(cfg)
+    ssd_layers = cfg.num_layers
+    fwd_per_layer = 2 if cfg.remat else 1
+    attn = prefill_launches(cfg)["flash_attention"]  # shared-attention invocations
+    laps = Laps(device)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    it = lm_batches(cfg.vocab_size, batch, seq, seed=0)
+    batches = [next(it) for _ in range(steps + 1)]
+    laps.lap("init")
+
+    reset_launch_counts()
+    with plain_attention(), plain_ssd():
+        loss_p, _, grads = loss_and_grads(model, params, batches[0])
+        gnorm_p = float(global_norm(grads))
+    plain_launches = launch_counts()
+    check(not any(plain_launches.values()), f"the plain route launched kernels: {plain_launches}")
+    ssm_plain = {k: ssm_leaves(cfg, grads)[k] for k in SSM_SSD_LEAVES}
+    del grads
+    free_memory()
+    laps.lap("plain_route")
+
+    reset_launch_counts()
+    reset_peak(device)
+    loss_k, _, grads = loss_and_grads(model, params, batches[0])
+    grad_launches = launch_counts()
+    gnorm_k = float(global_norm(grads))
+    grads_peak = peak_gb(device)
+    expected = {"ssd_scan": fwd_per_layer * ssd_layers, "ssd_scan_bwd": ssd_layers,
+                "flash_attention": attn, "flash_attention_bwd": attn, "pearson_gram": 0}
+    check(not on_card or grad_launches == expected,
+          f"{cfg.name}: one batch's gradients launched {grad_launches}, expected {expected}")
+    loss_rel, gnorm_rel = rel(float(loss_k), float(loss_p)), rel(gnorm_k, gnorm_p)
+    check(loss_rel <= TRAIN_LOSS_TOL and gnorm_rel <= TRAIN_LOSS_TOL,
+          f"{cfg.name} kernel vs plain route: loss {float(loss_k)} vs {float(loss_p)}, grad norm "
+          f"{gnorm_k} vs {gnorm_p}, > {TRAIN_LOSS_TOL} relative")
+    check(all(bool(torch.isfinite(g).all()) for g in tree_leaves(grads)),
+          f"{cfg.name}: a non-finite gradient")
+    ssm_err = {}
+    for name, want in ssm_plain.items():
+        got = ssm_leaves(cfg, grads)[name]
+        check(float(got.abs().max()) > 0, f"{cfg.name}: Mamba2 leaf {name} got no gradient")
+        ssm_err[name] = float((got.float() - want.float()).abs().max()
+                              / want.float().abs().max().clamp_min(1e-30))
+    del grads, ssm_plain
+    free_memory()
+    laps.lap("kernel_route")
+
+    # Every leaf's gradient, kernel vs plain route, on an fp32 copy at full
+    # width and a few layers.
+    cfg32 = dataclasses.replace(cfg, num_layers=SSM_FP32_CHECK_LAYERS[cfg.family],
+                                dtype="float32", param_dtype="float32")
+    model32 = get_model(cfg32)
+    params32 = model32.init(torch.Generator(device=device).manual_seed(1), device)
+    with plain_attention(), plain_ssd():
+        _loss, _, want32 = loss_and_grads(model32, params32, batches[0])
+    reset_launch_counts()
+    _loss, _, got32 = loss_and_grads(model32, params32, batches[0])
+    fp32_launches = launch_counts()
+    check(not on_card or fp32_launches["ssd_scan_bwd"] == cfg32.num_layers,
+          f"{cfg.name} fp32 copy: launches {fp32_launches}")
+    fp32_err = {}
+    for path, (got, want) in zip(
+            (f"leaf {i}" for i in range(len(tree_leaves(got32)))),
+            zip(tree_leaves(got32), tree_leaves(want32))):
+        fp32_err[path] = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    worst = max(fp32_err, key=fp32_err.get)
+    check(fp32_err[worst] <= SSM_FP32_GRAD_TOL,
+          f"{cfg.name} fp32, {cfg32.num_layers} layers: gradient {worst} differs from the plain "
+          f"route's by {fp32_err[worst]} of its largest |value| > {SSM_FP32_GRAD_TOL}")
+    del params32, want32, got32
+    free_memory()
+    laps.lap("fp32_check")
+
+    run = train_steps(device, model, params, batches, steps)
+    losses, steady_ms = run["losses"], run["steady_ms"]
+    check(not on_card or run["launches"] == {k: v * steps for k, v in expected.items()},
+          f"{cfg.name}: {steps} train steps launched {run['launches']}, expected {expected} "
+          "a step")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{cfg.name}: the loss did not fall over {steps} steps: {losses}")
+    laps.lap("steps_and_profiled_step")
+    row = {
+        "arch": cfg.name, "layers": cfg.num_layers, "batch": batch, "seq": seq,
+        "remat": cfg.remat, "dtype": cfg.dtype,
+        "steps": steps, "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+        "loss_rel": loss_rel, "grad_norm_kernel": gnorm_k, "grad_norm_plain": gnorm_p,
+        "grad_norm_rel": gnorm_rel, "ssm_grad_rel_err_bf16": ssm_err,
+        "fp32_check": {"layers": cfg32.num_layers, "max_grad_rel_err": fp32_err[worst],
+                       "leaves": len(fp32_err), "launches": fp32_launches},
+        "losses": losses,
+        "grad_norms": run["grad_norms"], "step_ms": run["step_ms"], "steady_step_ms": steady_ms,
+        "tokens_per_s": batch * seq / (steady_ms / 1e3),
+        "peak_memory_gb": {"gradients": grads_peak, "steps": run["peak_gb"]},
+        "launches": {"gradients": grad_launches, "steps": run["launches"]},
+        "busy": run["breakdown"]["busy"], "device_breakdown": run["breakdown"],
+        "seconds": laps.seconds,
+    }
+    print(json.dumps({"train_ssm": row}), flush=True)
+    del params, run
+    free_memory()
+    return row
+
+
+def multitask_eval_loss(program, flat, batches) -> float:
+    """The mean joint multitask loss of ``flat`` over ``batches``, no grad."""
+    device = program.device
+    total = 0.0
+    with torch.no_grad():
+        for tokens in batches:
+            total += float(multitask_loss(
+                program, flat, torch.as_tensor(tokens, device=device),
+                torch.as_tensor(train_example.task_labels(tokens), device=device)))
+    return total / len(batches)
+
+
+def train_multitask_phase(device: torch.device, steps: int, batch: int, seq: int,
+                          cfg=None) -> dict:
+    """``repro_torch.examples.train_multitask`` at its reference size (the
+    ~100M granite-family backbone, fp32, the 4-level graph of 10 nodes of 2
+    layers; ``cfg`` shrinks it for a rehearsal): ``steps`` AdamW steps of B
+    x S tokens.  Gates: finite losses; the training loss (the joint loss
+    over every batch the steps trained on) lower after the steps than
+    before them — the per-step losses, each on a batch the model has not
+    seen, vary more from batch to batch than they fall in a few tens of
+    steps at lr 1e-4, and the loss on the next, unseen batch is printed
+    beside it; per step the flash kernel forward and its backward once per
+    layer of every node (20 each).  Prints step ms and tokens/s."""
+    on_card = device.type == "cuda"
+    cfg = cfg if cfg is not None else train_example.backbone_config()
+    program = train_example.build_program(cfg, seq, device)
+    order = train_example.serving_order(program)
+    ranges = _split_layers(cfg.num_layers, program.graph.depth)
+    per_step = sum(ranges[node[0]][1] - ranges[node[0]][0] for node in program.graph.nodes())
+    flat = train_example.program_trainable_params(program)
+    n_params = sum(t.numel() for t in tree_leaves(flat))
+    it = lm_batches(cfg.vocab_size, batch, seq, seed=0)  # the batches train() draws
+    seen = [next(it) for _ in range(steps)]
+    unseen = [next(it)]
+    before = multitask_eval_loss(program, flat, seen)
+    unseen_before = multitask_eval_loss(program, flat, unseen)
+    reset_launch_counts()
+    reset_peak(device)
+    t0 = time.perf_counter()
+    out = train_example.train(program, cfg.vocab_size, steps, batch, seq, log=None)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    after = multitask_eval_loss(program, out["flat"], seen)
+    unseen_after = multitask_eval_loss(program, out["flat"], unseen)
+    losses = [h["loss"] for h in out["history"]]
+    check(all(np.isfinite(losses)) and np.isfinite(after) and after < before,
+          f"train_multitask: the training loss went {before} -> {after}; per step {losses}")
+    check(not on_card or (launches["flash_attention"] == per_step * steps
+                          and launches["flash_attention_bwd"] == per_step * steps),
+          f"train_multitask: launches {launches}, expected flash and its backward "
+          f"{per_step} a step")
+    step_ms = statistics.median(h["seconds"] for h in out["history"][1:]) * 1e3
+    row = {"params": n_params, "nodes": len(program.node_params), "order": order,
+           "steps": steps, "batch": batch, "seq": seq, "training_loss": [before, after],
+           "unseen_batch_loss": [unseen_before, unseen_after],
+           "losses": losses, "flash_per_step": per_step, "launches": launches,
+           "steady_step_ms": step_ms, "tokens_per_s": batch * seq / (step_ms / 1e3),
+           "seconds": seconds, "peak_memory_gb": peak_gb(device)}
+    print(json.dumps({"train_multitask": row}), flush=True)
+    del program, out, flat
+    free_memory()
+    return row
+
+
+def serve_multitask_phase(device: torch.device) -> dict:
+    """``repro_torch.examples.serve_multitask`` run whole: its four segments'
+    lines are printed and checked — Antler's modelled reduction over
+    Vanilla above 1x, executed counters equal to the prediction in the
+    session and the adaptive arm, the LM segment's 4 x 16 tokens, with one
+    flash launch per layer of its prefill."""
+    buf = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        out = serve_example.main([], device=device)
+    launches = launch_counts()
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    lm_cfg = serve_example.get_smoke_config(serve_example.LM_ARCH)
+    check(out["audio"]["reduction"] > 1.0, f"serve_multitask: reduction {out['audio']}")
+    check(out["session"]["stats_equal_predicted"] and out["adaptive"]["stats_equal_predicted"],
+          "serve_multitask: executed counters differ from the prediction")
+    check(out["lm"]["tokens"].shape == (serve_example.LM_BATCH, serve_example.LM_STEPS),
+          f"serve_multitask: generated {out['lm']['tokens'].shape}")
+    check(device.type != "cuda" or launches["flash_attention"] == lm_cfg.num_layers,
+          f"serve_multitask: launches {launches}")
+    row = {"audio": out["audio"], "session": out["session"], "adaptive": out["adaptive"],
+           "lm_seconds": out["lm"]["seconds"], "tokens_row0": out["lm"]["tokens"][0].tolist(),
+           "launches": launches}
+    print(json.dumps({"serve_multitask": row}), flush=True)
+    return row
+
+
+def pearson_guard_phase(device: torch.device) -> dict:
+    """Pearson has no backward kernel (the reference never differentiates
+    it): on the card, with grad enabled and an input that requires grad,
+    the wrapper raises; without grad it runs."""
     rng = np.random.default_rng(5)
-    x = _randn(rng, (1, 128, 2, 64), torch.float32, device).requires_grad_(True)
-    dt = torch.full((1, 128, 2), 0.1, device=device)
-    a = -torch.ones(2, device=device)
-    b_in = _randn(rng, (1, 128, 128), torch.float32, device)
-    c_in = _randn(rng, (1, 128, 128), torch.float32, device)
+    z = ops.standardize_rows(_randn(rng, (16, 64), torch.float32, device)).requires_grad_(True)
     raised = []
     try:
-        ssd_scan(x, dt, a, b_in, c_in, 64)
+        pearson_dissimilarity(z)
     except NotImplementedError as err:
         raised.append(str(err))
-    from repro_torch.configs import get_smoke_config
-
-    cfg = get_smoke_config(MAMBA2[0])
-    model = get_model(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(0), device)
-    try:
-        loss_and_grads(model, params, np.zeros((1, 32), dtype=np.int32))
-    except NotImplementedError as err:
-        raised.append(str(err))
-    check(len(raised) == 2, f"the SSD under grad on the card did not raise: {raised}")
-    with torch.no_grad():
-        y, _ = ssd_scan(x, dt, a, b_in, c_in, 64)
-    check(not y.requires_grad and bool(torch.isfinite(y).all()), "the SSD without grad")
-    row = {"ssd_guard": {"raised": len(raised), "message": raised[0]}}
+    check(len(raised) == 1, "Pearson under grad on the card did not raise")
+    check(pearson_dissimilarity(z.detach()).shape == (16, 16), "Pearson without grad")
+    row = {"pearson_guard": {"raised": len(raised), "message": raised[0]}}
     print(json.dumps(row), flush=True)
     return row
 
@@ -2769,6 +3184,7 @@ def main() -> int:
     flash = flash_phase(device)
     flash_bwd = flash_bwd_phase(device)
     ssd = ssd_phase(device)
+    ssd_bwd = ssd_bwd_phase(device)
     print(json.dumps({"kernel_checks_seconds": time.perf_counter() - t0}), flush=True)
 
     # LeNet-5: profile -> select -> order -> serve.
@@ -2911,12 +3327,28 @@ def main() -> int:
     free_memory()
 
     # Training: mistral-nemo-12b (8 layers) through the flash backward, the
-    # train launcher on whisper-medium, and the SSD's guard.
+    # train launcher on whisper-medium; mamba2-780m and zamba2-2.7b at full
+    # depth through the SSD backward, the train launcher on mamba2-780m; the
+    # two examples; Pearson's guard.
     t0 = time.perf_counter()
     train = train_phase(device)
     train_launch = train_launcher_phase(*TRAIN_LAUNCHER)
     print(json.dumps({"train_launcher": train_launch}), flush=True)
-    ssd_guard_phase(device)
+    free_memory()
+    train_ssm = {}
+    for arch, batch, seq, steps in TRAIN_SSMS:
+        t1 = time.perf_counter()
+        train_ssm[arch] = train_ssm_phase(device, get_config(arch), batch, seq, steps)
+        print(json.dumps({"train_ssm_phase_seconds": {arch: time.perf_counter() - t1}}),
+              flush=True)
+    ssm_launch = train_launcher_phase(*TRAIN_SSM_LAUNCHER)
+    print(json.dumps({"train_launcher": ssm_launch}), flush=True)
+    free_memory()
+    t1 = time.perf_counter()
+    multitask = train_multitask_phase(device, *TRAIN_MULTITASK)
+    serve_mt = serve_multitask_phase(device)
+    print(json.dumps({"example_phases_seconds": time.perf_counter() - t1}), flush=True)
+    pearson_guard_phase(device)
     print(json.dumps({"training_phases_seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"smoke_seconds": time.perf_counter() - t_start}), flush=True)
 
@@ -2930,13 +3362,28 @@ def main() -> int:
     ssd_main = [r for r in ssd["rows"] if r["path"] in ("mamba2_prefill", "zamba2_prefill")]
     train_flash = {f"train_{k}": v["flash_attention"] for k, v in train["launches"].items()}
     train_flash["whisper_train_launcher"] = train_launch["launches"]["flash_attention"]
+    train_flash["zamba2_train_steps"] = train_ssm["zamba2-2.7b"]["launches"]["steps"][
+        "flash_attention"]
+    train_flash["train_multitask"] = multitask["launches"]["flash_attention"]
+    train_flash["serve_multitask_prefill"] = serve_mt["launches"]["flash_attention"]
     train_bwd = {f"train_{k}": v["flash_attention_bwd"] for k, v in train["launches"].items()}
     train_bwd["whisper_train_launcher"] = train_launch["launches"]["flash_attention_bwd"]
+    train_bwd["zamba2_train_steps"] = train_ssm["zamba2-2.7b"]["launches"]["steps"][
+        "flash_attention_bwd"]
+    train_bwd["train_multitask"] = multitask["launches"]["flash_attention_bwd"]
+    ssd_train = {f"{arch.split('-')[0]}_train_{k}": v["ssd_scan"]
+                 for arch, row in train_ssm.items() for k, v in row["launches"].items()}
+    ssd_train["mamba2_train_launcher"] = ssm_launch["launches"]["ssd_scan"]
+    ssd_bwd_by_path = {f"{arch.split('-')[0]}_train_{k}": v["ssd_scan_bwd"]
+                       for arch, row in train_ssm.items() for k, v in row["launches"].items()}
+    ssd_bwd_by_path["mamba2_train_launcher"] = ssm_launch["launches"]["ssd_scan_bwd"]
+    ssd_bwd_row = next(r for r in ssd_bwd["rows"]
+                       if r["path"] == "mamba2_train" and r["dtype"] == "bfloat16")
     bwd_row = next(r for r in flash_bwd["rows"]
                    if r["path"] == "train" and r["dtype"] == "bfloat16")
     ssd_by_path = {"mamba2_prefill": mamba["launches"]["ssd_scan"],
                    "zamba2_prefill": zamba["launches"]["ssd_scan"],
-                   "launcher": launcher["launches"]["ssd_scan"]}
+                   "launcher": launcher["launches"]["ssd_scan"], **ssd_train}
     timed = ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{
         "name": "pearson_gram",
@@ -3032,6 +3479,25 @@ def main() -> int:
         "library_ms": None,
         "shape": ssd_main[0]["shape"],
         "by_path": {r["path"]: {k: r[k] for k in ("shape", *timed)} for r in ssd_main},
+    }, {
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        # No pallas_call: the reference differentiates its jnp oracle
+        # ssd_chunked with XLA's autodiff.
+        "replaces": "src/repro/models/ssm.py:40",
+        "launches": sum(ssd_bwd_by_path.values()),
+        "launches_by_path": ssd_bwd_by_path,
+        "max_abs_err": ssd_bwd["max_abs_err"],
+        "max_rel_err": ssd_bwd["max_rel_err"],
+        "ms": ssd_bwd_row["kernel_ms"],
+        "plain_ms": ssd_bwd_row["plain_ms"],
+        "bound_ms": ssd_bwd_row["bound_ms"],
+        "bound_by": ssd_bwd_row["bound_by"],
+        "library_ms": None,
+        "shape": ssd_bwd_row["shape"],
+        "by_path": {f"{r['path']}_{r['dtype']}": {k: r[k] for k in ("shape", *timed)}
+                    for r in ssd_bwd["rows"]},
     }], "launch_counts": launch_counts()}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

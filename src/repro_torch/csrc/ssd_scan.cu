@@ -53,6 +53,35 @@
 // are bf16 already and go in as they are.  Every sum is in a fixed order
 // and no atomics are used: two calls give the same bits.
 //
+// Backward (ssd_scan_bwd): the vector-Jacobian product of the chunked SSD
+// from a zero state, replacing XLA's autodiff of the reference's jnp oracle
+// src/repro/models/ssm.py::ssd_chunked (the Pallas kernel has no backward).
+// Its math is kernels/ref.py::ssd_scan_bwd_ref's, in eight kernels on the
+// CUDA cores, fp32 throughout (bf16 inputs widened on load; only dx, dB and
+// dC rounded to bf16, once):
+//   1. ssd_bwd_chunk_kernel, a block per (batch, chunk, head): cum, exp(cum_Q),
+//      the chunk's own state S_c and U_c = sum_i exp(cum_i) dy_i (x) C_i;
+//      and ssd_bwd_cb_kernel, a block per (batch, chunk, pair of 64-row
+//      sub-tiles J <= I): C_I B_J^T, once for every head and both sides;
+//   2. ssd_bwd_state_kernel, a thread per four state elements: the entering
+//      states h_c forward and their cotangents G_c backward over the chunks,
+//      in fp32 and in order (no state is saved by the forward: the backward
+//      recomputes them from x, dt, a and B), and <G_c, h_c> per warp;
+//   3. ssd_bwd_dkey_kernel and 4. ssd_bwd_dquery_kernel, a block per (batch,
+//      chunk, head, 64-row tile), for the key and the query side of every
+//      pair of sub-tiles j <= i: dx, the direct part of ddt, dB and dC per
+//      head, and the cotangent of cum (both of its row and column sums);
+//   5. ssd_bwd_cum_kernel: the cotangent of cum back through the cumsum to
+//      ddt and each chunk's share of da;
+//   6. ssd_bwd_reduce_kernel: dB and dC summed over heads in head order;
+//   7. ssd_bwd_da_kernel: da summed over (batch, chunk) in order.
+// No atomics: every sum over heads, positions or chunks has one order, so
+// two calls give the same bits.  Bound on an H100: x, dy, B, C, dt read and
+// dx, dB, dC, ddt written once (the bytes, at the model shapes); this first
+// version moves its fp32 scratch (the per-chunk states and cotangents, the
+// per-head dB and dC) through device memory, and its products run on the
+// CUDA cores.
+//
 // fp32: the CUDA-core kernel ssd_scan_kernel, since TF32 cannot meet the
 // fp32 tolerance of 2e-4.  One block of 256 threads owns one (batch, head),
 // walks its chunks in order with its (P, N) fp32 state in shared memory,
@@ -946,6 +975,779 @@ int launch(Args a, const void* x, long long x_sb, long long x_ss, long long x_sh
 
 }  // namespace bf16
 
+// ---------------------------------------------------------------------------
+// The backward: the vector-Jacobian product of the chunked SSD on the CUDA
+// cores, fp32 and bf16 inputs alike (bf16 widened on load, fp32 throughout)
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+constexpr int kTile = 64;        // rows of a sub-tile of the chunk
+constexpr int kThreads = 256;    // 16 x 16 threads: rows ty + 16 r, columns tx + 16 c
+constexpr int kLd = kTile + 1;   // padded row of a 64 x 64 pair tile
+constexpr int kMaxChunk = 256;
+constexpr int kPassThreads = 256;
+constexpr int kPartElems = 128;  // state elements of one <G, h> partial: a warp's 32 x 4
+constexpr int kReduceThreads = 256;
+constexpr int kStateBatch = 4;   // chunks whose loads the state pass keeps in flight
+
+struct Args {
+  const void* x;
+  const float* dt;
+  const float* a;
+  const void* b;
+  const void* c;
+  const void* dy;
+  const float* dfin;  // (B, H, P, N) or null (zero)
+  void* dx;           // (B, S, H, P) contiguous, x's dtype
+  float* ddt;         // (B, S, H) contiguous
+  float* da;          // (H,)
+  void* db;           // (B, S, N) contiguous, B's dtype
+  void* dc;           // (B, S, N) contiguous
+  float* cum;         // (B, nc, H, Q) inclusive cumsum of dt * a over the chunk
+  float* decay;       // (B, nc, H) exp(cum_Q)
+  float* hs;          // (B, nc, H, P, N) S_c, then the state entering chunk c
+  float* gs;          // (B, nc, H, P, N) U_c, then G_c (cotangent of the state after c)
+  float* hg;          // (B, nc, H, nparts) partials of <G_c, h_c>
+  float* ddt_x;       // (B, nc, H, Q) x_j . v_j
+  float* dcum_k;      // (B, nc, H, Q) -(sum_i M_ij) - T_j
+  float* tj;          // (B, nc, H, Q) T_j
+  float* dcum_q;      // (B, nc, H, Q) sum_j M_ij + exp(cum_i) C_i . (h_c^T dy_i)
+  float* db_h;        // (B, S, H, N) dB of each head
+  float* dc_h;        // (B, S, H, N) dC of each head
+  float* da_p;        // (B, nc, H) sum over the chunk of dt d(dt a)
+  float* cb;          // (B, nc, npairs, 64, 64) C_I B_J^T of each pair of sub-tiles J <= I
+  int batch, s, h, p, n, chunk, nc, nt, nparts, npairs;
+  long long x_sb, x_ss, x_sh;
+  long long dt_sb, dt_ss, dt_sh;
+  long long b_sb, b_ss;
+  long long c_sb, c_ss;
+  long long dy_sb, dy_ss, dy_sh;
+};
+
+template <typename T> __device__ __forceinline__ float load(const T* p);
+template <> __device__ __forceinline__ float load<float>(const float* p) { return *p; }
+template <> __device__ __forceinline__ float load<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+template <typename T> __device__ __forceinline__ T store_as(float v);
+template <> __device__ __forceinline__ float store_as<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// 16 columns at least, padded to an odd row length: a column operand read
+// as (tx + 16 c) * ld + k then hits 16 different banks.
+__host__ __device__ constexpr int pad16(int d) { return (d + 15) / 16 * 16; }
+
+// dst[r][col] (row length ld) = scale[r] * src[s0 + r][col] as fp32 for the
+// first `rows` rows that lie before s_total and the first `width` columns;
+// every other entry of the 64 x wpad tile is 0.  src points at the (batch,
+// head) and is strided by `stride` per position, its last dim contiguous.
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld, int wpad, const T* src,
+                                          long long stride, int width, int s0, int rows,
+                                          int s_total, const float* scale) {
+  for (int l = threadIdx.x; l < kTile * wpad; l += kThreads) {
+    const int r = l / wpad;
+    const int col = l % wpad;
+    const int si = s0 + r;
+    float v = 0.0f;
+    if (r < rows && si < s_total && col < width) {
+      v = load(src + si * stride + col);
+      if (scale != nullptr) v *= scale[r];
+    }
+    dst[r * ld + col] = v;
+  }
+}
+
+// acc[r][c] += sum_{k < kdim} A(ty + 16 r, k) B(tx + 16 c, k), with
+// A(row, k) = a[row * a_r + k * a_k] and B(col, k) = b[col * b_c + k * b_k]
+// in shared memory.  Within a warp A is read at two rows (a broadcast) and
+// B at 16 columns, so b_c is 1 or odd.
+template <int RT, int CT>
+__device__ __forceinline__ void mma(float (&acc)[RT][CT], const float* a, int a_r, int a_k,
+                                    const float* b, int b_c, int b_k, int kdim, int tx,
+                                    int ty) {
+#pragma unroll 4
+  for (int k = 0; k < kdim; ++k) {
+    float av[RT], bv[CT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) av[r] = a[(ty + 16 * r) * a_r + k * a_k];
+#pragma unroll
+    for (int c = 0; c < CT; ++c) bv[c] = b[(tx + 16 * c) * b_c + k * b_k];
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+  }
+}
+
+template <int RT, int CT>
+__device__ __forceinline__ void zero(float (&acc)[RT][CT]) {
+#pragma unroll
+  for (int r = 0; r < RT; ++r)
+#pragma unroll
+    for (int c = 0; c < CT; ++c) acc[r][c] = 0.0f;
+}
+
+// Row of the (batch, chunk, head) scratch.
+__device__ __forceinline__ long long row_of(const Args& a, int bi, int c, int h) {
+  return (static_cast<long long>(bi) * a.nc + c) * a.h + h;
+}
+
+// The chunk's dt (0 past S) into dts[0, q).
+__device__ __forceinline__ void load_dt(const Args& a, float* dts, int bi, int h, int s0) {
+  const float* dt = a.dt + bi * a.dt_sb + h * a.dt_sh;
+  for (int l = threadIdx.x; l < a.chunk; l += kThreads) {
+    const int si = s0 + l;
+    dts[l] = si < a.s ? dt[si * a.dt_ss] : 0.0f;
+  }
+}
+
+// Phase 1.  Block = (batch, chunk, head).  The chunk's inclusive cumsum of
+// dt * a (warp 0, the forward's order), stored with exp(cum_Q); its own
+// state S_c = sum_j exp(cum_Q - cum_j) dt_j x_j (x) B_j and U_c = sum_i
+// exp(cum_i) dy_i (x) C_i, each (P, N) fp32, over 64-row sub-tiles.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_chunk_kernel(const Args a) {
+  constexpr int kP = pad16(P), kN = pad16(N), kLp = kP + 1, kLn = kN + 1;
+  constexpr int kPR = kP / 16, kNC = kN / 16;
+  extern __shared__ float smem[];
+  float* xs = smem;                 // [64][kLp] weighted x, then weighted dy
+  float* bs = xs + kTile * kLp;     // [64][kLn] B, then C
+  float* cum = bs + kTile * kLn;    // [kMaxChunk]
+  float* dts = cum + kMaxChunk;     // [kMaxChunk]
+  float* wt = dts + kMaxChunk;      // [kMaxChunk] dt_j exp(cum_Q - cum_j)
+  float* ec = wt + kMaxChunk;       // [kMaxChunk] exp(cum_i)
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int h = blockIdx.x % a.h;
+  const int c = (blockIdx.x / a.h) % a.nc;
+  const int bi = blockIdx.x / (a.h * a.nc);
+  const long long row = row_of(a, bi, c, h);
+  const int q = a.chunk;
+  const int s0 = c * q;
+  const float a_h = a.a[h];
+
+  load_dt(a, dts, bi, h, s0);
+  __syncthreads();
+  if (tid < 32) {
+    // Inclusive scan of dt * a by warp 0: each lane a serial run of
+    // ceil(Q / 32) steps, then a shuffle scan of the runs' totals.
+    const int per = (q + 31) / 32;
+    const int lo = min(tid * per, q);
+    const int hi = min(lo + per, q);
+    float run = 0.0f;
+    for (int i = lo; i < hi; ++i) {
+      run += dts[i] * a_h;
+      cum[i] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (tid >= off) incl += v;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (tid == 0) excl = 0.0f;
+    for (int i = lo; i < hi; ++i) cum[i] += excl;
+  }
+  __syncthreads();
+  const float cum_end = cum[q - 1];
+  for (int l = tid; l < q; l += kThreads) {
+    a.cum[row * q + l] = cum[l];
+    wt[l] = dts[l] * expf(cum_end - cum[l]);
+    ec[l] = expf(cum[l]);
+  }
+  if (tid == 0) a.decay[row] = expf(cum_end);
+
+  const T* x = static_cast<const T*>(a.x) + bi * a.x_sb + h * a.x_sh;
+  const T* dy = static_cast<const T*>(a.dy) + bi * a.dy_sb + h * a.dy_sh;
+  const T* bp = static_cast<const T*>(a.b) + bi * a.b_sb;
+  const T* cp = static_cast<const T*>(a.c) + bi * a.c_sb;
+  const int tile = min(q, kTile);
+  float acc_s[kPR][kNC], acc_u[kPR][kNC];
+  zero(acc_s);
+  zero(acc_u);
+  for (int i0 = 0; i0 < q && s0 + i0 < a.s; i0 += tile) {
+    __syncthreads();  // wt written; the previous sub-tile's xs and bs read
+    load_rows(xs, kLp, kP, x, a.x_ss, P, s0 + i0, tile, a.s, wt + i0);
+    load_rows(bs, kLn, kN, bp, a.b_ss, N, s0 + i0, tile, a.s, nullptr);
+    __syncthreads();
+    // S[p][n] += sum_j (wt_j x_j[p]) B_j[n]
+    mma(acc_s, xs, 1, kLp, bs, 1, kLn, tile, tx, ty);
+    __syncthreads();
+    load_rows(xs, kLp, kP, dy, a.dy_ss, P, s0 + i0, tile, a.s, ec + i0);
+    load_rows(bs, kLn, kN, cp, a.c_ss, N, s0 + i0, tile, a.s, nullptr);
+    __syncthreads();
+    // U[p][n] += sum_i (exp(cum_i) dy_i[p]) C_i[n]
+    mma(acc_u, xs, 1, kLp, bs, 1, kLn, tile, tx, ty);
+  }
+  float* s_out = a.hs + row * P * N;
+  float* u_out = a.gs + row * P * N;
+#pragma unroll
+  for (int r = 0; r < kPR; ++r) {
+    const int p = ty + 16 * r;
+#pragma unroll
+    for (int cc = 0; cc < kNC; ++cc) {
+      const int n = tx + 16 * cc;
+      if (p < P && n < N) {
+        s_out[p * N + n] = acc_s[r][cc];
+        u_out[p * N + n] = acc_u[r][cc];
+      }
+    }
+  }
+}
+
+// The (I, J) pair's C_I B_J^T tile of chunk c: rows i of I, columns j of J.
+__device__ __forceinline__ const float* cb_tile(const Args& a, int bi, int c, int it, int jt) {
+  const long long pair = (static_cast<long long>(bi) * a.nc + c) * a.npairs +
+                         it * (it + 1) / 2 + jt;
+  return a.cb + pair * kTile * kTile;
+}
+
+// A thread's 4 x 4 micro-tile (rows ty + 16 r, columns tx + 16 c) of a
+// 64 x 64 tile in device memory.
+__device__ __forceinline__ void load_tile(float (&t)[4][4], const float* src, int tx, int ty) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) t[r][c] = src[(ty + 16 * r) * kTile + tx + 16 * c];
+}
+
+// Phase 1b.  Block = (batch, chunk, pair of 64-row sub-tiles J <= I): C_I
+// B_J^T over N (4 x 4 register micro-tiles), computed once for every head
+// and for both the key and the query side of phases 3 and 4.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_cb_kernel(const Args a) {
+  constexpr int kN = pad16(N), kLn = kN + 1;
+  extern __shared__ float smem[];
+  float* ci = smem;               // [64][kLn]
+  float* bj = ci + kTile * kLn;   // [64][kLn]
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int pair = blockIdx.x % a.npairs;
+  const int c = (blockIdx.x / a.npairs) % a.nc;
+  const int bi = blockIdx.x / (a.npairs * a.nc);
+  int it = 0;
+  while ((it + 1) * (it + 2) / 2 <= pair) ++it;
+  const int jt = pair - it * (it + 1) / 2;
+  const int s0 = c * a.chunk;
+  const int tile = min(a.chunk, kTile);
+  load_rows(ci, kLn, kN, static_cast<const T*>(a.c) + bi * a.c_sb, a.c_ss, N, s0 + it * tile,
+            tile, a.s, nullptr);
+  load_rows(bj, kLn, kN, static_cast<const T*>(a.b) + bi * a.b_sb, a.b_ss, N, s0 + jt * tile,
+            tile, a.s, nullptr);
+  __syncthreads();
+  float cb[4][4];
+  zero(cb);
+  mma(cb, ci, kLn, 1, bj, kLn, 1, kN, tx, ty);
+  float* out = a.cb + ((static_cast<long long>(bi) * a.nc + c) * a.npairs + pair) * kTile * kTile;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) out[(ty + 16 * r) * kTile + tx + 16 * cc] = cb[r][cc];
+}
+
+// Phase 2.  Block = (batch row and head, 1024 state elements); a thread
+// owns four consecutive elements of the (P, N) state and walks the chunks in
+// order in fp32: forward, h_0 = 0, h_{c+1} = exp(cum_Q,c) h_c + S_c, storing
+// h_c over S_c; then backward, G_{nc-1} = d_final, G_{c-1} = exp(cum_Q,c)
+// G_c + U_c, storing G_c over U_c, and one partial of <G_c, h_c> per warp
+// (a shuffle tree: a fixed order).
+__global__ void __launch_bounds__(kPassThreads)
+ssd_bwd_state_kernel(const Args a) {
+  const int pn = a.p * a.n;  // N is a multiple of 4: four elements share a row
+  const int t = blockIdx.y * kPassThreads + threadIdx.x;
+  if (4 * (t & ~31) >= pn) return;  // the whole warp is past the state
+  const bool active = 4 * t < pn;
+  const int e = active ? 4 * t : 0;
+  const int part = t / 32;
+  const int bi = blockIdx.x / a.h;
+  const int h = blockIdx.x % a.h;
+  auto at = [&](float* base, int c) {
+    return reinterpret_cast<float4*>(base + row_of(a, bi, c, h) * pn + e);
+  };
+  // Forward, kStateBatch chunks at a time: their loads first, then the
+  // chain (each slot is read before this thread overwrites it).
+  float st[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int c0 = 0; c0 < a.nc; c0 += kStateBatch) {
+    float4 sv[kStateBatch];
+    float d[kStateBatch];
+#pragma unroll
+    for (int u = 0; u < kStateBatch; ++u) {
+      sv[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      d[u] = 0.0f;
+      if (active && c0 + u < a.nc) {
+        sv[u] = *at(a.hs, c0 + u);
+        d[u] = a.decay[row_of(a, bi, c0 + u, h)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStateBatch; ++u) {
+      if (!active || c0 + u >= a.nc) continue;
+      *at(a.hs, c0 + u) = make_float4(st[0], st[1], st[2], st[3]);
+      st[0] = fmaf(st[0], d[u], sv[u].x);
+      st[1] = fmaf(st[1], d[u], sv[u].y);
+      st[2] = fmaf(st[2], d[u], sv[u].z);
+      st[3] = fmaf(st[3], d[u], sv[u].w);
+    }
+  }
+  float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (active && a.dfin != nullptr) {
+    const float* df = a.dfin + (static_cast<long long>(bi) * a.h + h) * pn + e;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[i] = df[i];
+  }
+  // Backward, the same batching from the last chunk down.
+  for (int c1 = a.nc - 1; c1 >= 0; c1 -= kStateBatch) {
+    float4 uv[kStateBatch], hv[kStateBatch];
+    float d[kStateBatch];
+#pragma unroll
+    for (int u = 0; u < kStateBatch; ++u) {
+      uv[u] = hv[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      d[u] = 0.0f;
+      if (active && c1 - u >= 0) {
+        uv[u] = *at(a.gs, c1 - u);
+        hv[u] = *at(a.hs, c1 - u);
+        d[u] = a.decay[row_of(a, bi, c1 - u, h)];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStateBatch; ++u) {
+      const int c = c1 - u;
+      if (c < 0) break;  // the same for the whole warp
+      float dot = 0.0f;
+      if (active) {
+        *at(a.gs, c) = make_float4(g[0], g[1], g[2], g[3]);
+        dot = g[0] * hv[u].x + g[1] * hv[u].y + g[2] * hv[u].z + g[3] * hv[u].w;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (threadIdx.x % 32 == 0) a.hg[row_of(a, bi, c, h) * a.nparts + part] = dot;
+      if (active) {
+        g[0] = fmaf(g[0], d[u], uv[u].x);
+        g[1] = fmaf(g[1], d[u], uv[u].y);
+        g[2] = fmaf(g[2], d[u], uv[u].z);
+        g[3] = fmaf(g[3], d[u], uv[u].w);
+      }
+    }
+  }
+}
+
+// Phase 3.  Block = (batch, chunk, head, 64-row key tile J), the heaviest
+// tiles (J = 0) numbered first.  B_J, x_J and G_c stay in shared memory;
+// for each query tile I >= J the pair's C_I B_J^T (phase 1b's) and dy_I
+// x_J^T (4 x 4 register micro-tiles) give, on j <= i with L_ij = exp(cum_i - cum_j) by a
+// select, A_ij = (C_i.B_j) L_ij, Z_ij = L_ij (dy_i.x_j) and M_ij = A_ij dt_j
+// (dy_i.x_j) in shared memory; then
+//   v_j += sum_i A_ij dy_i,  zb_j += sum_i Z_ij C_i,  colM_j += sum_i M_ij.
+// After the last I, with e_j = exp(cum_Q - cum_j):
+//   v_j += e_j G_c B_j;  dx_j = dt_j v_j;  dB_j (this head) = dt_j (zb_j +
+//   e_j G_c^T x_j);  x_j.v_j and T_j = dt_j e_j x_j.(G_c B_j) by thread j.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dkey_kernel(const Args a) {
+  constexpr int kP = pad16(P), kN = pad16(N), kLp = kP + 1, kLn = kN + 1;
+  constexpr int kPC = kP / 16, kNC = kN / 16;
+  extern __shared__ float smem[];
+  float* bj = smem;                 // [64][kLn]
+  float* xj = bj + kTile * kLn;     // [64][kLp]
+  float* ci = xj + kTile * kLp;     // [64][kLn]
+  float* dyi = ci + kTile * kLn;    // [64][kLp]
+  float* am = dyi + kTile * kLp;    // [64][kLd] A_ij, then v_j
+  float* zm = am + kTile * kLd;     // [64][kLd] Z_ij, then (G_c B_j)
+  float* mm = zm + kTile * kLd;     // [64][kLd] M_ij
+  float* gsm = mm + kTile * kLd;    // [kP][kLn] G_c
+  float* cum = gsm + kP * kLn;      // [kMaxChunk]
+  float* dts = cum + kMaxChunk;     // [kMaxChunk]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int per_tile = a.batch * a.nc * a.h;
+  const int jt = blockIdx.x / per_tile;
+  const int rest = blockIdx.x % per_tile;
+  const int h = rest % a.h;
+  const int c = (rest / a.h) % a.nc;
+  const int bi = rest / (a.h * a.nc);
+  const long long row = row_of(a, bi, c, h);
+  const int q = a.chunk;
+  const int s0 = c * q;
+  const int tile = min(q, kTile);
+  const int j0 = jt * tile;
+  if (s0 + j0 >= a.s) return;  // a key tile past the sequence: nothing to write
+
+  load_dt(a, dts, bi, h, s0);
+  for (int l = tid; l < q; l += kThreads) cum[l] = a.cum[row * q + l];
+  for (int l = tid; l < kP * kN; l += kThreads) {
+    const int p = l / kN;
+    const int n = l % kN;
+    gsm[p * kLn + n] = p < P && n < N ? a.gs[(row * P + p) * N + n] : 0.0f;
+  }
+  const T* x = static_cast<const T*>(a.x) + bi * a.x_sb + h * a.x_sh;
+  const T* dy = static_cast<const T*>(a.dy) + bi * a.dy_sb + h * a.dy_sh;
+  const T* bp = static_cast<const T*>(a.b) + bi * a.b_sb;
+  const T* cp = static_cast<const T*>(a.c) + bi * a.c_sb;
+  load_rows(bj, kLn, kN, bp, a.b_ss, N, s0 + j0, tile, a.s, nullptr);
+  load_rows(xj, kLp, kP, x, a.x_ss, P, s0 + j0, tile, a.s, nullptr);
+
+  float acc_v[4][kPC], acc_b[4][kNC];
+  zero(acc_v);
+  zero(acc_b);
+  float col_m = 0.0f;  // thread j < 64: sum_i M_ij
+  for (int i0 = j0; i0 < q && s0 + i0 < a.s; i0 += tile) {
+    __syncthreads();  // the previous pair's tiles are read (and the first loads done)
+    load_rows(ci, kLn, kN, cp, a.c_ss, N, s0 + i0, tile, a.s, nullptr);
+    load_rows(dyi, kLp, kP, dy, a.dy_ss, P, s0 + i0, tile, a.s, nullptr);
+    __syncthreads();
+    float cb[4][4], dx[4][4];
+    load_tile(cb, cb_tile(a, bi, c, i0 / tile, jt), tx, ty);  // rows i, columns j
+    zero(dx);
+    mma(dx, dyi, kLp, 1, xj, kLp, 1, kP, tx, ty);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int i = ty + 16 * r;
+        const int j = tx + 16 * cc;
+        const int gi = i0 + i;  // positions within the chunk
+        const int gj = j0 + j;
+        // A select: exp overflows above the diagonal.
+        const float l = (i < tile && j < tile && gj <= gi) ? expf(cum[gi] - cum[gj]) : 0.0f;
+        const float av = cb[r][cc] * l;
+        am[i * kLd + j] = av;
+        zm[i * kLd + j] = l * dx[r][cc];
+        mm[i * kLd + j] = l == 0.0f ? 0.0f : av * dx[r][cc] * dts[gj];
+      }
+    }
+    __syncthreads();
+    if (tid < kTile)
+      for (int i = 0; i < tile; ++i) col_m += mm[i * kLd + tid];
+    mma(acc_v, am, 1, kLd, dyi, 1, kLp, tile, tx, ty);  // rows j, columns p
+    mma(acc_b, zm, 1, kLd, ci, 1, kLn, tile, tx, ty);   // rows j, columns n
+  }
+
+  float ej[4], dtj[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int gj = j0 + ty + 16 * r;
+    const bool ok = ty + 16 * r < tile;
+    ej[r] = ok ? expf(cum[q - 1] - cum[gj]) : 0.0f;
+    dtj[r] = ok ? dts[gj] : 0.0f;
+  }
+  {
+    float gb[4][kPC];  // G_c B_j: rows j, columns p
+    zero(gb);
+    mma(gb, bj, kLn, 1, gsm, kLn, 1, kN, tx, ty);
+    __syncthreads();  // every thread is done with am and zm
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = ty + 16 * r;
+#pragma unroll
+      for (int cc = 0; cc < kPC; ++cc) {
+        const int p = tx + 16 * cc;
+        acc_v[r][cc] = fmaf(ej[r], gb[r][cc], acc_v[r][cc]);
+        am[j * kLd + p] = acc_v[r][cc];
+        zm[j * kLd + p] = gb[r][cc];
+      }
+    }
+  }
+  {
+    float gx[4][kNC];  // G_c^T x_j: rows j, columns n
+    zero(gx);
+    mma(gx, xj, kLp, 1, gsm, 1, kLn, kP, tx, ty);
+    float* db = a.db_h;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = ty + 16 * r;
+      const int sj = s0 + j0 + j;
+      if (j >= tile || sj >= a.s) continue;
+      const long long base = ((static_cast<long long>(bi) * a.s + sj) * a.h + h) * N;
+#pragma unroll
+      for (int cc = 0; cc < kNC; ++cc) {
+        const int n = tx + 16 * cc;
+        if (n < N) db[base + n] = dtj[r] * fmaf(ej[r], gx[r][cc], acc_b[r][cc]);
+      }
+    }
+  }
+  T* dxo = static_cast<T*>(a.dx);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = ty + 16 * r;
+    const int sj = s0 + j0 + j;
+    if (j >= tile || sj >= a.s) continue;
+    const long long base = ((static_cast<long long>(bi) * a.s + sj) * a.h + h) * P;
+#pragma unroll
+    for (int cc = 0; cc < kPC; ++cc) {
+      const int p = tx + 16 * cc;
+      if (p < P) dxo[base + p] = store_as<T>(dtj[r] * acc_v[r][cc]);
+    }
+  }
+  __syncthreads();  // v_j and G_c B_j are in am and zm
+  if (tid < tile && s0 + j0 + tid < a.s) {
+    const int j = tid;
+    float xv = 0.0f, xg = 0.0f;
+    for (int p = 0; p < P; ++p) {
+      xv = fmaf(xj[j * kLp + p], am[j * kLd + p], xv);
+      xg = fmaf(xj[j * kLp + p], zm[j * kLd + p], xg);
+    }
+    const float t_j = dts[j0 + j] * expf(cum[q - 1] - cum[j0 + j]) * xg;
+    const long long at = row * q + j0 + j;
+    a.ddt_x[at] = xv;
+    a.tj[at] = t_j;
+    a.dcum_k[at] = -(col_m + t_j);
+  }
+}
+
+// Phase 4.  Block = (batch, chunk, head, 64-row query tile I), the heaviest
+// (last) tiles first.  C_I, dy_I and h_c stay in shared memory; for each key
+// tile J <= I the pair (with phase 1b's C_I B_J^T) gives Z'_ij = L_ij dt_j (dy_i.x_j) and M_ij = (C_i.B_j)
+// Z'_ij; then zc_i += sum_j Z'_ij B_j and rowM_i += sum_j M_ij.  After the
+// last J, hd_i = h_c^T dy_i: dC_i (this head) = zc_i + exp(cum_i) hd_i, and
+// thread i adds exp(cum_i) C_i.hd_i to rowM_i.
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dquery_kernel(const Args a) {
+  constexpr int kP = pad16(P), kN = pad16(N), kLp = kP + 1, kLn = kN + 1;
+  constexpr int kNC = kN / 16;
+  extern __shared__ float smem[];
+  float* ci = smem;                 // [64][kLn]
+  float* dyi = ci + kTile * kLn;    // [64][kLp]
+  float* bj = dyi + kTile * kLp;    // [64][kLn] B_J, then hd
+  float* xj = bj + kTile * kLn;     // [64][kLp]
+  float* zm = xj + kTile * kLp;     // [64][kLd] Z'_ij
+  float* mm = zm + kTile * kLd;     // [64][kLd] M_ij
+  float* hsm = mm + kTile * kLd;    // [kP][kLn] h_c
+  float* cum = hsm + kP * kLn;      // [kMaxChunk]
+  float* dts = cum + kMaxChunk;     // [kMaxChunk]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int per_tile = a.batch * a.nc * a.h;
+  const int it = a.nt - 1 - blockIdx.x / per_tile;
+  const int rest = blockIdx.x % per_tile;
+  const int h = rest % a.h;
+  const int c = (rest / a.h) % a.nc;
+  const int bi = rest / (a.h * a.nc);
+  const long long row = row_of(a, bi, c, h);
+  const int q = a.chunk;
+  const int s0 = c * q;
+  const int tile = min(q, kTile);
+  const int i0 = it * tile;
+  if (s0 + i0 >= a.s) return;  // a query tile past the sequence
+
+  load_dt(a, dts, bi, h, s0);
+  for (int l = tid; l < q; l += kThreads) cum[l] = a.cum[row * q + l];
+  for (int l = tid; l < kP * kN; l += kThreads) {
+    const int p = l / kN;
+    const int n = l % kN;
+    hsm[p * kLn + n] = p < P && n < N ? a.hs[(row * P + p) * N + n] : 0.0f;
+  }
+  const T* x = static_cast<const T*>(a.x) + bi * a.x_sb + h * a.x_sh;
+  const T* dy = static_cast<const T*>(a.dy) + bi * a.dy_sb + h * a.dy_sh;
+  const T* bp = static_cast<const T*>(a.b) + bi * a.b_sb;
+  const T* cp = static_cast<const T*>(a.c) + bi * a.c_sb;
+  load_rows(ci, kLn, kN, cp, a.c_ss, N, s0 + i0, tile, a.s, nullptr);
+  load_rows(dyi, kLp, kP, dy, a.dy_ss, P, s0 + i0, tile, a.s, nullptr);
+
+  float acc_c[4][kNC];
+  zero(acc_c);
+  float row_m = 0.0f;  // thread i < 64: sum_j M_ij
+  for (int j0 = 0; j0 <= i0; j0 += tile) {
+    __syncthreads();  // the previous pair's tiles are read (and the first loads done)
+    load_rows(bj, kLn, kN, bp, a.b_ss, N, s0 + j0, tile, a.s, nullptr);
+    load_rows(xj, kLp, kP, x, a.x_ss, P, s0 + j0, tile, a.s, nullptr);
+    __syncthreads();
+    float cb[4][4], dx[4][4];
+    load_tile(cb, cb_tile(a, bi, c, it, j0 / tile), tx, ty);  // rows i, columns j
+    zero(dx);
+    mma(dx, dyi, kLp, 1, xj, kLp, 1, kP, tx, ty);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int i = ty + 16 * r;
+        const int j = tx + 16 * cc;
+        const int gi = i0 + i;
+        const int gj = j0 + j;
+        const float l = (i < tile && j < tile && gj <= gi) ? expf(cum[gi] - cum[gj]) : 0.0f;
+        const float zv = l * dts[j < tile ? gj : 0] * dx[r][cc];
+        zm[i * kLd + j] = zv;
+        mm[i * kLd + j] = zv * cb[r][cc];
+      }
+    }
+    __syncthreads();
+    if (tid < kTile)
+      for (int j = 0; j < tile; ++j) row_m += mm[tid * kLd + j];
+    mma(acc_c, zm, kLd, 1, bj, 1, kLn, tile, tx, ty);  // rows i, columns n
+  }
+
+  float hd[4][kNC];  // h_c^T dy_i: rows i, columns n
+  zero(hd);
+  mma(hd, dyi, kLp, 1, hsm, 1, kLn, kP, tx, ty);
+  __syncthreads();  // every thread is done with bj
+  float* dch = a.dc_h;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = ty + 16 * r;
+    const int si = s0 + i0 + i;
+    const float e = i < tile ? expf(cum[i0 + i]) : 0.0f;
+    const long long base = ((static_cast<long long>(bi) * a.s + si) * a.h + h) * N;
+#pragma unroll
+    for (int cc = 0; cc < kNC; ++cc) {
+      const int n = tx + 16 * cc;
+      bj[i * kLn + n] = hd[r][cc];
+      if (i < tile && si < a.s && n < N) dch[base + n] = fmaf(e, hd[r][cc], acc_c[r][cc]);
+    }
+  }
+  __syncthreads();
+  if (tid < tile && s0 + i0 + tid < a.s) {
+    const int i = tid;
+    float chd = 0.0f;
+    for (int n = 0; n < N; ++n) chd = fmaf(ci[i * kLn + n], bj[i * kLn + n], chd);
+    a.dcum_q[row * q + i0 + i] = fmaf(expf(cum[i0 + i]), chd, row_m);
+  }
+}
+
+// Phase 5.  A thread per (batch, chunk, head), in a fixed order: dcum_i =
+// dcum_q_i + dcum_k_i on the chunk's real positions, and at position Q
+// also sum_j T_j + exp(cum_Q) <G_c, h_c>; a reverse cumsum gives d(dt a)_i,
+// so ddt_i = x_i.v_i + a d(dt a)_i, and the chunk's share of da, sum_i dt_i
+// d(dt a)_i.
+__global__ void ssd_bwd_cum_kernel(const Args a) {
+  const long long row = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (row >= static_cast<long long>(a.batch) * a.nc * a.h) return;
+  const int h = static_cast<int>(row % a.h);
+  const int c = static_cast<int>((row / a.h) % a.nc);
+  const int bi = static_cast<int>(row / (static_cast<long long>(a.h) * a.nc));
+  const int q = a.chunk;
+  const int s0 = c * q;
+  const int real = min(q, a.s - s0);
+  const long long at = row * q;
+  float extra = 0.0f;
+  for (int i = 0; i < real; ++i) extra += a.tj[at + i];
+  float dot = 0.0f;
+  for (int k = 0; k < a.nparts; ++k) dot += a.hg[row * a.nparts + k];
+  extra = fmaf(a.decay[row], dot, extra);
+  const float a_h = a.a[h];
+  const float* dt = a.dt + bi * a.dt_sb + h * a.dt_sh;
+  float run = 0.0f, da = 0.0f;
+  for (int i = q - 1; i >= 0; --i) {
+    float dcum = i < real ? a.dcum_q[at + i] + a.dcum_k[at + i] : 0.0f;
+    if (i == q - 1) dcum += extra;
+    run += dcum;
+    if (i < real) {
+      const int si = s0 + i;
+      a.ddt[(static_cast<long long>(bi) * a.s + si) * a.h + h] = fmaf(a_h, run, a.ddt_x[at + i]);
+      da = fmaf(dt[si * a.dt_ss], run, da);
+    }
+  }
+  a.da_p[row] = da;
+}
+
+// Phase 6.  dB and dC: a thread per (batch, position, state element) sums
+// the heads' shares in head order and rounds once to the output's dtype.
+template <typename T>
+__global__ void ssd_bwd_reduce_kernel(const Args a) {
+  const long long total = static_cast<long long>(a.batch) * a.s * a.n;
+  const long long l = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (l >= total) return;
+  const long long bs = l / a.n;
+  const int n = static_cast<int>(l % a.n);
+  const long long base = bs * a.h * a.n + n;
+  float sb = 0.0f, sc = 0.0f;
+  for (int h = 0; h < a.h; ++h) {
+    sb += a.db_h[base + static_cast<long long>(h) * a.n];
+    sc += a.dc_h[base + static_cast<long long>(h) * a.n];
+  }
+  static_cast<T*>(a.db)[l] = store_as<T>(sb);
+  static_cast<T*>(a.dc)[l] = store_as<T>(sc);
+}
+
+// Phase 7.  da: a thread per head sums the chunks' shares in (batch, chunk)
+// order.
+__global__ void ssd_bwd_da_kernel(const Args a) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= a.h) return;
+  float da = 0.0f;
+  const long long rows = static_cast<long long>(a.batch) * a.nc;
+  for (long long r = 0; r < rows; ++r) da += a.da_p[r * a.h + h];
+  a.da[h] = da;
+}
+
+template <int N>
+constexpr size_t cb_smem() {
+  return sizeof(float) * 2 * kTile * (pad16(N) + 1);
+}
+
+template <int P, int N>
+constexpr size_t chunk_smem() {
+  return sizeof(float) * (kTile * (pad16(P) + 1) + kTile * (pad16(N) + 1) + 4 * kMaxChunk);
+}
+
+template <int P, int N>
+constexpr size_t dkey_smem() {
+  return sizeof(float) * (2 * kTile * (pad16(N) + 1) + 2 * kTile * (pad16(P) + 1) +
+                          3 * kTile * kLd + pad16(P) * (pad16(N) + 1) + 2 * kMaxChunk);
+}
+
+template <int P, int N>
+constexpr size_t dquery_smem() {
+  return sizeof(float) * (2 * kTile * (pad16(N) + 1) + 2 * kTile * (pad16(P) + 1) +
+                          2 * kTile * kLd + pad16(P) * (pad16(N) + 1) + 2 * kMaxChunk);
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+template <typename T, int P, int N>
+int launch(const Args& a, cudaStream_t stream) {
+  int err = set_smem(ssd_bwd_chunk_kernel<T, P, N>, chunk_smem<P, N>());
+  if (err == 0) err = set_smem(ssd_bwd_cb_kernel<T, N>, cb_smem<N>());
+  if (err == 0) err = set_smem(ssd_bwd_dkey_kernel<T, P, N>, dkey_smem<P, N>());
+  if (err == 0) err = set_smem(ssd_bwd_dquery_kernel<T, P, N>, dquery_smem<P, N>());
+  if (err != 0) return err;
+  const int rows = a.batch * a.nc * a.h;
+  ssd_bwd_chunk_kernel<T, P, N><<<rows, kThreads, chunk_smem<P, N>(), stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  ssd_bwd_cb_kernel<T, N><<<a.batch * a.nc * a.npairs, kThreads, cb_smem<N>(), stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const dim3 pass_grid(a.batch * a.h, (a.p * a.n + 4 * kPassThreads - 1) / (4 * kPassThreads));
+  ssd_bwd_state_kernel<<<pass_grid, kPassThreads, 0, stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  ssd_bwd_dkey_kernel<T, P, N><<<rows * a.nt, kThreads, dkey_smem<P, N>(), stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  ssd_bwd_dquery_kernel<T, P, N><<<rows * a.nt, kThreads, dquery_smem<P, N>(), stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  ssd_bwd_cum_kernel<<<(rows + 127) / 128, 128, 0, stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const long long elems = static_cast<long long>(a.batch) * a.s * a.n;
+  ssd_bwd_reduce_kernel<T><<<static_cast<unsigned>((elems + kReduceThreads - 1) / kReduceThreads),
+                             kReduceThreads, 0, stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  ssd_bwd_da_kernel<<<(a.h + 127) / 128, 128, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd
+
 // The (P, N) pairs taken: the model shapes, the smoke configs' and the
 // reference sweep's.  kernels/ssd_scan.py lists the same pairs.
 #define SSD_SHAPES(X)                                                    \
@@ -966,6 +1768,16 @@ int dispatch_bf16(const bf16::Args& a, const void* x, long long x_sb, long long 
 #define SSD_CASE(P_, N_)                                                                  \
   if (a.p == P_ && a.n == N_)                                                             \
     return bf16::launch<P_, N_>(a, x, x_sb, x_ss, x_sh, b, b_sb, b_ss, c, c_sb, c_ss, stream);
+  SSD_SHAPES(SSD_CASE)
+#undef SSD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch_bwd(const bwd::Args& a, int dtype, cudaStream_t stream) {
+#define SSD_CASE(P_, N_)                                                 \
+  if (a.p == P_ && a.n == N_)                                            \
+    return dtype == 0 ? bwd::launch<float, P_, N_>(a, stream)            \
+                      : bwd::launch<__nv_bfloat16, P_, N_>(a, stream);
   SSD_SHAPES(SSD_CASE)
 #undef SSD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1032,4 +1844,80 @@ extern "C" int ssd_scan_fwd(
   args.h_hi = static_cast<__nv_bfloat16*>(h_hi);
   args.h_lo = static_cast<__nv_bfloat16*>(h_lo);
   return dispatch_bf16(args, x, x_sb, x_ss, x_sh, b, b_sb, b_ss, c, c_sb, c_ss, st);
+}
+
+// The backward of ssd_scan_fwd (from a zero state): dy (B, S, H, P) in x's
+// dtype and dfin (B, H, P, N) fp32 or null in; dx (B, S, H, P) in x's
+// dtype, ddt (B, S, H) fp32, da (H,) fp32, dB and dC (B, S, N) in B's dtype
+// out, each contiguous.  dtype 0 = fp32, 1 = bf16 (x, B, C, dy, dx, dB,
+// dC); dt and a are fp32.  strides: x (batch, seq, head), dt (batch, seq,
+// head), B (batch, seq), C (batch, seq), dy (batch, seq, head), in
+// elements, the last dims contiguous.  scratch: 13 fp32 buffers from the
+// caller, each contiguous, in the order of kernels/ssd_scan.py's
+// backward_scratch_shapes: cum (B, nc, H, Q), decay (B, nc, H), states and
+// cotangents (B, nc, H, P, N), state_dots (B, nc, H, ceil(P N / 128)),
+// ddt_x, dcum_k, t, dcum_q (B, nc, H, Q), db_heads and dc_heads (B, S, H,
+// N), da_chunks (B, nc, H), cb_pairs (B, nc, nt (nt + 1) / 2, 64, 64) with
+// nt = ceil(Q / 64).  Launches eight kernels on `stream` and returns
+// the first error of its launches (0 = launched); an unsupported dtype,
+// shape or chunk returns cudaErrorInvalidValue without launching.
+extern "C" int ssd_scan_bwd(
+    const void* x, const void* dt, const void* a, const void* b, const void* c,
+    const void* dy, const void* dfin, void* dx, void* ddt, void* da, void* db, void* dc,
+    int dtype, int batch, int s, int h, int p, int n, int chunk,
+    const long long* strides, void* const* scratch, void* stream) {
+  if (batch <= 0 || h <= 0 || s <= 0 || chunk <= 0 || chunk > bwd::kMaxChunk ||
+      (chunk > bwd::kTile && chunk % bwd::kTile != 0) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  bwd::Args args{};
+  args.x = x;
+  args.dt = static_cast<const float*>(dt);
+  args.a = static_cast<const float*>(a);
+  args.b = b;
+  args.c = c;
+  args.dy = dy;
+  args.dfin = static_cast<const float*>(dfin);
+  args.dx = dx;
+  args.ddt = static_cast<float*>(ddt);
+  args.da = static_cast<float*>(da);
+  args.db = db;
+  args.dc = dc;
+  float* const* f = reinterpret_cast<float* const*>(scratch);
+  args.cum = f[0];
+  args.decay = f[1];
+  args.hs = f[2];
+  args.gs = f[3];
+  args.hg = f[4];
+  args.ddt_x = f[5];
+  args.dcum_k = f[6];
+  args.tj = f[7];
+  args.dcum_q = f[8];
+  args.db_h = f[9];
+  args.dc_h = f[10];
+  args.da_p = f[11];
+  args.cb = f[12];
+  args.batch = batch;
+  args.s = s;
+  args.h = h;
+  args.p = p;
+  args.n = n;
+  args.chunk = chunk;
+  args.nc = (s + chunk - 1) / chunk;
+  args.nt = (chunk + bwd::kTile - 1) / bwd::kTile;
+  args.nparts = (p * n + bwd::kPartElems - 1) / bwd::kPartElems;
+  args.npairs = args.nt * (args.nt + 1) / 2;
+  args.x_sb = strides[0];
+  args.x_ss = strides[1];
+  args.x_sh = strides[2];
+  args.dt_sb = strides[3];
+  args.dt_ss = strides[4];
+  args.dt_sh = strides[5];
+  args.b_sb = strides[6];
+  args.b_ss = strides[7];
+  args.c_sb = strides[8];
+  args.c_ss = strides[9];
+  args.dy_sb = strides[10];
+  args.dy_ss = strides[11];
+  args.dy_sh = strides[12];
+  return dispatch_bwd(args, dtype, static_cast<cudaStream_t>(stream));
 }

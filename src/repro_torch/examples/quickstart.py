@@ -51,12 +51,14 @@ HARDWARE = "msp430fr5994"
 def loss_and_grads(
     program: MultitaskProgram, flat: Any, x: torch.Tensor, labels: torch.Tensor
 ) -> Tuple[torch.Tensor, Any]:
-    """The joint loss and its gradient tree (autograd), ``flat``'s layout."""
+    """The joint loss and its gradient tree (autograd), ``flat``'s layout.
+    A leaf the loss does not read (a transformer backbone's unembedding)
+    gets a zero gradient, as under JAX's ``value_and_grad``."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(flat)]
     it = iter(leaves)
     params = tree_map(lambda _t: next(it), flat)
     loss = multitask_loss(program, params, x, labels)
-    grads = iter(torch.autograd.grad(loss, leaves))
+    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True))
     return loss.detach(), tree_map(lambda _t: next(grads), flat)
 
 

@@ -9,6 +9,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -158,6 +159,116 @@ def ssd_scan_ref(
     from repro_torch.models.ssm import ssd_chunked
 
     return ssd_chunked(x, dt, a, b_in, c_in, chunk)
+
+
+def ssd_scan_bwd_ref(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+    b_in: torch.Tensor, c_in: torch.Tensor,
+    dy: torch.Tensor, d_final: Optional[torch.Tensor] = None, chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The vector-Jacobian product of :func:`ssd_scan_ref` (the chunked SSD
+    from a zero state), written out in the backward kernel's phases in fp32:
+    ``dy`` (B, S, H, P) is the cotangent of y, ``d_final`` (B, H, P, N) that
+    of the final state (None: zero).  Returns ``(dx, ddt, da, dB, dC)``: dx,
+    dB and dC in their inputs' dtypes, ddt (B, S, H) and da (H,) fp32.
+
+    Per chunk c (positions i, j; cum the inclusive cumsum of dt * a over the
+    chunk, Q its last position, h_c the state entering the chunk):
+
+    1. the chunk's own state S_c = sum_j exp(cum_Q - cum_j) dt_j x_j (x) B_j
+       and U_c = sum_i exp(cum_i) dy_i (x) C_i;
+    2. h_c forward over the chunks, h_{c+1} = exp(cum_Q) h_c + S_c, and the
+       cotangent G_c of h_{c+1} backward, G_{nc-1} = d_final,
+       G_{c-1} = exp(cum_Q) G_c + U_c;
+    3. per key j: v_j = sum_{i>=j} (C_i.B_j) exp(cum_i - cum_j) dy_i
+       + exp(cum_Q - cum_j) G_c B_j, dx_j = dt_j v_j, the direct part of
+       ddt_j x_j.v_j, and dB_j = dt_j [sum_{i>=j} exp(cum_i - cum_j)
+       (dy_i.x_j) C_i + exp(cum_Q - cum_j) G_c^T x_j], summed over heads;
+    4. per query i: dC_i = sum_{j<=i} exp(cum_i - cum_j) dt_j (dy_i.x_j) B_j
+       + exp(cum_i) h_c^T dy_i, summed over heads;
+    5. the cotangent of cum: with M_ij = (C_i.B_j) exp(cum_i - cum_j) dt_j
+       (dy_i.x_j) on j <= i and T_j = exp(cum_Q - cum_j) dt_j x_j.(G_c B_j),
+       dcum_i = sum_j M_ij - sum_k M_ki + exp(cum_i) dy_i.(h_c C_i) - T_i,
+       and position Q also gets sum_j T_j + exp(cum_Q) <G_c, h_c>; a
+       reverse cumsum over the chunk gives d(dt * a), hence ddt += a d(dt a)
+       and da = sum over (b, s) of dt d(dt a).
+
+    A ragged S is zero-padded to whole chunks, as the forward pads it: the
+    padded positions carry dt = 0, so cum_Q is the last real position's.
+    """
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        x, dy = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, dy))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b_in, c_in = (F.pad(t, (0, 0, 0, pad)) for t in (b_in, c_in))
+    nc, q = (s + pad) // chunk, chunk
+    xf = x.reshape(bsz, nc, q, h, p).float()
+    dyf = dy.reshape(bsz, nc, q, h, p).float()
+    dtf = dt.reshape(bsz, nc, q, h).float()
+    bf = b_in.reshape(bsz, nc, q, n).float()
+    cf = c_in.reshape(bsz, nc, q, n).float()
+    af = a.float()
+
+    # Phase 1: cum, the chunks' own states and U_c.
+    cum = torch.cumsum(dtf * af, dim=2)                               # (B,nc,q,H)
+    ecum = torch.exp(cum)
+    to_end = torch.exp(cum[:, :, -1:, :] - cum)                       # exp(cum_Q - cum_j)
+    decay = torch.exp(cum[:, :, -1, :])                               # (B,nc,H)
+    s_chunk = torch.einsum("bckhp,bckn->bchpn", (to_end * dtf)[..., None] * xf, bf)
+    u_chunk = torch.einsum("bcqhp,bcqn->bchpn", ecum[..., None] * dyf, cf)
+
+    # Phase 2: the entering states forward, their cotangents backward.
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * decay[:, c, :, None, None] + s_chunk[:, c]
+    h_in = torch.stack(entering, dim=1)                               # (B,nc,H,P,N)
+    g = (d_final.float() if d_final is not None
+         else torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device))
+    cotangents = [g] * nc
+    for c in reversed(range(nc)):
+        cotangents[c] = g
+        g = g * decay[:, c, :, None, None] + u_chunk[:, c]
+    g_out = torch.stack(cotangents, dim=1)                            # (B,nc,H,P,N)
+
+    # The chunk's pair terms: L_ij = exp(cum_i - cum_j) on j <= i, by a select.
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    lmat = torch.where(causal[None, None, :, :, None],
+                       torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :]),
+                       torch.zeros((), device=x.device))              # (B,nc,i,j,H)
+    cb = torch.einsum("bcin,bcjn->bcij", cf, bf)
+    dyx = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf)
+    z = lmat * dyx * dtf[:, :, None, :, :]                            # L_ij dt_j (dy_i.x_j)
+
+    # Phase 3: per key.
+    g_b = torch.einsum("bchpn,bcjn->bcjhp", g_out, bf)                # G_c B_j
+    v = torch.einsum("bcijh,bcihp->bcjhp", lmat * cb[..., None], dyf) + to_end[..., None] * g_b
+    dx = dtf[..., None] * v
+    ddt = (xf * v).sum(-1)
+    db = (torch.einsum("bcijh,bcin->bcjn", z, cf)
+          + torch.einsum("bcjhp,bchpn->bcjn", (to_end * dtf)[..., None] * xf, g_out))
+
+    # Phase 4: per query.
+    h_dy = torch.einsum("bchpn,bcihp->bcihn", h_in, dyf)              # h_c^T dy_i
+    dc = torch.einsum("bcijh,bcjn->bcin", z, bf) + torch.einsum("bcih,bcihn->bcin", ecum, h_dy)
+
+    # Phase 5: the cotangent of cum, back through the cumsum to dt and a.
+    m = z * cb[..., None]
+    t_j = to_end * dtf * (xf * g_b).sum(-1)
+    dcum = m.sum(3) - m.sum(2) + ecum * torch.einsum("bcihn,bcin->bcih", h_dy, cf) - t_j
+    dcum[:, :, -1, :] += t_j.sum(2) + decay * (g_out * h_in).sum((-2, -1))
+    d_da = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = ddt + af * d_da
+    da = (dtf * d_da).sum((0, 1, 2))
+
+    def cut(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return t.reshape(bsz, nc * q, *t.shape[3:])[:, :s].to(dtype)
+
+    return (cut(dx, x.dtype), cut(ddt, torch.float32), da,
+            cut(db, b_in.dtype), cut(dc, c_in.dtype))
 
 
 def ssd_sequential(x, dt, a, b_in, c_in):

@@ -25,13 +25,25 @@ conv output go in without a copy; the bf16 kernels read them by TMA, which
 needs a 16-byte aligned start and strides of whole 16 bytes, so a bf16 view
 that lacks them is first copied to a padded layout (:func:`tma_ready`; the
 model's views never are).
+
+Under autograd (grad enabled and an input that requires it) the CUDA path
+runs through :class:`SSDScanFunction`: the same forward launch, then the
+backward kernels (:func:`ssd_scan_backward`, eight CUDA-core kernels in
+``csrc/ssd_scan.cu``), which replace XLA's autodiff of the reference's jnp
+oracle ``repro/models/ssm.py::ssd_chunked`` and compute what
+:func:`~repro_torch.kernels.ref.ssd_scan_bwd_ref` computes.  They recompute
+the states entering each chunk from the saved inputs rather than keep the
+forward's scratch, and pass their own fp32 scratch
+(:func:`backward_scratch_shapes`).  Bound on an H100: x, dt, B, C and dy
+read and dx, ddt, dB and dC written once; at the model shapes the bytes
+bound it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -59,6 +71,12 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 10
         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    fn = lib.ssd_scan_bwd
+    fn.argtypes = (
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib
@@ -134,6 +152,47 @@ def kernel_bytes(batch: int, s: int, heads: int, p: int, n: int, chunk: int) -> 
     }
 
 
+def backward_scratch_shapes(
+    batch: int, s: int, heads: int, p: int, n: int, chunk: int,
+) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The backward's fp32 scratch, each (shape, dtype), in the order the
+    kernel takes it: the chunks' cumsums of dt * a and decays exp(cum_Q);
+    every chunk's own state S_c, overwritten by the state entering the chunk
+    (recomputed here: the forward saves none), and U_c, overwritten by the
+    cotangent G_c of the state after the chunk; per-warp partials of
+    <G_c, h_c>; the per-position terms of ddt and of the cumsum's cotangent;
+    dB and dC of each head before the fixed-order sum over heads; each
+    chunk's share of da; and C_I B_J^T of every pair of 64-row sub-tiles J
+    <= I of a chunk, shared by its heads."""
+    nc = -(-s // chunk)
+    nt = -(-chunk // ROWS)
+    f32 = torch.float32
+    per_chunk = ((batch, nc, heads, chunk), f32)
+    state = ((batch, nc, heads, p, n), f32)
+    per_head = ((batch, s, heads, n), f32)
+    return {
+        "cum": per_chunk,
+        "decay": ((batch, nc, heads), f32),
+        "states": state,
+        "cotangents": state,
+        "state_dots": ((batch, nc, heads, -(-(p * n) // 128)), f32),
+        "ddt_x": per_chunk,
+        "dcum_k": per_chunk,
+        "t": per_chunk,
+        "dcum_q": per_chunk,
+        "db_heads": per_head,
+        "dc_heads": per_head,
+        "da_chunks": ((batch, nc, heads), f32),
+        "cb_pairs": ((batch, nc, nt * (nt + 1) // 2, ROWS, ROWS), f32),
+    }
+
+
+def backward_scratch_bytes(batch: int, s: int, heads: int, p: int, n: int, chunk: int) -> int:
+    """Bytes of :func:`backward_scratch_shapes`."""
+    return sum(_nbytes(*v)
+               for v in backward_scratch_shapes(batch, s, heads, p, n, chunk).values())
+
+
 def tma_ready(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself where TMA can read it (a 16-byte aligned start, every
     stride but the last a multiple of 8 elements), else a copy into a buffer
@@ -191,33 +250,11 @@ def _check(
         raise ValueError("ssd_scan needs the last dim of x, B, C and a contiguous")
 
 
-def ssd_scan(
-    x: torch.Tensor,      # (B, S, H, P) activation dtype
-    dt: torch.Tensor,     # (B, S, H) fp32, positive step sizes
-    a: torch.Tensor,      # (H,) fp32, negative decay rates
-    b_in: torch.Tensor,   # (B, S, N) activation dtype
-    c_in: torch.Tensor,   # (B, S, N) activation dtype
-    chunk: int = 128,
+def _forward(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+    b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD: ``(y (B, S, H, P) in x's dtype, final state (B, H, P, N)
-    fp32)``, starting from a zero state.
-
-    On CUDA the kernel launches on the current stream and
-    :attr:`ssd_scan.launches` counts it; on the CPU the plain version runs.
-    The kernel has no backward yet: on CUDA, with grad enabled and an input
-    that requires grad, it raises ``NotImplementedError`` rather than return
-    an output cut off from autograd.
-    """
-    check_devices(x, dt, a, b_in, c_in)
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, a, b_in, c_in, chunk)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_in, c_in)):
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet: training an SSM or hybrid model on CUDA "
-            "waits for the slice that ports the SSD backward (ROADMAP.md, Queue 1); "
-            "the CPU's plain version is differentiable"
-        )
-    _check(x, dt, a, b_in, c_in, chunk)
+    """One forward launch on the current stream: y and the final state."""
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
@@ -246,4 +283,105 @@ def ssd_scan(
     return y, fin
 
 
+def ssd_scan_backward(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+    b_in: torch.Tensor, c_in: torch.Tensor,
+    dy: torch.Tensor, d_final: Optional[torch.Tensor], chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels on the current stream: ``(dx, ddt, da, dB,
+    dC)`` for the cotangents ``dy`` of y (x's dtype) and ``d_final`` of the
+    final state (fp32, or None for zero), as
+    :func:`~repro_torch.kernels.ref.ssd_scan_bwd_ref` computes them.  The
+    inputs are the forward's, read through their strides; the outputs are
+    contiguous.  :attr:`ssd_scan.backward_launches` counts the call once.
+    CUDA only."""
+    _check(x, dt, a, b_in, c_in, chunk)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} vs "
+                         f"{tuple(x.shape)} {x.dtype}")
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    if d_final is not None:
+        if tuple(d_final.shape) != (bsz, h, p, n):
+            raise ValueError(f"d_final must be (B, H, P, N), got {tuple(d_final.shape)}")
+        d_final = d_final.to(torch.float32).contiguous()
+    dy = dy if dy.stride(-1) == 1 else dy.contiguous()
+    dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    ddt = torch.empty((bsz, s, h), dtype=torch.float32, device=x.device)
+    da = torch.zeros((h,), dtype=torch.float32, device=x.device)
+    db = torch.empty((bsz, s, n), dtype=b_in.dtype, device=x.device)
+    dc = torch.empty((bsz, s, n), dtype=c_in.dtype, device=x.device)
+    if bsz * h == 0 or s == 0:
+        return dx, ddt, da, db.zero_(), dc.zero_()
+    scratch = [torch.empty(shape, dtype=dtype, device=x.device)
+               for shape, dtype in backward_scratch_shapes(bsz, s, h, p, n, chunk).values()]
+    strides = (ctypes.c_longlong * 13)(
+        x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
+        b_in.stride(0), b_in.stride(1), c_in.stride(0), c_in.stride(1),
+        dy.stride(0), dy.stride(1), dy.stride(2))
+    pointers = (ctypes.c_void_p * len(scratch))(*(t.data_ptr() for t in scratch))
+    lib = _library()
+    with _build.on_device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
+            dy.data_ptr(), None if d_final is None else d_final.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk, strides, pointers, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: CUDA error {err}")
+    ssd_scan.backward_launches += 1
+    return dx, ddt, da, db, dc
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """The kernels under autograd: the forward launches the inference
+    kernels (the same bits as without grad) and saves its inputs; the
+    backward launches the backward kernels, which recompute the entering
+    states from them.  An unused final state gives no cotangent (None)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_in, c_in, chunk: int):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b_in, c_in)
+        ctx.chunk = chunk
+        return _forward(x, dt, a, b_in, c_in, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, a, b_in, c_in = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        dx, ddt, da, db, dc = ssd_scan_backward(x, dt, a, b_in, c_in, dy, d_final, ctx.chunk)
+        return dx, ddt, da, db, dc, None
+
+
+def ssd_scan(
+    x: torch.Tensor,      # (B, S, H, P) activation dtype
+    dt: torch.Tensor,     # (B, S, H) fp32, positive step sizes
+    a: torch.Tensor,      # (H,) fp32, negative decay rates
+    b_in: torch.Tensor,   # (B, S, N) activation dtype
+    c_in: torch.Tensor,   # (B, S, N) activation dtype
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD: ``(y (B, S, H, P) in x's dtype, final state (B, H, P, N)
+    fp32)``, starting from a zero state.
+
+    On CUDA the kernel launches on the current stream and
+    :attr:`ssd_scan.launches` counts it; with grad enabled and an input
+    that requires grad it runs through :class:`SSDScanFunction`, whose
+    backward launches the backward kernels (:attr:`ssd_scan.backward_launches`).
+    On the CPU the plain version runs, differentiable by autograd.
+    """
+    check_devices(x, dt, a, b_in, c_in)
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, a, b_in, c_in, chunk)
+    _check(x, dt, a, b_in, c_in, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_in, c_in)):
+        return SSDScanFunction.apply(x, dt, a, b_in, c_in, chunk)
+    return _forward(x, dt, a, b_in, c_in, chunk)
+
+
 ssd_scan.launches = 0
+ssd_scan.backward_launches = 0

@@ -809,24 +809,110 @@ def test_flash_function_agrees_with_autograd_of_the_plain_version(cuda):
     assert _rel_err(gw, gw_ref) <= 1e-5
 
 
-def test_ssd_and_pearson_refuse_grad_on_the_card(cuda):
-    """Neither has a backward kernel yet: with grad enabled and an input
-    that requires grad each raises instead of returning a tensor cut off
-    from autograd; without grad each runs."""
-    x = _randn((1, 64, 2, 64), torch.float32, cuda, 61).requires_grad_(True)
-    dt = torch.full((1, 64, 2), 0.1, device=cuda)
-    a = -torch.ones(2, device=cuda)
-    b_in = _randn((1, 64, 128), torch.float32, cuda, 62)
-    c_in = _randn((1, 64, 128), torch.float32, cuda, 63)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ssd_scan(x, dt, a, b_in, c_in, 64)
-    with torch.no_grad():
-        y, _ = ssd_scan(x, dt, a, b_in, c_in, 64)
-    assert not y.requires_grad
+def test_pearson_refuses_grad_on_the_card(cuda):
+    """Pearson has no backward kernel (the reference never differentiates
+    it): with grad enabled and an input that requires grad it raises
+    instead of returning a tensor cut off from autograd; without grad it
+    runs."""
     z = ops.standardize_rows(_randn((16, 64), torch.float32, cuda, 64)).requires_grad_(True)
     with pytest.raises(NotImplementedError, match="backward"):
         pearson_dissimilarity(z)
     assert pearson_dissimilarity(z.detach()).shape == (16, 16)
+
+
+# The SSD backward: each gradient's max abs error over its largest |value|,
+# fp32 (sums in other orders) and from bf16 inputs (dx, dB, dC rounded once).
+SSD_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+SSD_BWD_MODEL_CASES = [(4, 2048, 48, 64, 128, 64), (4, 1024, 80, 64, 64, 256)]
+
+
+def _ssd_bwd_check(cuda, b, s, h, p, n, chunk, dtype, with_final, seed):
+    from repro_torch.kernels.ref import ssd_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, dtype, cuda, seed=seed)
+    dy = _randn((b, s, h, p), dtype, cuda, seed + 1)
+    d_final = _randn((b, h, p, n), torch.float32, cuda, seed + 2) if with_final else None
+    before = ssd_scan.backward_launches
+    got = ssd_scan_backward(x, dt, a, bb, cc, dy, d_final, chunk)
+    again = ssd_scan_backward(x, dt, a, bb, cc, dy, d_final, chunk)
+    torch.cuda.synchronize()
+    assert ssd_scan.backward_launches == before + 2
+    assert all(torch.equal(one, two) for one, two in zip(got, again))
+    want = ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, d_final, chunk)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel_err(g, w) <= SSD_BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_backward_matches_plain_version(cuda, b, s, h, p, n, chunk, dtype):
+    """The backward kernels against ``ssd_scan_bwd_ref`` at the SSD's test
+    shapes (chunks 8-256, ragged lengths), with a cotangent of the final
+    state, bit-identical across two calls."""
+    _ssd_bwd_check(cuda, b, s, h, p, n, chunk, dtype, True, seed=s + n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_BWD_MODEL_CASES)
+def test_ssd_backward_at_the_model_shapes(cuda, b, s, h, p, n, chunk, dtype):
+    """mamba2-780m's and zamba2-2.7b's training shapes, no final-state
+    cotangent (the models discard the final state in training)."""
+    _ssd_bwd_check(cuda, b, s, h, p, n, chunk, dtype, False, seed=h)
+
+
+def test_ssd_function_under_autograd_on_the_card(cuda):
+    """With grad on, the wrapper runs ``SSDScanFunction``: the forward's
+    bits are those of the inference forward, one forward and one backward
+    launch, and the gradients of every input are the backward kernels'."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+
+    x, dt, a, bb, cc = _ssd_inputs(2, 300, 4, 64, 128, torch.bfloat16, cuda, seed=7)
+    dy = _randn((2, 300, 4, 64), torch.bfloat16, cuda, 8)
+    with torch.no_grad():
+        y0, f0 = ops.ssd_scan(x, dt, a, bb, cc, chunk=64)
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, bb, cc)]
+    fwd, bwd = ssd_scan.launches, ssd_scan.backward_launches
+    y, fin = ops.ssd_scan(*leaves, chunk=64)
+    assert y.requires_grad and torch.equal(y.detach(), y0) and torch.equal(fin.detach(), f0)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches - fwd, ssd_scan.backward_launches - bwd) == (1, 1)
+    want = ssd_scan_backward(x, dt, a, bb, cc, dy, None, 64)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One batch of an fp32 smoke SSM or hybrid config on the card: every
+    leaf gets a gradient (the SSD's through its backward kernels, one launch
+    per Mamba2 layer; zamba2's shared attention through the flash backward)
+    within 1e-4 of its largest |value| of the CPU's (autograd through the
+    plain versions); then one AdamW step."""
+    from repro_torch._device import tree_leaves
+    from repro_torch.training import AdamWConfig, adamw_init, loss_and_grads, make_train_step
+
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    on_card = tree_map(lambda p: p.to(cuda), params)
+    tokens = np.random.default_rng(0).integers(0, cfg.raw_vocab_size, (2, 64))
+    bwd = ssd_scan.backward_launches
+    loss, _, grads = loss_and_grads(model, on_card, tokens)
+    torch.cuda.synchronize()
+    assert ssd_scan.backward_launches - bwd == cfg.num_layers
+    loss_cpu, _, grads_cpu = loss_and_grads(model, params, tokens)
+    torch.testing.assert_close(loss.cpu(), loss_cpu, rtol=2e-5, atol=0)
+    for got, want in zip(tree_leaves(grads), tree_leaves(grads_cpu)):
+        assert bool(torch.isfinite(want).all())
+        assert _rel_err(got.cpu(), want) <= 1e-4
+    new, opt, m = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=1))(
+        on_card, adamw_init(on_card), tokens)
+    assert int(opt.step) == 1 and np.isfinite(float(m["loss"]))
+    assert all(p.device.type == "cuda" for p in tree_leaves(new))
 
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):

@@ -23,13 +23,15 @@ def _modules():
 
 def test_every_package_is_covered():
     """The checks below walk every module of the port, the input-adaptive
-    package's and the training slice's included."""
+    package's, the training slice's and the two examples included."""
     assert {"repro_torch.adaptive", "repro_torch.adaptive.gating",
             "repro_torch.adaptive.gate_model", "repro_torch.adaptive.policy",
             "repro_torch.core.executor", "repro_torch.serving.session",
             "repro_torch.training", "repro_torch.training.optimizer",
             "repro_torch.training.train_loop", "repro_torch.training.checkpoint",
-            "repro_torch.launch.train", "repro_torch.data.synthetic"} <= set(_modules())
+            "repro_torch.launch.train", "repro_torch.data.synthetic",
+            "repro_torch.examples.train_multitask",
+            "repro_torch.examples.serve_multitask"} <= set(_modules())
 
 
 def test_importing_every_module_loads_no_jax():
@@ -82,3 +84,16 @@ def test_train_launcher_raises_without_cuda():
         pytest.skip("a CUDA device is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "mistral-nemo-12b", "--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("example", ["train_multitask", "serve_multitask"])
+def test_examples_raise_without_cuda(example):
+    """The two examples default to the card: without one they raise rather
+    than run on the CPU."""
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    module = importlib.import_module(f"repro_torch.examples.{example}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(["--steps", "1"] if example == "train_multitask" else [])
