@@ -15,14 +15,17 @@
    (the yardstick only) with CUDA events; a bf16 SSD row also gives each of
    its three kernels' device time from one profiler window, the bytes each
    must move and its scratch bytes.  The flash backward (three kernels
-   behind ``FlashAttentionFunction``) is held against the plain backward on
+   behind ``FlashAttentionFunction``; bf16 on the tensor cores, each
+   kernel's device time from one profiler window) is held against the plain backward on
    the forward's own output and logsumexp and against autograd through the
    plain forward, in fp32 and bf16, at mistral's training shape, 1000
    frames over 1024 zero-padded keys without the causal mask, a causal
    window the sequence passes, and head_dim 80 and 128; two backward calls
    give the same bits, and the forward without the logsumexp (inference)
    the same bits as with it; SDPA's backward is its yardstick.  The SSD
-   backward (eight CUDA-core kernels behind ``SSDScanFunction``) is held
+   backward (behind ``SSDScanFunction``: eight CUDA-core kernels in fp32,
+   seven in bf16 with the chunk, dkey and dquery kernels on the tensor
+   cores; each kernel's device time and the call's scratch bytes) is held
    against the plain backward ``ssd_scan_bwd_ref`` at mamba2-780m's and
    zamba2-2.7b's training shapes in fp32 and bf16 and at a ragged length
    with a final-state cotangent; two calls give the same bits, and under
@@ -1752,13 +1755,25 @@ def quickstart_phase(device: torch.device) -> dict:
 # Device kernel names of the port's kernels (both passes of the Pearson Gram).
 # The bf16 SSD's three kernels, in launch order.
 SSD_BF16_KERNELS = ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
-# The SSD backward's eight kernels, in launch order.
+# The SSD backward's kernels, in launch order: eight on the CUDA cores
+# (fp32), seven for bf16 (the chunk and the two pair kernels on the tensor
+# cores).
 SSD_BWD_KERNELS = ("ssd_bwd_chunk_kernel", "ssd_bwd_cb_kernel", "ssd_bwd_state_kernel",
                    "ssd_bwd_dkey_kernel", "ssd_bwd_dquery_kernel", "ssd_bwd_cum_kernel",
                    "ssd_bwd_reduce_kernel", "ssd_bwd_da_kernel")
+SSD_BWD16_KERNELS = ("ssd_bwd_chunk_bf16_kernel", "ssd_bwd_state_kernel",
+                     "ssd_bwd_dkey_bf16_kernel", "ssd_bwd_dquery_bf16_kernel",
+                     "ssd_bwd_cum_kernel", "ssd_bwd_reduce_kernel", "ssd_bwd_da_kernel")
+# The flash backward's three kernels by dtype, in launch order.
+FLASH_BWD_KERNELS = {
+    torch.float32: ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+    torch.bfloat16: ("flash_bwd_delta_kernel", "flash_bwd_dkdv_bf16_kernel",
+                     "flash_bwd_dq_bf16_kernel"),
+}
 PORT_KERNELS = ("pearson_partial_kernel", "pearson_reduce_kernel", "flash_bf16_kernel",
-                "flash_fp32_kernel", "flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-                "flash_bwd_dq_kernel", "ssd_scan_kernel", *SSD_BF16_KERNELS, *SSD_BWD_KERNELS)
+                "flash_fp32_kernel", *dict.fromkeys(sum(FLASH_BWD_KERNELS.values(), ())),
+                "ssd_scan_kernel", *SSD_BF16_KERNELS,
+                *dict.fromkeys(SSD_BWD_KERNELS + SSD_BWD16_KERNELS))
 
 
 def device_breakdown(fn, timed_ms: float, top: int = 6, warm: bool = True,
@@ -1974,7 +1989,8 @@ def flash_bwd_phase(device: torch.device) -> dict:
     and bf16; two backward calls give the same bits; the forward without
     the logsumexp (inference) gives the same bits as with it.  Times the
     backward's three kernels (one wrapper call), the plain backward and
-    SDPA's backward (the yardstick only) with CUDA events."""
+    SDPA's backward (the yardstick only) with CUDA events, and gives each of
+    the three kernels' device time from one profiler window."""
     rng = np.random.default_rng(2)
     rows, max_err, max_abs = [], 0.0, 0.0
     for name, b, s, t, hq, hk, d, causal, window, real_t in FLASH_BWD:
@@ -2042,6 +2058,10 @@ def flash_bwd_phase(device: torch.device) -> dict:
                 "peak": ("bf16 tensor cores 989 TFLOP/s" if dtype == torch.bfloat16 else
                          "fp32 CUDA cores 67 TFLOP/s") + ", HBM 3.35 TB/s (H100 SXM data sheet)",
             }
+            trace = device_breakdown(lambda: flash_module._launch_bwd(q, k, v, o, d_o, lse, geo),
+                                     row["kernel_ms"])
+            row["sub_kernels"] = {k: trace["port_kernels"].get(k, {}).get("ms")
+                                  for k in FLASH_BWD_KERNELS[dtype]}
             print(json.dumps(row), flush=True)
             rows.append(row)
             del q, k, v, d_o, o, lse
@@ -2168,9 +2188,11 @@ def ssd_bwd_phase(device: torch.device) -> dict:
     within :data:`SSD_BWD_TOL` of its largest |value|, finite, and two calls
     bit-identical; the gradients through ``SSDScanFunction`` equal the
     backward kernels' and its forward the inference forward's bits.  Times
-    the eight kernels (one wrapper call) and the plain backward with CUDA
-    events, and each kernel's device time from one profiler window at the
-    model shapes; no single PyTorch call computes the SSD's backward."""
+    the kernels (one wrapper call: eight in fp32, seven in bf16) and the
+    plain backward with CUDA events, and each kernel's device time from one
+    profiler window at every row, beside the scratch the call
+    allocates and the bytes its bound counts; no single PyTorch call
+    computes the SSD's backward."""
     rng = np.random.default_rng(6)
     rows, max_err, max_abs = [], 0.0, 0.0
     names = ("dx", "ddt", "da", "dB", "dC")
@@ -2222,17 +2244,19 @@ def ssd_bwd_phase(device: torch.device) -> dict:
             "plain_ms": cuda_ms(lambda: ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, d_final, q),
                                 reps=3 if big else 10, warmup=1 if big else 3),
             "library_ms": None,
-            "scratch_bytes": ssd_backward_scratch_bytes(b, s, h, p, n, q),
+            # What the wrapper allocated in this row's calls, beside what
+            # backward_scratch_shapes lays out (each buffer before rounding).
+            "scratch_bytes": ssd_scan.backward_scratch_allocated,
+            "scratch_bytes_layout": ssd_backward_scratch_bytes(b, s, h, p, n, q, dtype),
             **ssd_bwd_bound(b, s, h, p, n, q, dtype, with_final),
             "peak": ("bf16 tensor cores 989 TFLOP/s" if dtype == torch.bfloat16 else
                      "fp32 CUDA cores 67 TFLOP/s") + ", HBM 3.35 TB/s (H100 SXM data sheet)",
         }
-        if big:
-            trace = device_breakdown(lambda: ssd_scan_backward(x, dt, a, bb, cc, dy, d_final, q),
-                                     row["kernel_ms"])
-            row["sub_kernels"] = {k: trace["port_kernels"].get(k, {}).get("ms")
-                                  for k in SSD_BWD_KERNELS}
-            row["busy"] = trace["busy"]
+        trace = device_breakdown(lambda: ssd_scan_backward(x, dt, a, bb, cc, dy, d_final, q),
+                                 row["kernel_ms"])
+        row["sub_kernels"] = {k: trace["port_kernels"].get(k, {}).get("ms") for k in (
+            SSD_BWD16_KERNELS if dtype == torch.bfloat16 else SSD_BWD_KERNELS)}
+        row["busy"] = trace["busy"]
         print(json.dumps(row), flush=True)
         rows.append(row)
         del x, dt, a, bb, cc, dy, d_final, first
@@ -3462,7 +3486,9 @@ def main() -> int:
         "bound_by": bwd_row["bound_by"],
         "library_ms": bwd_row["library_ms"],
         "shape": [bwd_row[k] for k in ("B", "S", "T", "Hq", "Hk", "d")],
-        "by_path": {f"{r['path']}_{r['dtype']}": {k: r[k] for k in timed}
+        "device_kernels": list(FLASH_BWD_KERNELS[torch.bfloat16]),
+        "sub_kernels": bwd_row["sub_kernels"],
+        "by_path": {f"{r['path']}_{r['dtype']}": {k: r[k] for k in (*timed, "sub_kernels")}
                     for r in flash_bwd["rows"]},
     }, {
         "name": "ssd_scan",
@@ -3496,8 +3522,11 @@ def main() -> int:
         "bound_by": ssd_bwd_row["bound_by"],
         "library_ms": None,
         "shape": ssd_bwd_row["shape"],
-        "by_path": {f"{r['path']}_{r['dtype']}": {k: r[k] for k in ("shape", *timed)}
-                    for r in ssd_bwd["rows"]},
+        "device_kernels": list(SSD_BWD16_KERNELS),
+        "sub_kernels": ssd_bwd_row["sub_kernels"],
+        "scratch_bytes": ssd_bwd_row["scratch_bytes"],
+        "by_path": {f"{r['path']}_{r['dtype']}": {k: r.get(k) for k in (
+            "shape", *timed, "scratch_bytes", "sub_kernels")} for r in ssd_bwd["rows"]},
     }], "launch_counts": launch_counts()}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

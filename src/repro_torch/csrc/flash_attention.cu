@@ -1,4 +1,4 @@
-// Flash-attention forward kernels for Hopper (sm_90a).
+// Flash-attention kernels for Hopper (sm_90a): the forward and its backward.
 //
 // Replace the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention, body _flash_kernel) and the jnp.repeat of its GQA
@@ -64,6 +64,37 @@
 //
 // Warp specialisation (a producer warp, softmax overlapped with the next
 // product) and one block per KV head's query group are later work.
+//
+// Backward (flash_attention_bwd): dQ, dK and dV from q, k, v, o, dO and the
+// forward's natural-unit logsumexp, replacing XLA's autodiff of the
+// reference's jnp attention src/repro/models/layers.py (attention_chunked;
+// the Pallas kernel has no backward).  Three kernels, deterministic, no
+// atomics: delta = rowsum(dO o O); dK/dV, a block per (batch, KV head,
+// 64-key tile) walking the query heads of its GQA group in order; dQ, a
+// block per (batch, query head, query tile).  S and dP are recomputed in
+// both.  Bound on an H100: 10 (allowed pairs) d operations per head against
+// q, k, v, o, dO, the logsumexp and the three gradients moved once; at the
+// train shapes the bytes bound it.
+//   * fp32 (bwd::): the CUDA cores, 4 x 4 register micro-tiles, tiles
+//     staged transposed in fp32 (held to 1e-5, which TF32 cannot meet).
+//   * bf16 (bwd16::): the tensor cores.  Every product is a pattern of the
+//     forward's: S^T = K Q^T and dP^T = V dO^T (dK/dV kernel), S = Q K^T and
+//     dP = dO V^T (dQ kernel) by wgmma with both operands K-major; P and dS
+//     in fp32 registers, rounded to bf16 and fed from the accumulator layout
+//     as the register A operand of dV += P^T dO, dK += dS^T Q and dQ += dS K
+//     (dO, Q and K read MN-major).  Rounding P and dS to bf16 is the one
+//     departure from fp32, held to the bf16 tolerance of 1e-2.  Tiles arrive
+//     by TMA in the 128-byte swizzle (d 80 and 160 pad to 128 and 192
+//     columns): K and V stay resident in the dK/dV kernel while its Q/dO
+//     tiles come through a 2-stage ring; Q and dO stay resident in the dQ
+//     kernel while K/V come through one.  Masks are applied on the fp32
+//     accumulators only on tiles that cross a mask edge, by a select;
+//     fully masked tiles are skipped.  The dK/dV block splits its products
+//     over two warpgroups, so that dK and dV (64 x d fp32 each) are held by
+//     different threads: warpgroup 0 computes S^T, P^T and dV, warpgroup 1
+//     dP^T, dS^T and dK, taking P^T through shared memory.  The dQ block runs
+//     two warpgroups of 64 queries on shared K/V tiles.  The longest causal
+//     walks start first (key tile 0; the last query tiles).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -592,7 +623,8 @@ int dispatch_dim(const Args& a, int batch, int d, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// The backward, fp32 and bf16, on the CUDA cores
+// The backward in fp32 on the CUDA cores (and its delta kernel, which the
+// bf16 backward shares)
 // ---------------------------------------------------------------------------
 namespace bwd {
 
@@ -617,7 +649,6 @@ struct Args {
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // Row 0 of head h of batch row b of tensor i.
 template <typename T>
@@ -654,10 +685,10 @@ __device__ __forceinline__ void q_tiles(const Args& a, int kv0, int& begin, int&
   end = last / kB + 1;
 }
 
-// KV tiles that some query of the query tile at q0 attends to (the
+// KV tiles that some query of the n queries from q0 attends to (the
 // forward's kv_tiles).
-__device__ __forceinline__ void k_tiles(const Args& a, int q0, int& begin, int& end) {
-  const int q_last = min(q0 + kB, a.s) - 1;
+__device__ __forceinline__ void k_tiles(const Args& a, int q0, int n, int& begin, int& end) {
+  const int q_last = min(q0 + n, a.s) - 1;
   begin = 0;
   if (a.window > 0 && q0 - a.window + 1 > 0) begin = (q0 - a.window + 1) / kB;
   end = (a.t + kB - 1) / kB;
@@ -876,7 +907,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
     for (int j = 0; j < kCols; ++j) dq[r][j] = 0.0f;
 
   int begin, end;
-  k_tiles(a, q0, begin, end);
+  k_tiles(a, q0, kB, begin, end);
   for (int tile = begin; tile < end; ++tile) {
     const int kv0 = tile * kB;
     __syncthreads();  // the last tile's k_t, v_t and ds_s are consumed
@@ -962,6 +993,379 @@ int dispatch_dim(const Args& a, int d, cudaStream_t stream) {
 
 }  // namespace bwd
 
+// ---------------------------------------------------------------------------
+// The backward in bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+namespace bwd16 {
+
+using namespace hopper;
+using bwd::Args;
+using bwd::kQ;
+using bwd::kK;
+using bwd::kV;
+using bwd::kDO;
+using bwd::kDQ;
+using bwd::kDK;
+using bwd::kDV;
+
+constexpr int kB = 64;         // rows of a tile: one wgmma M, one TMA box
+constexpr int kStages = 2;     // the ring of Q/dO (dK/dV kernel) or K/V (dQ kernel) tiles
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kS = kB / 2;     // accumulators of a 64 x 64 score tile per thread
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Whether a 64 x 64 tile of queries from q0 and keys from kv0 has a pair
+// that the masks remove, or a query or key past the end.
+__device__ __forceinline__ bool crosses_edge(const Args& a, int q0, int kv0) {
+  return q0 + kB > a.s || kv0 + kB > a.t || (a.causal && kv0 + kB - 1 > q0) ||
+         (a.window > 0 && q0 + kB - 1 - kv0 >= a.window);
+}
+
+template <int D>
+constexpr size_t dkdv_smem() {
+  // K, V, then kStages x {Q, dO}; the fp32 P^T hand-over tile; 1 KB to align.
+  return static_cast<size_t>(2 + 2 * kStages) * Tile<D>::kBytes + kS * 128 * sizeof(float) + 1024;
+}
+
+// dK and dV of one 64-key tile of one KV head.  Items are the (query head
+// of the GQA group, query tile) pairs that reach the key tile, in that
+// order; their Q and dO tiles arrive by TMA through a kStages ring while K
+// and V stay resident.  Warpgroup 0 computes S^T = K Q^T, P^T, and dV +=
+// P^T dO; warpgroup 1 computes dP^T = V dO^T, takes P^T from warpgroup 0
+// through shared memory (the same accumulator positions, so thread t reads
+// what thread t of the other warpgroup wrote), dS^T = P^T o (dP^T - delta),
+// and dK += dS^T Q.  Key tile 0, the longest causal walk, comes first.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_bf16_kernel(const Args a, const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map) {
+  using T = Tile<D>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* k_s = align1024(smem_raw);
+  unsigned char* v_s = k_s + T::kBytes;
+  unsigned char* ring = v_s + T::kBytes;  // stage st: Q, then dO
+  float* hand = reinterpret_cast<float*>(ring + 2 * kStages * T::kBytes);  // [kS][128]
+  __shared__ uint64_t kv_bar, ring_bar[kStages];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int ltid = tid % 128;
+  const int warp = ltid / 32;
+  const int g = (tid % 32) / 4;  // accumulator rows g and g + 8 of the warp's 16
+  const int qd = tid % 4;        // accumulator columns 2 qd and 2 qd + 1 of each 8
+  const int heads = a.batch * a.hk;
+  const int kv0 = (blockIdx.x / heads) * kB;
+  const int b = (blockIdx.x % heads) / a.hk;
+  const int hk = blockIdx.x % a.hk;
+  const int rep = a.hq / a.hk;
+  int qb, qe;
+  bwd::q_tiles(a, kv0, qb, qe);
+  const int nq = max(qe - qb, 0);
+  const int items = rep * nq;
+
+  auto load_item = [&](int i) {
+    const int st = i % kStages;
+    unsigned char* dst = ring + 2 * st * T::kBytes;
+    const int h = hk * rep + i / nq;
+    const int q0 = (qb + i % nq) * kB;
+    mbar_expect(&ring_bar[st], 2 * T::kBytes);
+    tma_tile<D>(dst, &q_map, &ring_bar[st], q0, h, b);
+    tma_tile<D>(dst + T::kBytes, &do_map, &ring_bar[st], q0, h, b);
+  };
+  if (tid == 0) {
+    mbar_init(&kv_bar);
+    for (int i = 0; i < kStages; ++i) mbar_init(&ring_bar[i]);
+    mbar_fence_init();
+    mbar_expect(&kv_bar, 2 * T::kBytes);
+    tma_tile<D>(k_s, &k_map, &kv_bar, kv0, hk, b);
+    tma_tile<D>(v_s, &v_map, &kv_bar, kv0, hk, b);
+    for (int i = 0; i < min(kStages, items); ++i) load_item(i);
+  }
+  __syncthreads();  // the barriers are initialised
+  mbar_wait(&kv_bar, 0);
+
+  const float scale2 = a.scale * kLog2e;  // exp(scale s - lse) = exp2(scale2 s - lse log2 e)
+  const unsigned char* mine = wg == 0 ? k_s : v_s;
+  float acc[D / 2];  // dV (warpgroup 0) or dK / scale (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  const int key_a = kv0 + 16 * warp + g;  // this thread's keys: key_a, key_a + 8
+
+  for (int it = 0; it < items; ++it) {
+    const int st = it % kStages;
+    const int h = hk * rep + it / nq;
+    const int q0 = (qb + it % nq) * kB;
+    const unsigned char* q_t = ring + 2 * st * T::kBytes;
+    const unsigned char* do_t = q_t + T::kBytes;
+    // The logsumexp (warpgroup 0, in log2 units) or delta (warpgroup 1) of
+    // this thread's 16 query columns 8 c + 2 qd + e.
+    const float* per_row = (wg == 0 ? a.lse : a.delta) + (static_cast<long long>(b) * a.hq + h) * a.s;
+    float col[16];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = q0 + 8 * c + 2 * qd + e;
+        const float v = qi < a.s ? per_row[qi] : 0.0f;
+        col[2 * c + e] = wg == 0 ? v * kLog2e : v;
+      }
+    mbar_wait(&ring_bar[st], (it / kStages) & 1);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1).
+    float sc[kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i) sc[i] = 0.0f;
+    fence_regs(sc);
+    wgmma_fence();
+    mma_nt<D, kB>(sc, mine, wg == 0 ? q_t : do_t, false);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // sc[4 i + e]: key key_a + 8 (e >> 1), query q0 + 8 i + 2 qd + (e & 1).
+    const bool edge = crosses_edge(a, q0, kv0);
+    uint32_t frag[4][4];
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(sc[4 * i + e] * scale2 - col[2 * i + (e & 1)]);
+          if (edge && !bwd::allowed(a, q0 + 8 * i + 2 * qd + (e & 1), key_a + 8 * (e >> 1)))
+            p = 0.0f;  // a select: exp2 of a masked score may overflow
+          sc[4 * i + e] = p;
+          hand[(4 * i + e) * 128 + ltid] = p;
+        }
+      bar_arrive(1, kThreads);
+      to_frag(sc, frag);
+    } else {
+      bar_sync(1, kThreads);  // P^T is in `hand`
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * i + e] = hand[(4 * i + e) * 128 + ltid] * (sc[4 * i + e] - col[2 * i + (e & 1)]);
+      to_frag(sc, frag);
+    }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1), dO and Q
+    // read MN-major.
+    fence_regs(acc);
+    wgmma_fence();
+    mma_fb<D>(acc, frag, wg == 0 ? do_t : q_t);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncthreads();  // both warpgroups are done with this stage and `hand`
+    if (tid == 0 && it + kStages < items) load_item(it + kStages);
+  }
+
+  __nv_bfloat16* out = bwd::head<__nv_bfloat16>(a, wg == 0 ? kDV : kDK, b, hk);
+  const long long ss = a.st[wg == 0 ? kDV : kDK][1];
+  const float mul = wg == 0 ? 1.0f : a.scale;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = key_a + 8 * r;
+    if (j >= a.t) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(out + j * ss + 8 * i + 2 * qd) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r] * mul, acc[4 * i + 2 * r + 1] * mul);
+  }
+}
+
+template <int D>
+constexpr size_t dq_smem() {
+  // Q and dO of both warpgroups, then kStages x {K, V}; 1 KB to align.
+  return static_cast<size_t>(4 + 2 * kStages) * Tile<D>::kBytes + 1024;
+}
+
+// dQ of 128 queries of one query head, 64 per warpgroup: Q and dO resident,
+// the K/V tiles that some of them attend to through a kStages TMA ring
+// shared by both warpgroups.  Per tile: S = Q K^T and dP = dO V^T, P and
+// dS = P o (dP - delta) in registers, dQ += dS K with K read MN-major.
+// The last query tiles, the longest causal walks, come first.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_bf16_kernel(const Args a, const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map) {
+  using T = Tile<D>;
+  constexpr int kBq = 2 * kB;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* q_s = align1024(smem_raw);   // Q of warpgroups 0 and 1
+  unsigned char* do_s = q_s + 2 * T::kBytes;  // dO of warpgroups 0 and 1
+  unsigned char* ring = do_s + 2 * T::kBytes; // stage st: K, then V
+  __shared__ uint64_t q_bar, ring_bar[kStages];
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int g = (tid % 32) / 4;
+  const int qd = tid % 4;
+  const int heads = a.batch * a.hq;
+  const int q_items = (a.s + kBq - 1) / kBq;
+  const int q0 = (q_items - 1 - blockIdx.x / heads) * kBq;
+  const int b = (blockIdx.x % heads) / a.hq;
+  const int h = blockIdx.x % a.hq;
+  const int hk = h / (a.hq / a.hk);
+  int begin, end;
+  bwd::k_tiles(a, q0, kBq, begin, end);
+  const int tiles = max(end - begin, 0);
+
+  auto load_tile = [&](int c) {
+    const int st = c % kStages;
+    unsigned char* dst = ring + 2 * st * T::kBytes;
+    mbar_expect(&ring_bar[st], 2 * T::kBytes);
+    tma_tile<D>(dst, &k_map, &ring_bar[st], (begin + c) * kB, hk, b);
+    tma_tile<D>(dst + T::kBytes, &v_map, &ring_bar[st], (begin + c) * kB, hk, b);
+  };
+  if (tid == 0) {
+    mbar_init(&q_bar);
+    for (int i = 0; i < kStages; ++i) mbar_init(&ring_bar[i]);
+    mbar_fence_init();
+    mbar_expect(&q_bar, 4 * T::kBytes);
+    for (int w = 0; w < 2; ++w) {
+      tma_tile<D>(q_s + w * T::kBytes, &q_map, &q_bar, q0 + kB * w, h, b);
+      tma_tile<D>(do_s + w * T::kBytes, &do_map, &q_bar, q0 + kB * w, h, b);
+    }
+    for (int c = 0; c < min(kStages, tiles); ++c) load_tile(c);
+  }
+  __syncthreads();  // the barriers are initialised
+
+  const int qw = q0 + kB * wg;  // this warpgroup's queries
+  int wb, we;
+  bwd::k_tiles(a, qw, kB, wb, we);
+  if (qw >= a.s) we = wb;  // past the last query: nothing to do
+  const int row_a = qw + 16 * warp + g;  // this thread's queries: row_a, row_a + 8
+  const long long row_base = (static_cast<long long>(b) * a.hq + h) * a.s;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row_a + 8 * r;
+    lse2[r] = qi < a.s ? a.lse[row_base + qi] * kLog2e : 0.0f;
+    dl[r] = qi < a.s ? a.delta[row_base + qi] : 0.0f;
+  }
+  const float scale2 = a.scale * kLog2e;
+  const unsigned char* q_t = q_s + wg * T::kBytes;
+  const unsigned char* do_t = do_s + wg * T::kBytes;
+  float acc[D / 2];  // dQ / scale
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  mbar_wait(&q_bar, 0);
+
+  for (int c = 0; c < tiles; ++c) {
+    const int st = c % kStages;
+    const int tile = begin + c;
+    const unsigned char* k_t = ring + 2 * st * T::kBytes;
+    const unsigned char* v_t = k_t + T::kBytes;
+    mbar_wait(&ring_bar[st], (c / kStages) & 1);
+    if (tile >= wb && tile < we) {
+      float sc[kS], dp[kS];
+#pragma unroll
+      for (int i = 0; i < kS; ++i) sc[i] = dp[i] = 0.0f;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_nt<D, kB>(sc, q_t, k_t, false);
+      mma_nt<D, kB>(dp, do_t, v_t, false);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // sc[4 i + e]: query row_a + 8 (e >> 1), key kv0 + 8 i + 2 qd + (e & 1).
+      const int kv0 = tile * kB;
+      const bool edge = crosses_edge(a, qw, kv0);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = exp2f(sc[4 * i + e] * scale2 - lse2[r]);
+          if (edge && !bwd::allowed(a, row_a + 8 * r, kv0 + 8 * i + 2 * qd + (e & 1))) p = 0.0f;
+          sc[4 * i + e] = p * (dp[4 * i + e] - dl[r]);
+        }
+      uint32_t frag[4][4];
+      to_frag(sc, frag);
+      fence_regs(acc);
+      wgmma_fence();
+      mma_fb<D>(acc, frag, k_t);  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncthreads();  // every thread is done with this stage before it refills
+    if (tid == 0 && c + kStages < tiles) load_tile(c + kStages);
+  }
+
+  __nv_bfloat16* out = bwd::head<__nv_bfloat16>(a, kDQ, b, h);
+  const long long ss = a.st[kDQ][1];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row_a + 8 * r;
+    if (qi >= a.s) continue;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(out + qi * ss + 8 * i + 2 * qd) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * r] * a.scale, acc[4 * i + 2 * r + 1] * a.scale);
+  }
+}
+
+// The three kernels in order on `stream`: delta (the CUDA-core kernel),
+// dK/dV, dQ.  Returns the first error.
+template <int D>
+int launch(const Args& a, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  int err = make_map(&q_map, a.ptr[kQ], a.batch, a.s, a.hq, D, a.st[kQ][0], a.st[kQ][1], a.st[kQ][2]);
+  if (err == 0)
+    err = make_map(&k_map, a.ptr[kK], a.batch, a.t, a.hk, D, a.st[kK][0], a.st[kK][1], a.st[kK][2]);
+  if (err == 0)
+    err = make_map(&v_map, a.ptr[kV], a.batch, a.t, a.hk, D, a.st[kV][0], a.st[kV][1], a.st[kV][2]);
+  if (err == 0)
+    err = make_map(&do_map, a.ptr[kDO], a.batch, a.s, a.hq, D, a.st[kDO][0], a.st[kDO][1],
+                   a.st[kDO][2]);
+  if (err != 0) return err;
+  const long long rows = static_cast<long long>(a.batch) * a.hq * a.s;
+  const int rows_per_block = bwd::kThreads / 32;
+  bwd::flash_bwd_delta_kernel<__nv_bfloat16, D>
+      <<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block), bwd::kThreads, 0,
+         stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  constexpr size_t kv_bytes = dkdv_smem<D>();
+  e = bwd::set_smem(flash_bwd_dkdv_bf16_kernel<D>, kv_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv_bf16_kernel<D><<<a.batch * a.hk * ((a.t + kB - 1) / kB), kThreads, kv_bytes,
+                                  stream>>>(a, q_map, k_map, v_map, do_map);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  constexpr size_t q_bytes = dq_smem<D>();
+  e = bwd::set_smem(flash_bwd_dq_bf16_kernel<D>, q_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_bf16_kernel<D><<<a.batch * a.hq * ((a.s + 2 * kB - 1) / (2 * kB)), kThreads, q_bytes,
+                                stream>>>(a, q_map, k_map, v_map, do_map);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_dim(const Args& a, int d, cudaStream_t stream) {
+  switch (d) {
+    case 16: return launch<16>(a, stream);
+    case 32: return launch<32>(a, stream);
+    case 64: return launch<64>(a, stream);
+    case 80: return launch<80>(a, stream);
+    case 128: return launch<128>(a, stream);
+    case 160: return launch<160>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace bwd16
+
 }  // namespace
 
 // dtype 0 = fp32, 1 = bf16.  Strides are in elements, per tensor as
@@ -1001,10 +1405,13 @@ extern "C" int flash_attention_fwd(
 // forward's logsumexp `lse` ((batch * hq, s) fp32).  `delta` is fp32
 // scratch of the same shape.  `strides` holds 24 element strides, (batch,
 // sequence, head) of q, k, v, o, dout, dq, dk and dv in that order; every
-// head dim is contiguous.  Three kernels on `stream`: delta, dK/dV, dQ.
-// Returns 0 once all three are launched, else the first launch's
-// cudaGetLastError(); an unsupported dtype or head_dim returns
-// cudaErrorInvalidValue without launching.
+// head dim is contiguous.  Three kernels on `stream`: delta, dK/dV, dQ
+// (bf16: on the tensor cores, reading q, k, v and dout by TMA, which needs
+// each 16-byte aligned with strides a multiple of 8).  Returns 0 once all
+// three are launched, else the first launch's cudaGetLastError(); an
+// unsupported dtype or head_dim, or unaligned bf16 rows, return
+// cudaErrorInvalidValue without launching, a refused tensor map 1000 + its
+// CUresult.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     const float* lse, void* dq, void* dk, void* dv, float* delta, int dtype,
@@ -1031,5 +1438,10 @@ extern "C" int flash_attention_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return bwd::dispatch_dim<float>(a, d, st);
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return bwd::dispatch_dim<__nv_bfloat16>(a, d, st);
+  for (int i : {bwd::kQ, bwd::kK, bwd::kV, bwd::kDO}) {
+    if (reinterpret_cast<uintptr_t>(a.ptr[i]) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    for (int j = 0; j < 3; ++j)
+      if (a.st[i][j] % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return bwd16::dispatch_dim(a, d, st);
 }

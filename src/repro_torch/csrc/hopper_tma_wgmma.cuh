@@ -1,7 +1,10 @@
 // Hopper building blocks shared by the port's tensor-core kernels: the
-// 128-byte-swizzle tile layout that TMA writes, wgmma shared-memory
-// descriptors, mbarriers, TMA tensor maps and loads, and the wgmma
-// instructions (bf16 in, fp32 accumulators) for the widths the kernels use.
+// 128-byte-swizzle tile layout that TMA writes and its element offsets,
+// wgmma shared-memory descriptors, mbarriers, TMA tensor maps and loads,
+// the wgmma instructions (bf16 in, fp32 accumulators) for the widths the
+// kernels use and the products built on them (A B^T from shared memory,
+// a register fragment times a tile, accumulators as bf16 or bf16 hi + lo
+// fragments), named barriers and the proxy fence.
 // They are the helpers that flash_attention.cu proved on the H100, copied
 // here so that ssd_scan.cu can include them.  Device code only for
 // sm_90a; the host helpers find cuTensorMapEncodeTiled through
@@ -32,13 +35,33 @@ struct Tile {
 };
 
 // Byte offset of element (r, c) of a Tile: row r < 64, column c < 64 of
-// one atom.
+// one atom.  The 16-byte piece c / 8 XOR r % 8 is taken as an XOR on the
+// byte offset 2 c.  Written as ((c >> 3) ^ (r & 7)) << 4 + (c & 7) * 2, it
+// was miscompiled by nvcc 12.9 at -O3 inside tile_off at the columns
+// 8 i + 2 (t % 4) + 1 of an accumulator row (the shift was dropped); this
+// form is not.  tests/cuda/swizzle_offsets.cu holds tile_off at the
+// kernels' index patterns on the card.
 __device__ __forceinline__ int swizzled(int r, int c) {
-  return r * 128 + ((((c >> 3) ^ (r & 7))) << 4) + ((c & 7) << 1);
+  return r * 128 + ((2 * c) ^ ((r & 7) << 4));
+}
+
+// Byte offset of element (r, c) of a Tile of any width (atoms of 64 columns).
+__device__ __forceinline__ int tile_off(int r, int c) {
+  return (c >> 6) * Tile<64>::kAtomBytes + swizzled(r, c & 63);
+}
+
+__device__ __forceinline__ float tile_at(const unsigned char* t, int r, int c) {
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(t + tile_off(r, c)));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 1024-byte aligned start: the swizzle repeats every 1024 bytes, and TMA,
+// wgmma and swizzled() agree on it only from such a start.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - smem_u32(p) % 1024) % 1024);
 }
 
 // The wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
@@ -101,6 +124,13 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
 #pragma unroll
   for (int at = 0; at < Tile<D>::kAtoms; ++at)
     tma_box(dst + at * Tile<D>::kAtomBytes, map, bar, 64 * at, row, head, batch);
+}
+
+// Orders this thread's ordinary writes to shared memory before later reads
+// by the asynchronous proxy (wgmma operands, TMA): a tile written by
+// threads and read by wgmma needs it before the barrier between them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -167,6 +197,51 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
       " %24, %25, %26, %27, %28, %29, %30, %31},"
       " %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// _sst: A and B from shared memory, A K-major and B MN-major (the
+// transpose bit, as _rs reads B).
+__device__ __forceinline__ void wgmma_sst_n16(float (&d)[8], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_sst_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_sst_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -269,6 +344,25 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
 }
 
 template <int N>
+__device__ __forceinline__ void wgmma_sst(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                          int scale_d) {
+  if constexpr (N == 16) wgmma_sst_n16(d, desc_a, desc_b, scale_d);
+  else if constexpr (N == 64) wgmma_sst_n64(d, desc_a, desc_b, scale_d);
+  else wgmma_sst_n128(d, desc_a, desc_b, scale_d);
+}
+
+// Named barriers for a subset of the block's threads (id 0 is
+// __syncthreads): `arrive` signals without waiting, `sync` waits for all
+// `threads` arrivals; writes before either are visible after the sync.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
   if constexpr (N == 16) wgmma_rs_n16(d, a, desc_b);
@@ -277,6 +371,66 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else if constexpr (N == 80) wgmma_rs_n80(d, a, desc_b);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, desc_b);
   else wgmma_rs_n160(d, a, desc_b);
+}
+
+// v ~ hi + lo with hi = bf16(v) and lo = v - hi, which the caller rounds to
+// bf16 when it packs it: 16 bits of mantissa.
+__device__ __forceinline__ void split(float v, float& hi, float& lo) {
+  hi = __bfloat162float(__float2bfloat16(v));
+  lo = v - hi;
+}
+
+// Byte offset of k-step kk (16 columns) of a K-major Tile<D> operand.
+template <int D>
+__device__ __forceinline__ int kstep(int kk) {
+  return (kk / 4) * Tile<D>::kAtomBytes + (kk % 4) * 32;
+}
+
+// acc (= or +=) A B^T over KD columns: A and B 64-row Tiles read K-major;
+// NN columns of output (rows of B).
+template <int KD, int NN>
+__device__ __forceinline__ void mma_nt(float (&acc)[NN / 2], const unsigned char* a_t,
+                                       const unsigned char* b_t, bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < (KD + 15) / 16; ++kk)
+    wgmma_ss<NN>(acc, make_desc(a_t + kstep<KD>(kk), 16, 1024),
+                 make_desc(b_t + kstep<KD>(kk), 16, 1024), accumulate || kk > 0);
+}
+
+// acc += F B: F a 64 x 64 bf16 fragment in registers (4 k-steps), B the 64
+// rows of a Tile read MN-major (NN columns).
+template <int NN>
+__device__ __forceinline__ void mma_fb(float (&acc)[NN / 2], const uint32_t (&f)[4][4],
+                                       const unsigned char* b_t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<NN>(acc, f[kk], make_desc(b_t + kk * 2048, Tile<NN>::kAtomBytes, 1024));
+}
+
+// A 64 x 64 fp32 accumulator tile as the bf16 A fragment of the next
+// product: columns 8 i .. 8 i + 7 are k-step i / 2, half i % 2.
+__device__ __forceinline__ void to_frag(const float (&v)[32], uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    f[i / 2][2 * (i % 2) + 0] = pack_bf16(v[4 * i + 0], v[4 * i + 1]);
+    f[i / 2][2 * (i % 2) + 1] = pack_bf16(v[4 * i + 2], v[4 * i + 3]);
+  }
+}
+
+// The same as bf16 hi + lo fragments (split), for a product that one bf16
+// rounding of its A operand would put out of tolerance.
+__device__ __forceinline__ void to_frags(const float (&v)[32], uint32_t (&fh)[4][4],
+                                         uint32_t (&fl)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(v[4 * i + e], h[e], l[e]);
+    fh[i / 2][2 * (i % 2) + 0] = pack_bf16(h[0], h[1]);
+    fh[i / 2][2 * (i % 2) + 1] = pack_bf16(h[2], h[3]);
+    fl[i / 2][2 * (i % 2) + 0] = pack_bf16(l[0], l[1]);
+    fl[i / 2][2 * (i % 2) + 1] = pack_bf16(l[2], l[3]);
+  }
 }
 
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint.

@@ -56,9 +56,8 @@
 // Backward (ssd_scan_bwd): the vector-Jacobian product of the chunked SSD
 // from a zero state, replacing XLA's autodiff of the reference's jnp oracle
 // src/repro/models/ssm.py::ssd_chunked (the Pallas kernel has no backward).
-// Its math is kernels/ref.py::ssd_scan_bwd_ref's, in eight kernels on the
-// CUDA cores, fp32 throughout (bf16 inputs widened on load; only dx, dB and
-// dC rounded to bf16, once):
+// Its math is kernels/ref.py::ssd_scan_bwd_ref's.  fp32 runs eight kernels
+// on the CUDA cores (bwd::), fp32 throughout:
 //   1. ssd_bwd_chunk_kernel, a block per (batch, chunk, head): cum, exp(cum_Q),
 //      the chunk's own state S_c and U_c = sum_i exp(cum_i) dy_i (x) C_i;
 //      and ssd_bwd_cb_kernel, a block per (batch, chunk, pair of 64-row
@@ -77,10 +76,33 @@
 //   7. ssd_bwd_da_kernel: da summed over (batch, chunk) in order.
 // No atomics: every sum over heads, positions or chunks has one order, so
 // two calls give the same bits.  Bound on an H100: x, dy, B, C, dt read and
-// dx, dB, dC, ddt written once (the bytes, at the model shapes); this first
-// version moves its fp32 scratch (the per-chunk states and cotangents, the
-// per-head dB and dC) through device memory, and its products run on the
-// CUDA cores.
+// dx, dB, dC, ddt written once (the bytes, at the model shapes), against
+// which the scratch (the per-chunk states and cotangents) and the
+// recomputation are this design's own work.
+// bf16 (bwd16::) redoes phases 1, 3 and 4 on the tensor cores and drops 1b:
+//   1. ssd_bwd_chunk_bf16_kernel, a block per (batch, chunk, group of
+//      heads): cum and exp(cum_Q) as phase 1, then S_c and U_c by wgmma
+//      with the computed A operands (x o w)^T and (dy o exp(cum))^T in bf16
+//      hi + lo, the forward's chunk-state product;
+//   3. ssd_bwd_dkey_bf16_kernel and 4. ssd_bwd_dquery_bf16_kernel, a block
+//      per (batch, chunk, 64-row tile, group of up to 8 heads), as the
+//      forward's chunk-scan kernel: the pair tiles C B^T computed once for
+//      the group by wgmma (exact in fp32 from bf16), each head's x and dy
+//      tiles through a TMA ring (one head's loads under another's
+//      products), dy x^T by wgmma (exact), then A dy, Z C and Z' B, G_c B,
+//      G_c^T x and h_c^T dy by wgmma, with the computed operands (A, Z, Z',
+//      G_c, h_c, in fp32 registers or from the state pass) as bf16 hi + lo
+//      pairs: one bf16 rounding of such an operand alone broke the
+//      forward's 5e-2 (see the forward's note above), the pair keeps ~16
+//      bits.  The upper triangle goes by a select on the exp; cum is phase
+//      1's.  dB and dC are summed over the block's heads in registers in
+//      head order, so phase 6 sums ceil(H / g3) partials instead of H.
+//   The state pass, phase 5, 6 and 7 are bwd::'s kernels.  What bounds it
+//   now: the fp32 states and cotangents (2 B nc H P N floats, written by
+//   phase 1 and read and rewritten by the state pass) and the state pass's
+//   serial chain over the chunks; the pair kernels hold one warpgroup and
+//   up to ~200 KB of shared memory a block (zamba2's chunk of 256: four
+//   query tiles' C rows and pair tiles), so latency is poorly hidden.
 //
 // fp32: the CUDA-core kernel ssd_scan_kernel, since TF32 cannot meet the
 // fp32 tolerance of 2e-4.  One block of 256 threads owns one (batch, head),
@@ -435,17 +457,6 @@ struct Args {
   __nv_bfloat16* h_lo;  // the same, lo = bf16(h - hi)
 };
 
-// 1024-byte aligned start: the swizzle repeats every 1024 bytes.
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - smem_u32(p) % 1024) % 1024);
-}
-
-// v ~ hi + lo with hi = bf16(v) and lo = v - hi, which the caller rounds to
-// bf16 when it packs it: 16 bits of mantissa.
-__device__ __forceinline__ void split(float v, float& hi, float& lo) {
-  hi = __bfloat162float(__float2bfloat16(v));
-  lo = v - hi;
-}
 
 // Phase 1.  Block = (batch row, chunk, group of g1 heads), one warpgroup.
 // The chunk's B rows arrive once by TMA; each head's x rows arrive by TMA
@@ -1012,11 +1023,14 @@ struct Args {
   float* dcum_k;      // (B, nc, H, Q) -(sum_i M_ij) - T_j
   float* tj;          // (B, nc, H, Q) T_j
   float* dcum_q;      // (B, nc, H, Q) sum_j M_ij + exp(cum_i) C_i . (h_c^T dy_i)
-  float* db_h;        // (B, S, H, N) dB of each head
-  float* dc_h;        // (B, S, H, N) dC of each head
+  float* db_h;        // (B, S, parts, N) dB of each head (fp32) or head group (bf16)
+  float* dc_h;        // (B, S, parts, N) dC likewise
   float* da_p;        // (B, nc, H) sum over the chunk of dt d(dt a)
-  float* cb;          // (B, nc, npairs, 64, 64) C_I B_J^T of each pair of sub-tiles J <= I
+  float* cb;          // (B, nc, npairs, 64, 64) C_I B_J^T of each pair of sub-tiles J <= I (fp32)
   int batch, s, h, p, n, chunk, nc, nt, nparts, npairs;
+  int parts;          // dB / dC partials per position: H (fp32), head groups (bf16)
+  int g1, g3;         // bf16: heads per block of the chunk kernel and of the pair kernels
+  int st1, st3;       // bf16: TMA ring stages of the chunk kernel and of the pair kernels
   long long x_sb, x_ss, x_sh;
   long long dt_sb, dt_ss, dt_sh;
   long long b_sb, b_ss;
@@ -1026,9 +1040,6 @@ struct Args {
 
 template <typename T> __device__ __forceinline__ float load(const T* p);
 template <> __device__ __forceinline__ float load<float>(const float* p) { return *p; }
-template <> __device__ __forceinline__ float load<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 template <typename T> __device__ __forceinline__ T store_as(float v);
 template <> __device__ __forceinline__ float store_as<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
@@ -1653,7 +1664,8 @@ __global__ void ssd_bwd_cum_kernel(const Args a) {
 }
 
 // Phase 6.  dB and dC: a thread per (batch, position, state element) sums
-// the heads' shares in head order and rounds once to the output's dtype.
+// the partials (the heads' shares, or the bf16 path's head groups') in
+// order and rounds once to the output's dtype.
 template <typename T>
 __global__ void ssd_bwd_reduce_kernel(const Args a) {
   const long long total = static_cast<long long>(a.batch) * a.s * a.n;
@@ -1661,9 +1673,9 @@ __global__ void ssd_bwd_reduce_kernel(const Args a) {
   if (l >= total) return;
   const long long bs = l / a.n;
   const int n = static_cast<int>(l % a.n);
-  const long long base = bs * a.h * a.n + n;
+  const long long base = bs * a.parts * a.n + n;
   float sb = 0.0f, sc = 0.0f;
-  for (int h = 0; h < a.h; ++h) {
+  for (int h = 0; h < a.parts; ++h) {
     sb += a.db_h[base + static_cast<long long>(h) * a.n];
     sc += a.dc_h[base + static_cast<long long>(h) * a.n];
   }
@@ -1748,6 +1760,804 @@ int launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace bwd
 
+// ---------------------------------------------------------------------------
+// The backward in bf16 on the tensor cores: the chunk kernel and the two
+// pair kernels of bwd:: redone with wgmma; the state pass, the cumsum's
+// cotangent, the sums over head groups and da are bwd::'s kernels
+// ---------------------------------------------------------------------------
+namespace bwd16 {
+
+using namespace hopper;
+using bf16::kOutLd;
+using bf16::wg_n;
+using bwd::Args;
+using bwd::row_of;
+
+constexpr int kRows = 64;                       // rows of a tile: one wgmma M, one TMA box
+constexpr int kThreads = 128;                   // one warpgroup
+constexpr int kStashTile = 32 * kThreads;       // floats of a 64 x 64 fp32 tile, accumulator layout
+constexpr int kMaxSmem = 232448;                // a block's shared memory on the H100
+constexpr int kChunkStatic = 4 * 16 * kOutLd * 4 + 64;  // the chunk kernel's out_s and barriers
+
+template <int M>
+__device__ __forceinline__ void zero(float (&x)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) x[i] = 0.0f;
+}
+
+// acc (= or +=) A B over KD: A a 64-row Tile read K-major, B a Tile whose
+// first KD rows are read MN-major (NN columns).
+template <int KD, int NN>
+__device__ __forceinline__ void mma_nn(float (&acc)[NN / 2], const unsigned char* a_t,
+                                       const unsigned char* b_t, bool accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < (KD + 15) / 16; ++kk)
+    wgmma_sst<NN>(acc, make_desc(a_t + kstep<KD>(kk), 16, 1024),
+                  make_desc(b_t + kk * 2048, Tile<NN>::kAtomBytes, 1024), accumulate || kk > 0);
+}
+
+__device__ __forceinline__ void commit_wait() {
+  wgmma_commit();
+  wgmma_wait_all();
+}
+
+// The hi (part 0) or lo (part 1) bf16 part of the fp32 (P, N) state at
+// src, row-major, as a Tile<N> (rows p, columns n), then the fence that
+// lets wgmma read it.  Entries past (P, N) are left as they are (zero).
+template <int P, int N>
+__device__ __forceinline__ void stage_state(unsigned char* dst, const float* src, int part) {
+  for (int l = threadIdx.x; l < P * N / 4; l += kThreads) {
+    const float4 v = reinterpret_cast<const float4*>(src)[l];
+    float h[4], w[4];
+    split(v.x, h[0], w[0]);
+    split(v.y, h[1], w[1]);
+    split(v.z, h[2], w[2]);
+    split(v.w, h[3], w[3]);
+    const float* o = part == 0 ? h : w;
+    *reinterpret_cast<uint2*>(dst + tile_off(4 * l / N, 4 * l % N)) =
+        make_uint2(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]));
+  }
+  fence_proxy_async();
+}
+
+// Zeroes `bytes` of shared memory (a multiple of 16).
+__device__ __forceinline__ void zero_smem(unsigned char* p, int bytes) {
+  for (int l = threadIdx.x; l < bytes / 16; l += kThreads)
+    reinterpret_cast<uint4*>(p)[l] = make_uint4(0, 0, 0, 0);
+}
+
+// For this thread's two accumulator rows r0 and r0 + 8 of a 64 x NN tile:
+// sum over the row of t[row][col] v[col] (t a bf16 Tile, zero past its
+// columns), this thread's columns in order, then the row's four threads by
+// a fixed shuffle tree.
+template <int NN>
+__device__ __forceinline__ void row_dot(const float (&v)[NN / 2], const unsigned char* t, int r0,
+                                        float (&out)[2]) {
+  const int qd = threadIdx.x % 4;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        acc = fmaf(tile_at(t, r0 + 8 * rr, 8 * i + 2 * qd + e), v[4 * i + 2 * rr + e], acc);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    out[rr] = acc;
+  }
+}
+
+// The same fixed shuffle tree over a row's four threads.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Rows [0, kr) of the chunk's cum and dt for head h: cum past Q and dt past
+// the chunk's real rows read as zero.
+__device__ __forceinline__ void load_cum_dt(const Args& a, float* cum_s, float* dt_s, long long row,
+                                            int bi, int h, int s0, int rows, int kr) {
+  const float* dt = a.dt + bi * a.dt_sb + h * a.dt_sh;
+  for (int l = threadIdx.x; l < kr; l += kThreads) {
+    cum_s[l] = l < a.chunk ? a.cum[row * a.chunk + l] : 0.0f;
+    dt_s[l] = l < rows ? dt[(s0 + l) * a.dt_ss] : 0.0f;
+  }
+}
+
+// Phase 1.  Block = (batch, chunk, group of g1 heads), one warpgroup.  The
+// chunk's B and C rows arrive once by TMA, each head's x and dy rows through
+// a ring of st1 stages.  Per head (one warp each): the chunk's cumsum of
+// dt * a (bwd::ssd_bwd_chunk_kernel's order), stored with exp(cum_Q); then
+// S_c = (x o w)^T B with w_j = dt_j exp(cum_Q - cum_j) and U_c = (dy o
+// exp(cum))^T C, each by wgmma with the computed A operand in bf16 hi + lo
+// (the forward's chunk-state product) and B or C read MN-major, stored fp32.
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_chunk_bf16_kernel(const Args a, const __grid_constant__ CUtensorMap x_map,
+                          const __grid_constant__ CUtensorMap dy_map,
+                          const __grid_constant__ CUtensorMap b_map,
+                          const __grid_constant__ CUtensorMap c_map) {
+  constexpr int kN = wg_n(N);
+  constexpr int kAcc = kN / 2;
+  using TX = Tile<P>;
+  using TB = Tile<N>;
+  const int nt = a.nt;
+  const int kr = nt * kRows;
+  const int q = a.chunk;
+  const int stage_bytes = 2 * nt * TX::kBytes;  // x tiles, then dy tiles
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* b_s = align1024(smem_raw);      // nt tiles of B
+  unsigned char* c_s = b_s + nt * TB::kBytes;    // nt tiles of C
+  unsigned char* ring = c_s + nt * TB::kBytes;   // st1 stages
+  float* w_s = reinterpret_cast<float*>(ring + a.st1 * stage_bytes);  // [g1][kr] dt, then w
+  float* e_s = w_s + a.g1 * kr;                                        // [g1][kr] cum, then exp(cum)
+  __shared__ __align__(16) float out_s[4 * 16 * kOutLd];
+  __shared__ uint64_t bc_bar, ring_bar[2];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int groups = (a.h + a.g1 - 1) / a.g1;
+  const int grp = blockIdx.x % groups;
+  const int bc = blockIdx.x / groups;
+  const int bi = bc / a.nc;
+  const int c = bc % a.nc;
+  const int h0 = grp * a.g1;
+  const int nheads = min(a.g1, a.h - h0);
+  const int s0 = c * q;
+
+  auto load_head = [&](int k) {
+    const int st = k % a.st1;
+    unsigned char* dst = ring + st * stage_bytes;
+    mbar_expect(&ring_bar[st], stage_bytes);
+    for (int t = 0; t < nt; ++t) {
+      tma_tile<P>(dst + t * TX::kBytes, &x_map, &ring_bar[st], s0 + kRows * t, h0 + k, bi);
+      tma_tile<P>(dst + (nt + t) * TX::kBytes, &dy_map, &ring_bar[st], s0 + kRows * t, h0 + k, bi);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(&bc_bar);
+    for (int i = 0; i < 2; ++i) mbar_init(&ring_bar[i]);
+    mbar_fence_init();
+    mbar_expect(&bc_bar, 2 * nt * TB::kBytes);
+    for (int t = 0; t < nt; ++t) {
+      tma_tile<N>(b_s + t * TB::kBytes, &b_map, &bc_bar, s0 + kRows * t, 0, bi);
+      tma_tile<N>(c_s + t * TB::kBytes, &c_map, &bc_bar, s0 + kRows * t, 0, bi);
+    }
+    for (int k = 0; k < min(a.st1, nheads); ++k) load_head(k);
+  }
+
+  // The cumulative sums, one warp per head: serial runs of ceil(Q / 32)
+  // steps, then a shuffle scan of the runs' totals.  Rows past Q (a chunk
+  // under 64 rows: the next chunk's rows of the tile) get w = exp(cum) = 0.
+  for (int k = warp; k < nheads; k += kThreads / 32) {
+    const int h = h0 + k;
+    const long long row = row_of(a, bi, c, h);
+    const float a_h = a.a[h];
+    float* dts = w_s + k * kr;
+    float* cum = e_s + k * kr;
+    const float* dt = a.dt + bi * a.dt_sb + h * a.dt_sh;
+    for (int l = lane; l < kr; l += 32) {
+      const int si = s0 + l;
+      dts[l] = (l < q && si < a.s) ? dt[si * a.dt_ss] : 0.0f;
+    }
+    __syncwarp();
+    const int per = (q + 31) / 32;
+    const int lo = min(lane * per, q);
+    const int hi = min(lo + per, q);
+    float run = 0.0f;
+    for (int i = lo; i < hi; ++i) {
+      run += dts[i] * a_h;
+      cum[i] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.0f;
+    for (int i = lo; i < hi; ++i) cum[i] += excl;
+    __syncwarp();
+    const float cum_end = cum[q - 1];
+    __syncwarp();  // every lane has read cum_end before cum is overwritten
+    for (int l = lane; l < kr; l += 32) {
+      float w = 0.0f, e = 0.0f;
+      if (l < q) {
+        a.cum[row * q + l] = cum[l];
+        w = dts[l] * expf(cum_end - cum[l]);
+        e = expf(cum[l]);
+      }
+      dts[l] = w;
+      cum[l] = e;
+    }
+    if (lane == 0) a.decay[row] = expf(cum_end);
+  }
+  __syncthreads();
+  mbar_wait(&bc_bar, 0);
+
+  const int g = lane / 4;
+  const int qd = lane % 4;
+  const int p0 = 16 * warp + g;  // this thread's rows of S_c and U_c: p0, p0 + 8
+  // acc = (tiles o wk)^T rhs over the chunk's rows, stored fp32 at out.
+  auto product = [&](const unsigned char* tiles, const float* wk, const unsigned char* rhs,
+                     float* out) {
+    float acc[kAcc];
+    zero(acc);
+    for (int t = 0; t < nt; ++t) {
+      const unsigned char* xt = tiles + t * TX::kBytes;
+      uint32_t fh[4][4], fl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {  // rows j, j + 1 and j + 8, j + 9 of the tile
+          const int r = 16 * kk + 2 * qd + 8 * half;
+          const float w0 = wk[kRows * t + r];
+          const float w1 = wk[kRows * t + r + 1];
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {  // rows p0 and p0 + 8 of the product
+            float h0v, l0v, h1v, l1v;
+            split(tile_at(xt, r, p0 + 8 * rr) * w0, h0v, l0v);
+            split(tile_at(xt, r + 1, p0 + 8 * rr) * w1, h1v, l1v);
+            fh[kk][2 * half + rr] = pack_bf16(h0v, h1v);
+            fl[kk][2 * half + rr] = pack_bf16(l0v, l1v);
+          }
+        }
+      }
+      fence_regs(acc);
+      wgmma_fence();
+      mma_fb<kN>(acc, fh, rhs + t * TB::kBytes);
+      mma_fb<kN>(acc, fl, rhs + t * TB::kBytes);
+      commit_wait();
+      fence_regs(acc);
+    }
+    // acc[4 i + e]: row p0 + 8 (e >> 1), column 8 i + 2 qd + (e & 1).  Each
+    // warp stages its 16 rows, 32 columns at a time, then stores whole rows.
+    float* stage = out_s + warp * 16 * kOutLd;
+#pragma unroll
+    for (int cb = 0; cb < (kN + 31) / 32; ++cb) {
+#pragma unroll
+      for (int i = 4 * cb; i < min(4 * cb + 4, kAcc / 4); ++i) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr)
+          *reinterpret_cast<float2*>(stage + (g + 8 * rr) * kOutLd + 8 * (i - 4 * cb) + 2 * qd) =
+              make_float2(acc[4 * i + 2 * rr], acc[4 * i + 2 * rr + 1]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 4 * r + lane / 8;
+        const int col = 4 * (lane % 8);
+        const int pp = 16 * warp + row;
+        const int n = 32 * cb + col;
+        if (pp < P && n < N)
+          *reinterpret_cast<float4*>(out + pp * N + n) =
+              *reinterpret_cast<const float4*>(stage + row * kOutLd + col);
+      }
+      __syncwarp();
+    }
+  };
+
+  for (int k = 0; k < nheads; ++k) {
+    const int st = k % a.st1;
+    const long long row = row_of(a, bi, c, h0 + k);
+    mbar_wait(&ring_bar[st], (k / a.st1) & 1);
+    const unsigned char* xs = ring + st * stage_bytes;
+    product(xs, w_s + k * kr, b_s, a.hs + row * P * N);
+    product(xs + nt * TX::kBytes, e_s + k * kr, c_s, a.gs + row * P * N);
+    __syncthreads();  // every thread is done with this stage before it refills
+    if (tid == 0 && k + a.st1 < nheads) load_head(k + a.st1);
+  }
+}
+
+// Phase 3.  Block = (batch, chunk, 64-row key tile J, group of g3 heads),
+// one warpgroup; the tiles J = 0, which pair with the most query tiles,
+// first.  B_J and the C rows of every query tile I >= J arrive once by TMA,
+// and the pair tiles B_J C_I^T are computed once for the group's heads
+// (wgmma, exact in fp32 from the bf16 inputs) into shared memory.  Each
+// head's x_J and dy_I tiles arrive through a TMA ring of st3 stages, and its
+// cotangent G_c (fp32 from the state pass) is split into bf16 hi + lo tiles.
+// Per head, with rows j of J (L_ji = select(j <= i, exp(cum_i - cum_j)),
+// e_j = exp(cum_Q - cum_j)):
+//   v  = e_j G_c B_j                       (wgmma, B_J K-major, G_c hi + lo)
+//   dB += dt_j e_j G_c^T x_j               (wgmma, x_J K-major, G_c MN-major)
+//   per I >= J:  DX^T = x_J dy_I^T          (wgmma, exact)
+//                v  += A^T dy_I, A^T = B_J C_I^T o L^T   (A in hi + lo)
+//                dB += (dt o Z^T) C_I, Z^T = L^T o DX^T  (likewise)
+//                colM_j += sum_i (B_j . C_i) L_ji dt_j DX_ji
+// then dx_j = dt_j v_j, x_j . v_j, T_j = dt_j e_j x_j . (G_c B_j) and
+// -(colM_j + T_j).  dB is summed over the group's heads in registers, in
+// head order, and stored once per group.
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dkey_bf16_kernel(const Args a, const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap dy_map,
+                         const __grid_constant__ CUtensorMap b_map,
+                         const __grid_constant__ CUtensorMap c_map) {
+  constexpr int kP = wg_n(P);
+  constexpr int kN = wg_n(N);
+  using TX = Tile<P>;
+  using TB = Tile<N>;
+  const int nt = a.nt;
+  const int kr = nt * kRows;
+  const int q = a.chunk;
+  const int groups = (a.h + a.g3 - 1) / a.g3;
+  const int per_tile = a.batch * a.nc * groups;
+  const int jt = blockIdx.x / per_tile;
+  const int rest = blockIdx.x % per_tile;
+  const int grp = rest % groups;
+  const int bi = (rest / groups) / a.nc;
+  const int c = (rest / groups) % a.nc;
+  const int h0 = grp * a.g3;
+  const int nheads = min(a.g3, a.h - h0);
+  const int s0 = c * q;
+  const int rows = min(q, a.s - s0);  // real rows of this chunk
+  const int j0 = kRows * jt;
+  if (j0 >= rows) return;  // a key tile past the sequence: nothing to write
+  const int n_i = (rows + kRows - 1) / kRows - jt;  // query tiles I = jt .. jt + n_i - 1
+
+  const int stage_bytes = (1 + nt) * TX::kBytes;  // x_J, then dy_I
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* b_s = align1024(smem_raw);                        // B_J
+  unsigned char* c_s = b_s + TB::kBytes;                           // C_I, I - jt
+  float* stash = reinterpret_cast<float*>(c_s + nt * TB::kBytes);  // B_J C_I^T, I - jt
+  unsigned char* ring = reinterpret_cast<unsigned char*>(stash + nt * kStashTile);
+  unsigned char* g_s = ring + a.st3 * stage_bytes;  // G_c's hi, then lo part: rows p, columns n
+  float* cum_s = reinterpret_cast<float*>(g_s + TB::kBytes);  // [kr]
+  float* dt_s = cum_s + kr;                                      // [kr]
+  __shared__ uint64_t bc_bar, ring_bar[2];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int qd = tid % 4;
+
+  auto load_head = [&](int k) {
+    const int st = k % a.st3;
+    unsigned char* dst = ring + st * stage_bytes;
+    mbar_expect(&ring_bar[st], (1 + n_i) * TX::kBytes);
+    tma_tile<P>(dst, &x_map, &ring_bar[st], s0 + j0, h0 + k, bi);
+    for (int u = 0; u < n_i; ++u)
+      tma_tile<P>(dst + (1 + u) * TX::kBytes, &dy_map, &ring_bar[st], s0 + kRows * (jt + u), h0 + k, bi);
+  };
+  if (tid == 0) {
+    mbar_init(&bc_bar);
+    for (int i = 0; i < 2; ++i) mbar_init(&ring_bar[i]);
+    mbar_fence_init();
+    mbar_expect(&bc_bar, (1 + n_i) * TB::kBytes);
+    tma_tile<N>(b_s, &b_map, &bc_bar, s0 + j0, 0, bi);
+    for (int u = 0; u < n_i; ++u)
+      tma_tile<N>(c_s + u * TB::kBytes, &c_map, &bc_bar, s0 + kRows * (jt + u), 0, bi);
+    for (int k = 0; k < min(a.st3, nheads); ++k) load_head(k);
+  }
+  if (P < 64 || N % 64 != 0) zero_smem(g_s, TB::kBytes);  // the padding of G_c's tile
+  __syncthreads();  // the barriers are initialised
+  mbar_wait(&bc_bar, 0);
+
+  // The pair tiles B_J C_I^T, kept in the accumulator layout: each thread
+  // reads back only what it wrote.
+  for (int u = 0; u < n_i; ++u) {
+    float sc[32];
+    zero(sc);
+    fence_regs(sc);
+    wgmma_fence();
+    mma_nt<N, 64>(sc, b_s, c_s + u * TB::kBytes, false);
+    commit_wait();
+    fence_regs(sc);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) stash[(u * 32 + e) * kThreads + tid] = sc[e];
+  }
+
+  const int r0 = 16 * warp + g;  // this thread's rows of J: r0, r0 + 8
+  const int jp[2] = {j0 + r0, j0 + r0 + 8};  // their positions in the chunk
+  float db[kN / 2];  // dB of rows j, summed over the group's heads
+  zero(db);
+  for (int k = 0; k < nheads; ++k) {
+    const int h = h0 + k;
+    const long long row = row_of(a, bi, c, h);
+    const int st = k % a.st3;
+    load_cum_dt(a, cum_s, dt_s, row, bi, h, s0, rows, kr);
+    stage_state<P, N>(g_s, a.gs + row * P * N, 0);
+    __syncthreads();  // cum, dt and G_c's hi part are in shared memory
+    mbar_wait(&ring_bar[st], (k / a.st3) & 1);
+    const unsigned char* xs = ring + st * stage_bytes;
+    const unsigned char* dys = xs + TX::kBytes;
+    float ej[2], dtj[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ej[r] = jp[r] < q ? expf(cum_s[q - 1] - cum_s[jp[r]]) : 0.0f;
+      dtj[r] = dt_s[jp[r]];
+    }
+
+    // v = G_c B_j (then scaled by e_j), dB += dt_j e_j G_c^T x_j: G_c's hi
+    // part, then its lo part through the same tile.
+    float v[kP / 2];
+    float xg[2];
+    {
+      float gx[kN / 2];
+      zero(v);
+      zero(gx);
+#pragma unroll 1
+      for (int part = 0; part < 2; ++part) {
+        if (part == 1) {
+          __syncthreads();  // every product has read the hi part
+          stage_state<P, N>(g_s, a.gs + row * P * N, 1);
+          __syncthreads();
+        }
+        fence_regs(v);
+        fence_regs(gx);
+        wgmma_fence();
+        mma_nt<N, kP>(v, b_s, g_s, part == 1);
+        mma_nn<P, kN>(gx, xs, g_s, part == 1);
+        commit_wait();
+        fence_regs(v);
+        fence_regs(gx);
+      }
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        db[i] = fmaf(dtj[r] * ej[r], gx[i], db[i]);
+      }
+    }
+    row_dot<kP>(v, xs, r0, xg);  // x_j . (G_c B_j)
+#pragma unroll
+    for (int i = 0; i < kP / 2; ++i) v[i] *= ej[(i >> 1) & 1];
+
+    float col_m[2] = {0.0f, 0.0f};
+    for (int u = 0; u < n_i; ++u) {
+      const int i0 = kRows * (jt + u);
+      const unsigned char* dyt = dys + u * TX::kBytes;
+      float dx[32];  // DX^T: rows j, columns i
+      zero(dx);
+      fence_regs(dx);
+      wgmma_fence();
+      mma_nt<P, 64>(dx, xs, dyt, false);
+      commit_wait();
+      fence_regs(dx);
+      uint32_t fh[4][4], fl[4][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int ip = i0 + 8 * i + 2 * qd + (e & 1);
+          // A select: exp overflows above the diagonal.
+          const float l = (jp[r] <= ip && ip < rows) ? expf(cum_s[ip] - cum_s[jp[r]]) : 0.0f;
+          const float cb = stash[(u * 32 + 4 * i + e) * kThreads + tid];
+          const float z = l * dtj[r] * dx[4 * i + e];
+          col_m[r] = fmaf(cb, z, col_m[r]);
+          split(cb * l, ah[e], al[e]);
+          dx[4 * i + e] = z;
+        }
+        fh[i / 2][2 * (i % 2) + 0] = pack_bf16(ah[0], ah[1]);
+        fh[i / 2][2 * (i % 2) + 1] = pack_bf16(ah[2], ah[3]);
+        fl[i / 2][2 * (i % 2) + 0] = pack_bf16(al[0], al[1]);
+        fl[i / 2][2 * (i % 2) + 1] = pack_bf16(al[2], al[3]);
+      }
+      fence_regs(v);
+      wgmma_fence();
+      mma_fb<kP>(v, fh, dyt);
+      mma_fb<kP>(v, fl, dyt);
+      commit_wait();
+      fence_regs(v);
+      to_frags(dx, fh, fl);
+      fence_regs(db);
+      wgmma_fence();
+      mma_fb<kN>(db, fh, c_s + u * TB::kBytes);
+      mma_fb<kN>(db, fl, c_s + u * TB::kBytes);
+      commit_wait();
+      fence_regs(db);
+    }
+
+    float xv[2];
+    row_dot<kP>(v, xs, r0, xv);  // x_j . v_j
+    __nv_bfloat16* dxo = static_cast<__nv_bfloat16*>(a.dx);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float cm = quad_sum(col_m[r]);
+      if (jp[r] >= rows) continue;
+      const long long base = ((static_cast<long long>(bi) * a.s + s0 + jp[r]) * a.h + h) * P;
+#pragma unroll
+      for (int i = 0; i < kP / 8; ++i) {
+        const int p = 8 * i + 2 * qd;
+        if (p < P)
+          *reinterpret_cast<__nv_bfloat162*>(dxo + base + p) =
+              __floats2bfloat162_rn(dtj[r] * v[4 * i + 2 * r], dtj[r] * v[4 * i + 2 * r + 1]);
+      }
+      if (qd == 0) {
+        const long long at = row * q + jp[r];
+        const float t_j = dtj[r] * ej[r] * xg[r];
+        a.ddt_x[at] = xv[r];
+        a.tj[at] = t_j;
+        a.dcum_k[at] = -(cm + t_j);
+      }
+    }
+    __syncthreads();  // every thread is done with this stage, cum, dt and G_c
+    if (tid == 0 && k + a.st3 < nheads) load_head(k + a.st3);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (jp[r] >= rows) continue;
+    float* out = a.db_h + ((static_cast<long long>(bi) * a.s + s0 + jp[r]) * groups + grp) * N;
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i) {
+      const int n = 8 * i + 2 * qd;
+      if (n < N) *reinterpret_cast<float2*>(out + n) = make_float2(db[4 * i + 2 * r], db[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
+// Phase 4.  Block = (batch, chunk, 64-row query tile I, group of g3 heads),
+// one warpgroup; the last tiles, which pair with the most key tiles, first.
+// C_I and the B rows of every key tile J <= I arrive once by TMA, and the
+// pair tiles C_I B_J^T are computed once for the group's heads.  Each
+// head's dy_I and x_J tiles arrive through the ring, and its entering state
+// h_c (fp32 from the state pass) is split into bf16 hi + lo tiles.  Per
+// head, with rows i of I:
+//   hd  = h_c^T dy_i                        (wgmma, dy_I K-major, h_c MN-major)
+//   dC += exp(cum_i) hd_i
+//   per J <= I:  DX = dy_I x_J^T             (wgmma, exact)
+//                dC += Z' B_J, Z' = L o dt_j o DX  (Z' in hi + lo)
+//                rowM_i += sum_j (C_i . B_j) Z'_ij
+// then rowM_i + exp(cum_i) C_i . hd_i.  dC is summed over the group's heads
+// in registers, in head order, and stored once per group.
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_dquery_bf16_kernel(const Args a, const __grid_constant__ CUtensorMap x_map,
+                           const __grid_constant__ CUtensorMap dy_map,
+                           const __grid_constant__ CUtensorMap b_map,
+                           const __grid_constant__ CUtensorMap c_map) {
+  constexpr int kN = wg_n(N);
+  using TX = Tile<P>;
+  using TB = Tile<N>;
+  const int nt = a.nt;
+  const int kr = nt * kRows;
+  const int q = a.chunk;
+  const int groups = (a.h + a.g3 - 1) / a.g3;
+  const int per_tile = a.batch * a.nc * groups;
+  const int it = nt - 1 - blockIdx.x / per_tile;
+  const int rest = blockIdx.x % per_tile;
+  const int grp = rest % groups;
+  const int bi = (rest / groups) / a.nc;
+  const int c = (rest / groups) % a.nc;
+  const int h0 = grp * a.g3;
+  const int nheads = min(a.g3, a.h - h0);
+  const int s0 = c * q;
+  const int rows = min(q, a.s - s0);
+  const int i0 = kRows * it;
+  if (i0 >= rows) return;  // a query tile past the sequence
+  const int n_j = it + 1;  // key tiles J = 0 .. it
+
+  const int stage_bytes = (1 + nt) * TX::kBytes;  // dy_I, then x_J
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* c_s = align1024(smem_raw);                        // C_I
+  unsigned char* b_s = c_s + TB::kBytes;                           // B_J
+  float* stash = reinterpret_cast<float*>(b_s + nt * TB::kBytes);  // C_I B_J^T
+  unsigned char* ring = reinterpret_cast<unsigned char*>(stash + nt * kStashTile);
+  unsigned char* h_s = ring + a.st3 * stage_bytes;  // h_c's hi, then lo part: rows p, columns n
+  float* cum_s = reinterpret_cast<float*>(h_s + TB::kBytes);
+  float* dt_s = cum_s + kr;
+  __shared__ uint64_t bc_bar, ring_bar[2];
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) / 4;
+  const int qd = tid % 4;
+
+  auto load_head = [&](int k) {
+    const int st = k % a.st3;
+    unsigned char* dst = ring + st * stage_bytes;
+    mbar_expect(&ring_bar[st], (1 + n_j) * TX::kBytes);
+    tma_tile<P>(dst, &dy_map, &ring_bar[st], s0 + i0, h0 + k, bi);
+    for (int jt = 0; jt < n_j; ++jt)
+      tma_tile<P>(dst + (1 + jt) * TX::kBytes, &x_map, &ring_bar[st], s0 + kRows * jt, h0 + k, bi);
+  };
+  if (tid == 0) {
+    mbar_init(&bc_bar);
+    for (int i = 0; i < 2; ++i) mbar_init(&ring_bar[i]);
+    mbar_fence_init();
+    mbar_expect(&bc_bar, (1 + n_j) * TB::kBytes);
+    tma_tile<N>(c_s, &c_map, &bc_bar, s0 + i0, 0, bi);
+    for (int jt = 0; jt < n_j; ++jt)
+      tma_tile<N>(b_s + jt * TB::kBytes, &b_map, &bc_bar, s0 + kRows * jt, 0, bi);
+    for (int k = 0; k < min(a.st3, nheads); ++k) load_head(k);
+  }
+  if (P < 64 || N % 64 != 0) zero_smem(h_s, TB::kBytes);
+  __syncthreads();
+  mbar_wait(&bc_bar, 0);
+
+  for (int jt = 0; jt < n_j; ++jt) {
+    float sc[32];
+    zero(sc);
+    fence_regs(sc);
+    wgmma_fence();
+    mma_nt<N, 64>(sc, c_s, b_s + jt * TB::kBytes, false);
+    commit_wait();
+    fence_regs(sc);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) stash[(jt * 32 + e) * kThreads + tid] = sc[e];
+  }
+
+  const int r0 = 16 * warp + g;
+  const int ip[2] = {i0 + r0, i0 + r0 + 8};
+  float dc[kN / 2];  // dC of rows i, summed over the group's heads
+  zero(dc);
+  for (int k = 0; k < nheads; ++k) {
+    const int h = h0 + k;
+    const long long row = row_of(a, bi, c, h);
+    const int st = k % a.st3;
+    load_cum_dt(a, cum_s, dt_s, row, bi, h, s0, rows, kr);
+    stage_state<P, N>(h_s, a.hs + row * P * N, 0);
+    __syncthreads();
+    mbar_wait(&ring_bar[st], (k / a.st3) & 1);
+    const unsigned char* dys = ring + st * stage_bytes;
+    const unsigned char* xs = dys + TX::kBytes;
+    float ei[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) ei[r] = ip[r] < q ? expf(cum_s[ip[r]]) : 0.0f;
+
+    float chd[2];
+    {
+      float hd[kN / 2];  // h_c^T dy_i: rows i, columns n; h_c's hi part, then lo
+      zero(hd);
+#pragma unroll 1
+      for (int part = 0; part < 2; ++part) {
+        if (part == 1) {
+          __syncthreads();
+          stage_state<P, N>(h_s, a.hs + row * P * N, 1);
+          __syncthreads();
+        }
+        fence_regs(hd);
+        wgmma_fence();
+        mma_nn<P, kN>(hd, dys, h_s, part == 1);
+        commit_wait();
+        fence_regs(hd);
+      }
+      row_dot<kN>(hd, c_s, r0, chd);  // C_i . hd_i
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) dc[i] = fmaf(ei[(i >> 1) & 1], hd[i], dc[i]);
+    }
+
+    float row_m[2] = {0.0f, 0.0f};
+    for (int jt = 0; jt < n_j; ++jt) {
+      float dx[32];  // DX: rows i, columns j
+      zero(dx);
+      fence_regs(dx);
+      wgmma_fence();
+      mma_nt<P, 64>(dx, dys, xs + jt * TX::kBytes, false);
+      commit_wait();
+      fence_regs(dx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int j = kRows * jt + 8 * i + 2 * qd + (e & 1);
+          const float l = (j <= ip[r] && ip[r] < rows) ? expf(cum_s[ip[r]] - cum_s[j]) : 0.0f;
+          const float z = l * dt_s[j] * dx[4 * i + e];
+          row_m[r] = fmaf(z, stash[(jt * 32 + 4 * i + e) * kThreads + tid], row_m[r]);
+          dx[4 * i + e] = z;
+        }
+      uint32_t fh[4][4], fl[4][4];
+      to_frags(dx, fh, fl);
+      fence_regs(dc);
+      wgmma_fence();
+      mma_fb<kN>(dc, fh, b_s + jt * TB::kBytes);
+      mma_fb<kN>(dc, fl, b_s + jt * TB::kBytes);
+      commit_wait();
+      fence_regs(dc);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float rm = quad_sum(row_m[r]);
+      if (qd == 0 && ip[r] < rows) a.dcum_q[row * q + ip[r]] = fmaf(ei[r], chd[r], rm);
+    }
+    __syncthreads();
+    if (tid == 0 && k + a.st3 < nheads) load_head(k + a.st3);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (ip[r] >= rows) continue;
+    float* out = a.dc_h + ((static_cast<long long>(bi) * a.s + s0 + ip[r]) * groups + grp) * N;
+#pragma unroll
+    for (int i = 0; i < kN / 8; ++i) {
+      const int n = 8 * i + 2 * qd;
+      if (n < N) *reinterpret_cast<float2*>(out + n) = make_float2(dc[4 * i + 2 * r], dc[4 * i + 2 * r + 1]);
+    }
+  }
+}
+
+// Dynamic shared memory of the kernels at `stages` ring stages, 1 KB of
+// alignment included.
+template <int P, int N>
+size_t chunk_smem(const Args& a, int stages) {
+  return 1024 + 2 * static_cast<size_t>(a.nt) * Tile<N>::kBytes +
+         static_cast<size_t>(stages) * 2 * a.nt * Tile<P>::kBytes +
+         2 * sizeof(float) * a.g1 * a.nt * kRows;
+}
+
+template <int P, int N>
+size_t pair_smem(const Args& a, int stages) {
+  return 1024 + static_cast<size_t>(1 + a.nt) * Tile<N>::kBytes +
+         static_cast<size_t>(a.nt) * kStashTile * sizeof(float) +
+         static_cast<size_t>(stages) * (1 + a.nt) * Tile<P>::kBytes + Tile<N>::kBytes +
+         2 * sizeof(float) * a.nt * kRows;
+}
+
+// Two ring stages where they fit, else one.
+inline int stages_for(size_t two, size_t one, int& stages) {
+  if (two <= static_cast<size_t>(kMaxSmem)) stages = 2;
+  else if (one <= static_cast<size_t>(kMaxSmem)) stages = 1;
+  else return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+// The seven kernels in order on `stream`: chunk, state pass, dkey, dquery,
+// the cumsum's cotangent, the sums over head groups, da.
+template <int P, int N>
+int launch(Args a, const void* x, const void* dy, const void* b, const void* c,
+           cudaStream_t stream) {
+  CUtensorMap x_map, dy_map, b_map, c_map;
+  int err = make_map(&x_map, x, a.batch, a.s, a.h, P, a.x_sb, a.x_ss, a.x_sh);
+  if (err == 0) err = make_map(&dy_map, dy, a.batch, a.s, a.h, P, a.dy_sb, a.dy_ss, a.dy_sh);
+  if (err == 0) err = make_map(&b_map, b, a.batch, a.s, 1, N, a.b_sb, a.b_ss, 0);
+  if (err == 0) err = make_map(&c_map, c, a.batch, a.s, 1, N, a.c_sb, a.c_ss, 0);
+  // The chunk kernel also holds kChunkStatic bytes of static shared memory.
+  if (err == 0)
+    err = stages_for(chunk_smem<P, N>(a, 2) + kChunkStatic, chunk_smem<P, N>(a, 1) + kChunkStatic,
+                     a.st1);
+  if (err == 0) err = stages_for(pair_smem<P, N>(a, 2), pair_smem<P, N>(a, 1), a.st3);
+  if (err != 0) return err;
+  const size_t smem1 = chunk_smem<P, N>(a, a.st1);
+  const size_t smem3 = pair_smem<P, N>(a, a.st3);
+  // Each launch sets its kernel's dynamic shared memory limit, as every
+  // launch of the port does: no state outlives the call.
+  err = bwd::set_smem(ssd_bwd_chunk_bf16_kernel<P, N>, smem1);
+  if (err == 0) err = bwd::set_smem(ssd_bwd_dkey_bf16_kernel<P, N>, smem3);
+  if (err == 0) err = bwd::set_smem(ssd_bwd_dquery_bf16_kernel<P, N>, smem3);
+  if (err != 0) return err;
+
+  const int groups1 = (a.h + a.g1 - 1) / a.g1;
+  const int groups3 = (a.h + a.g3 - 1) / a.g3;
+  ssd_bwd_chunk_bf16_kernel<P, N><<<a.batch * a.nc * groups1, kThreads, smem1, stream>>>(
+      a, x_map, dy_map, b_map, c_map);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const dim3 pass_grid(a.batch * a.h,
+                       (a.p * a.n + 4 * bwd::kPassThreads - 1) / (4 * bwd::kPassThreads));
+  bwd::ssd_bwd_state_kernel<<<pass_grid, bwd::kPassThreads, 0, stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int pair_blocks = a.batch * a.nc * groups3 * a.nt;
+  ssd_bwd_dkey_bf16_kernel<P, N><<<pair_blocks, kThreads, smem3, stream>>>(a, x_map, dy_map,
+                                                                            b_map, c_map);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  ssd_bwd_dquery_bf16_kernel<P, N><<<pair_blocks, kThreads, smem3, stream>>>(a, x_map, dy_map,
+                                                                              b_map, c_map);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int rows = a.batch * a.nc * a.h;
+  bwd::ssd_bwd_cum_kernel<<<(rows + 127) / 128, 128, 0, stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const long long elems = static_cast<long long>(a.batch) * a.s * a.n;
+  bwd::ssd_bwd_reduce_kernel<__nv_bfloat16>
+      <<<static_cast<unsigned>((elems + bwd::kReduceThreads - 1) / bwd::kReduceThreads),
+         bwd::kReduceThreads, 0, stream>>>(a);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  bwd::ssd_bwd_da_kernel<<<(a.h + 127) / 128, 128, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd16
+
 // The (P, N) pairs taken: the model shapes, the smoke configs' and the
 // reference sweep's.  kernels/ssd_scan.py lists the same pairs.
 #define SSD_SHAPES(X)                                                    \
@@ -1774,10 +2584,10 @@ int dispatch_bf16(const bf16::Args& a, const void* x, long long x_sb, long long 
 }
 
 int dispatch_bwd(const bwd::Args& a, int dtype, cudaStream_t stream) {
-#define SSD_CASE(P_, N_)                                                 \
-  if (a.p == P_ && a.n == N_)                                            \
-    return dtype == 0 ? bwd::launch<float, P_, N_>(a, stream)            \
-                      : bwd::launch<__nv_bfloat16, P_, N_>(a, stream);
+#define SSD_CASE(P_, N_)                                                              \
+  if (a.p == P_ && a.n == N_)                                                         \
+    return dtype == 0 ? bwd::launch<float, P_, N_>(a, stream)                         \
+                      : bwd16::launch<P_, N_>(a, a.x, a.dy, a.b, a.c, stream);
   SSD_SHAPES(SSD_CASE)
 #undef SSD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1852,22 +2662,28 @@ extern "C" int ssd_scan_fwd(
 // out, each contiguous.  dtype 0 = fp32, 1 = bf16 (x, B, C, dy, dx, dB,
 // dC); dt and a are fp32.  strides: x (batch, seq, head), dt (batch, seq,
 // head), B (batch, seq), C (batch, seq), dy (batch, seq, head), in
-// elements, the last dims contiguous.  scratch: 13 fp32 buffers from the
+// elements, the last dims contiguous.  scratch: fp32 buffers from the
 // caller, each contiguous, in the order of kernels/ssd_scan.py's
 // backward_scratch_shapes: cum (B, nc, H, Q), decay (B, nc, H), states and
 // cotangents (B, nc, H, P, N), state_dots (B, nc, H, ceil(P N / 128)),
-// ddt_x, dcum_k, t, dcum_q (B, nc, H, Q), db_heads and dc_heads (B, S, H,
-// N), da_chunks (B, nc, H), cb_pairs (B, nc, nt (nt + 1) / 2, 64, 64) with
-// nt = ceil(Q / 64).  Launches eight kernels on `stream` and returns
-// the first error of its launches (0 = launched); an unsupported dtype,
-// shape or chunk returns cudaErrorInvalidValue without launching.
+// ddt_x, dcum_k, t, dcum_q (B, nc, H, Q), the dB and dC partials (B, S,
+// parts, N), da_chunks (B, nc, H), and for fp32 cb_pairs (B, nc, nt (nt +
+// 1) / 2, 64, 64) with nt = ceil(Q / 64).  parts is H for fp32 (eight
+// CUDA-core kernels) and ceil(H / g3) for bf16 (seven kernels, three on the
+// tensor cores, g1 and g3 the heads per block of the chunk kernel and of
+// the pair kernels; x, B, C and dy read by TMA, so each 16-byte aligned
+// with strides a multiple of 8).  Launches on `stream` and returns the
+// first error of its launches (0 = launched); an unsupported dtype, shape,
+// chunk or alignment returns cudaErrorInvalidValue without launching, a
+// refused tensor map 1000 + its CUresult.
 extern "C" int ssd_scan_bwd(
     const void* x, const void* dt, const void* a, const void* b, const void* c,
     const void* dy, const void* dfin, void* dx, void* ddt, void* da, void* db, void* dc,
-    int dtype, int batch, int s, int h, int p, int n, int chunk,
+    int dtype, int batch, int s, int h, int p, int n, int chunk, int g1, int g3,
     const long long* strides, void* const* scratch, void* stream) {
   if (batch <= 0 || h <= 0 || s <= 0 || chunk <= 0 || chunk > bwd::kMaxChunk ||
-      (chunk > bwd::kTile && chunk % bwd::kTile != 0) || (dtype != 0 && dtype != 1))
+      (chunk > bwd::kTile && chunk % bwd::kTile != 0) || (dtype != 0 && dtype != 1) ||
+      (dtype == 1 && (g1 <= 0 || g3 <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   bwd::Args args{};
   args.x = x;
@@ -1895,7 +2711,7 @@ extern "C" int ssd_scan_bwd(
   args.db_h = f[9];
   args.dc_h = f[10];
   args.da_p = f[11];
-  args.cb = f[12];
+  args.cb = dtype == 0 ? f[12] : nullptr;
   args.batch = batch;
   args.s = s;
   args.h = h;
@@ -1906,6 +2722,9 @@ extern "C" int ssd_scan_bwd(
   args.nt = (chunk + bwd::kTile - 1) / bwd::kTile;
   args.nparts = (p * n + bwd::kPartElems - 1) / bwd::kPartElems;
   args.npairs = args.nt * (args.nt + 1) / 2;
+  args.g1 = g1;
+  args.g3 = g3;
+  args.parts = dtype == 0 ? h : (h + g3 - 1) / g3;
   args.x_sb = strides[0];
   args.x_ss = strides[1];
   args.x_sh = strides[2];
@@ -1919,5 +2738,11 @@ extern "C" int ssd_scan_bwd(
   args.dy_sb = strides[10];
   args.dy_ss = strides[11];
   args.dy_sh = strides[12];
+  if (dtype == 1) {
+    for (const void* ptr : {x, b, c, dy})
+      if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    for (int i : {0, 1, 2, 6, 7, 8, 9, 10, 11, 12})
+      if (strides[i] % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
   return dispatch_bwd(args, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -17,7 +17,10 @@ bytes bound it under the bf16 tensor-core peak.
 bf16 runs on the tensor cores: ``wgmma`` for Q K^T and for P V (P rounded
 to bf16 in registers), a persistent grid whose blocks walk work items while
 TMA keeps the next K/V tile (and the next item's Q) in flight, the running
-max and sum and the output accumulator in fp32 registers.  fp32 runs on the
+max and sum and the output accumulator in fp32 registers.  Its backward
+(:class:`FlashAttentionFunction`) runs on the tensor cores too: the seven
+products of a tile by ``wgmma``, P and dS rounded to bf16 in registers, the
+tiles by TMA.  fp32 runs on the
 CUDA cores, since TF32 cannot meet its 2e-5.  Both map query head h to KV
 head h / (Hq / Hk) instead of repeating K/V, read the model layout
 (B, S, H, d) and the flattened (B*H, S, d) layout through strides without a
@@ -177,12 +180,15 @@ def _launch_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward's three kernels (delta, dK/dV, dQ) on the current
     stream: dq, dk and dv, contiguous, in the inputs' dtype and shapes.
+    bf16 runs on the tensor cores and reads q, k, v and dO by TMA, so each
+    goes through :func:`_aligned` first, as the forward's inputs do.
     :attr:`flash_attention.backward_launches` counts the call once."""
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))
     if g.batch * g.hq == 0 or g.s == 0:
         return dq, dk.zero_(), dv.zero_()
     if d_o.stride(-1) != 1:
         raise ValueError("the flash backward needs dO's head dim contiguous")
+    q, k, v, o, d_o = (_aligned(x) for x in (q, k, v, o, d_o))
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     roles = ((q, False), (k, True), (v, True), (o, False), (d_o, False),
              (dq, False), (dk, True), (dv, True))

@@ -28,11 +28,15 @@ model's views never are).
 
 Under autograd (grad enabled and an input that requires it) the CUDA path
 runs through :class:`SSDScanFunction`: the same forward launch, then the
-backward kernels (:func:`ssd_scan_backward`, eight CUDA-core kernels in
-``csrc/ssd_scan.cu``), which replace XLA's autodiff of the reference's jnp
-oracle ``repro/models/ssm.py::ssd_chunked`` and compute what
-:func:`~repro_torch.kernels.ref.ssd_scan_bwd_ref` computes.  They recompute
-the states entering each chunk from the saved inputs rather than keep the
+backward kernels (:func:`ssd_scan_backward` in ``csrc/ssd_scan.cu``), which
+replace XLA's autodiff of the reference's jnp oracle
+``repro/models/ssm.py::ssd_chunked`` and compute what
+:func:`~repro_torch.kernels.ref.ssd_scan_bwd_ref` computes.  bf16 runs seven
+kernels, the chunk and the two pair kernels on the tensor cores (C·Bᵀ and
+dy·xᵀ exact, the computed operands in bf16 hi + lo, dB and dC summed over a
+block's heads in registers; x, B, C and dy read by TMA through
+:func:`tma_ready`); fp32 runs eight CUDA-core kernels.  They recompute the
+states entering each chunk from the saved inputs rather than keep the
 forward's scratch, and pass their own fp32 scratch
 (:func:`backward_scratch_shapes`).  Bound on an H100: x, dt, B, C and dy
 read and dx, ddt, dB and dC written once; at the model shapes the bytes
@@ -75,7 +79,7 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn = lib.ssd_scan_bwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -152,25 +156,38 @@ def kernel_bytes(batch: int, s: int, heads: int, p: int, n: int, chunk: int) -> 
     }
 
 
+def backward_groups(batch: int, s: int, heads: int, chunk: int) -> Tuple[int, int]:
+    """Heads per block of the bf16 backward's chunk kernel (a block per
+    batch row, chunk and head group) and of its two pair kernels (a block
+    per batch row, chunk, 64-row tile and head group), today the forward's
+    :func:`head_groups`.  The one source of the backward's grouping: both
+    the launch (:func:`ssd_scan_backward`) and the scratch layout
+    (:func:`backward_scratch_shapes`, whose dB and dC partials number
+    ceil(heads / g3)) read it, so the two cannot disagree."""
+    return head_groups(batch, s, heads, chunk)
+
+
 def backward_scratch_shapes(
-    batch: int, s: int, heads: int, p: int, n: int, chunk: int,
+    batch: int, s: int, heads: int, p: int, n: int, chunk: int, dtype: torch.dtype,
 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """The backward's fp32 scratch, each (shape, dtype), in the order the
-    kernel takes it: the chunks' cumsums of dt * a and decays exp(cum_Q);
-    every chunk's own state S_c, overwritten by the state entering the chunk
-    (recomputed here: the forward saves none), and U_c, overwritten by the
-    cotangent G_c of the state after the chunk; per-warp partials of
-    <G_c, h_c>; the per-position terms of ddt and of the cumsum's cotangent;
-    dB and dC of each head before the fixed-order sum over heads; each
-    chunk's share of da; and C_I B_J^T of every pair of 64-row sub-tiles J
-    <= I of a chunk, shared by its heads."""
+    """The backward's fp32 scratch for inputs of ``dtype``, each (shape,
+    dtype), in the order the kernels take it: the chunks' cumsums of dt * a
+    and decays exp(cum_Q); every chunk's own state S_c, overwritten by the
+    state entering the chunk (recomputed here: the forward saves none), and
+    U_c, overwritten by the cotangent G_c of the state after the chunk;
+    per-warp partials of <G_c, h_c>; the per-position terms of ddt and of
+    the cumsum's cotangent; the partials of dB and dC before their
+    fixed-order sum (bf16: one per head group of :func:`backward_groups`,
+    summed in registers by the tensor-core kernels; fp32: one per head);
+    each chunk's share of da; and, for fp32 only, C_I B_J^T of every pair
+    of 64-row sub-tiles J <= I of a chunk, shared by its heads (the bf16
+    kernels compute it per block)."""
     nc = -(-s // chunk)
     nt = -(-chunk // ROWS)
     f32 = torch.float32
     per_chunk = ((batch, nc, heads, chunk), f32)
     state = ((batch, nc, heads, p, n), f32)
-    per_head = ((batch, s, heads, n), f32)
-    return {
+    shapes = {
         "cum": per_chunk,
         "decay": ((batch, nc, heads), f32),
         "states": state,
@@ -180,17 +197,41 @@ def backward_scratch_shapes(
         "dcum_k": per_chunk,
         "t": per_chunk,
         "dcum_q": per_chunk,
-        "db_heads": per_head,
-        "dc_heads": per_head,
-        "da_chunks": ((batch, nc, heads), f32),
-        "cb_pairs": ((batch, nc, nt * (nt + 1) // 2, ROWS, ROWS), f32),
     }
+    if dtype == torch.bfloat16:
+        groups = -(-heads // backward_groups(batch, s, heads, chunk)[1])
+        per_group = ((batch, s, groups, n), f32)
+        shapes.update({"db_groups": per_group, "dc_groups": per_group,
+                       "da_chunks": ((batch, nc, heads), f32)})
+        return shapes
+    per_head = ((batch, s, heads, n), f32)
+    shapes.update({"db_heads": per_head, "dc_heads": per_head,
+                   "da_chunks": ((batch, nc, heads), f32),
+                   "cb_pairs": ((batch, nc, nt * (nt + 1) // 2, ROWS, ROWS), f32)})
+    return shapes
 
 
-def backward_scratch_bytes(batch: int, s: int, heads: int, p: int, n: int, chunk: int) -> int:
-    """Bytes of :func:`backward_scratch_shapes`."""
+def backward_scratch_bytes(batch: int, s: int, heads: int, p: int, n: int, chunk: int,
+                           dtype: torch.dtype) -> int:
+    """Bytes of :func:`backward_scratch_shapes`, before the 256-byte
+    rounding of each buffer in the one allocation (:func:`_backward_layout`)."""
     return sum(_nbytes(*v)
-               for v in backward_scratch_shapes(batch, s, heads, p, n, chunk).values())
+               for v in backward_scratch_shapes(batch, s, heads, p, n, chunk, dtype).values())
+
+
+@functools.lru_cache(maxsize=64)
+def _backward_layout(
+    buffers: Tuple[Tuple[Tuple[int, ...], torch.dtype], ...],
+) -> Tuple[Tuple[int, ...], int]:
+    """Byte offsets of the (shape, dtype) ``buffers`` of
+    :func:`backward_scratch_shapes` in one allocation (each 256-byte
+    aligned), and its size: one ``torch.empty`` a call instead of one per
+    buffer, which shows in a small call's host time."""
+    offsets, total = [], 0
+    for shape, dt in buffers:
+        offsets.append(total)
+        total += -(-_nbytes(shape, dt) // 256) * 256
+    return tuple(offsets), total
 
 
 def tma_ready(t: torch.Tensor) -> torch.Tensor:
@@ -293,8 +334,9 @@ def ssd_scan_backward(
     final state (fp32, or None for zero), as
     :func:`~repro_torch.kernels.ref.ssd_scan_bwd_ref` computes them.  The
     inputs are the forward's, read through their strides; the outputs are
-    contiguous.  :attr:`ssd_scan.backward_launches` counts the call once.
-    CUDA only."""
+    contiguous.  :attr:`ssd_scan.backward_launches` counts the call once,
+    and :attr:`ssd_scan.backward_scratch_allocated` holds the bytes of the
+    scratch it allocated.  CUDA only."""
     _check(x, dt, a, b_in, c_in, chunk)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} vs "
@@ -306,20 +348,28 @@ def ssd_scan_backward(
             raise ValueError(f"d_final must be (B, H, P, N), got {tuple(d_final.shape)}")
         d_final = d_final.to(torch.float32).contiguous()
     dy = dy if dy.stride(-1) == 1 else dy.contiguous()
+    g1 = g3 = 0
+    if x.dtype == torch.bfloat16:
+        x, b_in, c_in, dy = (tma_ready(t) for t in (x, b_in, c_in, dy))
+        g1, g3 = backward_groups(bsz, s, h, chunk)
     dx = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
     ddt = torch.empty((bsz, s, h), dtype=torch.float32, device=x.device)
     da = torch.zeros((h,), dtype=torch.float32, device=x.device)
     db = torch.empty((bsz, s, n), dtype=b_in.dtype, device=x.device)
     dc = torch.empty((bsz, s, n), dtype=c_in.dtype, device=x.device)
     if bsz * h == 0 or s == 0:
+        ssd_scan.backward_scratch_allocated = 0
         return dx, ddt, da, db.zero_(), dc.zero_()
-    scratch = [torch.empty(shape, dtype=dtype, device=x.device)
-               for shape, dtype in backward_scratch_shapes(bsz, s, h, p, n, chunk).values()]
+    offsets, total = _backward_layout(
+        tuple(backward_scratch_shapes(bsz, s, h, p, n, chunk, x.dtype).values()))
+    scratch = torch.empty((total,), dtype=torch.uint8, device=x.device)
+    ssd_scan.backward_scratch_allocated = scratch.numel()
     strides = (ctypes.c_longlong * 13)(
         x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
         b_in.stride(0), b_in.stride(1), c_in.stride(0), c_in.stride(1),
         dy.stride(0), dy.stride(1), dy.stride(2))
-    pointers = (ctypes.c_void_p * len(scratch))(*(t.data_ptr() for t in scratch))
+    base = scratch.data_ptr()
+    pointers = (ctypes.c_void_p * len(offsets))(*(base + off for off in offsets))
     lib = _library()
     with _build.on_device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -327,7 +377,7 @@ def ssd_scan_backward(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
             dy.data_ptr(), None if d_final is None else d_final.data_ptr(),
             dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-            _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk, strides, pointers, stream,
+            _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk, g1, g3, strides, pointers, stream,
         )
     if err != 0:
         raise RuntimeError(f"ssd_scan backward launch failed: CUDA error {err}")
@@ -385,3 +435,4 @@ def ssd_scan(
 
 ssd_scan.launches = 0
 ssd_scan.backward_launches = 0
+ssd_scan.backward_scratch_allocated = 0  # bytes, the last backward call's scratch

@@ -4,6 +4,8 @@ so it runs on a GPU host that has none:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ from repro_torch.kernels.pearson_affinity import pearson_dissimilarity
 from repro_torch.kernels.ref import (
     flash_attention_bhsd_ref, flash_attention_ref, pearson_dissimilarity_ref, ssd_scan_ref,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import SHAPES as SSD_PN, ssd_scan
 from repro_torch.models.multitask import build_cnn_program, build_transformer_program
 from repro_torch.models.registry import get_model
 from repro_torch.serving import LMServer
@@ -759,6 +761,24 @@ def test_flash_backward_is_bit_identical_across_calls(cuda, dtype):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("s,hq,hk,d,window", [(200, 32, 8, 160, None), (200, 8, 2, 80, 48)])
+def test_flash_backward_bf16_ragged_tiles_and_window_edges(cuda, s, hq, hk, d, window):
+    """The tensor-core backward where its tiles meet the edges: GQA 32/8 at
+    head_dim 160 over 200 queries and keys (ragged against 64-row tiles),
+    and a causal window of 48 whose edge crosses the tiles at head_dim 80.
+    Against autograd of the plain version, bit-identical across calls."""
+    q = _randn((2, s, hq, d), torch.bfloat16, cuda, 61)
+    k = _randn((2, s, hk, d), torch.bfloat16, cuda, 62)
+    v = _randn((2, s, hk, d), torch.bfloat16, cuda, 63)
+    d_o = _randn((2, s, hq, d), torch.bfloat16, cuda, 64)
+    first = _flash_grads(q, k, v, d_o, True, window)
+    second = _flash_grads(q, k, v, d_o, True, window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for got, want in zip(first[1:], _plain_grads(q, k, v, d_o, True, window)):
+        assert _rel_err(got, want) <= FLASH_BWD_TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_forward_is_unchanged_by_the_logsumexp(cuda, dtype):
     """Inference asks for no logsumexp: its output is bit-identical to the
@@ -828,7 +848,7 @@ SSD_BWD_MODEL_CASES = [(4, 2048, 48, 64, 128, 64), (4, 1024, 80, 64, 64, 256)]
 
 def _ssd_bwd_check(cuda, b, s, h, p, n, chunk, dtype, with_final, seed):
     from repro_torch.kernels.ref import ssd_scan_bwd_ref
-    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+    from repro_torch.kernels.ssd_scan import backward_scratch_bytes, ssd_scan_backward
 
     x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, dtype, cuda, seed=seed)
     dy = _randn((b, s, h, p), dtype, cuda, seed + 1)
@@ -838,6 +858,9 @@ def _ssd_bwd_check(cuda, b, s, h, p, n, chunk, dtype, with_final, seed):
     again = ssd_scan_backward(x, dt, a, bb, cc, dy, d_final, chunk)
     torch.cuda.synchronize()
     assert ssd_scan.backward_launches == before + 2
+    # The one allocation holds every buffer, each rounded up to 256 bytes.
+    layout = backward_scratch_bytes(b, s, h, p, n, chunk, dtype)
+    assert layout <= ssd_scan.backward_scratch_allocated < layout + 256 * 13
     assert all(torch.equal(one, two) for one, two in zip(got, again))
     want = ssd_scan_bwd_ref(x, dt, a, bb, cc, dy, d_final, chunk)
     for g, w in zip(got, want):
@@ -861,6 +884,90 @@ def test_ssd_backward_at_the_model_shapes(cuda, b, s, h, p, n, chunk, dtype):
     """mamba2-780m's and zamba2-2.7b's training shapes, no final-state
     cotangent (the models discard the final state in training)."""
     _ssd_bwd_check(cuda, b, s, h, p, n, chunk, dtype, False, seed=h)
+
+
+def _swizzle(r, c):
+    """Byte offset of element (r, c) of a 64-row bf16 tile in 128-byte-swizzle
+    atoms of 64 columns, as TMA writes it."""
+    return (c // 64) * 8192 + r * 128 + ((((c % 64) // 8) ^ (r % 8)) << 4) + (c % 8) * 2
+
+
+def test_swizzle_offsets_at_the_kernels_index_patterns(cuda, tmp_path):
+    """``hopper::tile_off`` compiled as the kernels are (``_build``'s nvcc
+    flags) and run on the card, at the three index patterns the kernels
+    read and write their swizzled tiles with: the row dot over an
+    accumulator's columns (which an earlier form of the offset was
+    miscompiled at), the chunk kernels' A fragments and the state staging."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    source = Path(__file__).parent / "cuda" / "swizzle_offsets.cu"
+    lib = tmp_path / "swizzle_offsets.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+                    str(source)], check=True, capture_output=True)
+    out = torch.full((3, 128, 64), -1, dtype=torch.int32, device=cuda)
+    assert ctypes.CDLL(str(lib)).swizzle_offsets(ctypes.c_void_p(out.data_ptr())) == 0
+    got = out.cpu().numpy()
+    want = np.full((3, 128, 64), -1, dtype=np.int32)
+    for t in range(128):
+        warp, g, qd = t // 32, (t % 32) // 4, t % 4
+        for rr in range(2):
+            for i in range(16):
+                for e in range(2):
+                    want[0, t, (rr * 16 + i) * 2 + e] = _swizzle(16 * warp + g + 8 * rr,
+                                                                 8 * i + 2 * qd + e)
+        for kk in range(4):
+            for half in range(2):
+                for e in range(2):
+                    for rr in range(2):
+                        want[1, t, ((kk * 2 + half) * 2 + e) * 2 + rr] = _swizzle(
+                            16 * kk + 2 * qd + 8 * half + e, 16 * warp + g + 8 * rr)
+        for k in range(16):
+            flat = t + 128 * k
+            want[2, t, k] = _swizzle(4 * flat // 128, 4 * flat % 128)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("p,n", SSD_PN)
+def test_ssd_backward_bf16_at_every_head_and_state_width(cuda, p, n):
+    """Every (P, N) with a template instance, bf16: the chunk kernel's and
+    the pair kernels' reads of their swizzled tiles at every tile width,
+    against the plain backward (chunk 32 over a ragged 100 positions, so a
+    64-row tile also holds the next chunk's rows)."""
+    _ssd_bwd_check(cuda, 2, 100, 3, p, n, 32, torch.bfloat16, True, seed=p * 100 + n)
+
+
+@pytest.mark.parametrize("groups", [None, (8, 8)])
+def test_ssd_backward_bf16_head_count_not_a_multiple_of_the_group(cuda, monkeypatch, groups):
+    """12 heads at mamba2's widths over 300 positions (a ragged last
+    chunk): with the heads per block the wrapper picks, and with 8 (groups
+    of 8 and 4 heads, dB and dC summed over each in registers)."""
+    from repro_torch.kernels import ssd_scan as ssd_module
+
+    if groups is not None:
+        monkeypatch.setattr(ssd_module, "backward_groups", lambda *shape: groups)
+    _ssd_bwd_check(cuda, 2, 300, 12, 64, 128, 64, torch.bfloat16, True, seed=71)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_BWD_MODEL_CASES)
+def test_ssd_backward_bf16_is_bit_identical_at_the_model_shapes(cuda, b, s, h, p, n, chunk):
+    """No atomics in the tensor-core backward: at mamba2-780m's and
+    zamba2-2.7b's training shapes two calls, and the gradients through
+    ``SSDScanFunction``, give the same bits."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_backward
+
+    x, dt, a, bb, cc = _ssd_inputs(b, s, h, p, n, torch.bfloat16, cuda, seed=81)
+    dy = _randn((b, s, h, p), torch.bfloat16, cuda, 82)
+    first = ssd_scan_backward(x, dt, a, bb, cc, dy, None, chunk)
+    second = ssd_scan_backward(x, dt, a, bb, cc, dy, None, chunk)
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, bb, cc)]
+    y, _fin = ssd_scan(*leaves, chunk)
+    auto = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(first, second))
+    assert all(torch.equal(u, w) for u, w in zip(first, auto))
 
 
 def test_ssd_function_under_autograd_on_the_card(cuda):

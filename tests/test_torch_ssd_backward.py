@@ -208,20 +208,44 @@ def test_cpu_wrapper_differentiates_the_plain_version(b, s, h, p, n, chunk):
 
 def test_backward_scratch_at_the_model_shapes():
     """The backward's fp32 scratch: the per-chunk states and cotangents
-    and the per-head dB and dC dominate; C_I B_J^T is kept once per chunk
-    and pair of sub-tiles (mamba2-780m: 4 x 2048 tokens, 48
-    heads, P 64, N 128, chunk 64; zamba2-2.7b: 4 x 1024, 80 heads, N 64,
-    chunk 256)."""
-    shapes = p_ssd.backward_scratch_shapes(4, 2048, 48, 64, 128, 64)
+    dominate.  bf16 (the tensor-core kernels) keeps dB and dC once per head
+    group (``backward_groups``: 8 heads a group at both shapes) and no
+    C_I B_J^T; fp32 (the CUDA-core kernels) keeps them per head and C_I
+    B_J^T once per chunk and pair of sub-tiles (mamba2-780m: 4 x 2048
+    tokens, 48 heads, P 64, N 128, chunk 64; zamba2-2.7b: 4 x 1024, 80
+    heads, N 64, chunk 256)."""
+    shapes = p_ssd.backward_scratch_shapes(4, 2048, 48, 64, 128, 64, torch.bfloat16)
     assert list(shapes) == ["cum", "decay", "states", "cotangents", "state_dots", "ddt_x",
-                            "dcum_k", "t", "dcum_q", "db_heads", "dc_heads", "da_chunks",
-                            "cb_pairs"]
+                            "dcum_k", "t", "dcum_q", "db_groups", "dc_groups", "da_chunks"]
+    with pytest.raises(TypeError):  # the layout depends on the dtype: no default
+        p_ssd.backward_scratch_shapes(4, 2048, 48, 64, 128, 64)
     assert shapes["states"][0] == (4, 32, 48, 64, 128)
     assert shapes["state_dots"][0] == (4, 32, 48, 64)
-    assert shapes["db_heads"][0] == (4, 2048, 48, 128)
-    assert shapes["cb_pairs"][0] == (4, 32, 1, 64, 64)
-    assert p_ssd.backward_scratch_shapes(4, 1024, 80, 64, 64, 256)["cb_pairs"][0] == (
-        4, 4, 10, 64, 64)  # 4 sub-tiles a chunk: 10 pairs J <= I
+    assert shapes["db_groups"][0] == (4, 2048, 6, 128)
+    assert p_ssd.backward_groups(4, 2048, 48, 64) == (8, 8)
+    assert p_ssd.backward_scratch_shapes(4, 1024, 80, 64, 64, 256, torch.bfloat16)["dc_groups"][0] == (
+        4, 1024, 10, 64)
     assert all(dtype == torch.float32 for _shape, dtype in shapes.values())
-    assert p_ssd.backward_scratch_bytes(4, 2048, 48, 64, 128, 64) == 816_889_856
-    assert p_ssd.backward_scratch_bytes(4, 1024, 80, 64, 64, 256) == 219_064_320
+    fp32 = p_ssd.backward_scratch_shapes(4, 2048, 48, 64, 128, 64, torch.float32)
+    assert list(fp32) == ["cum", "decay", "states", "cotangents", "state_dots", "ddt_x",
+                          "dcum_k", "t", "dcum_q", "db_heads", "dc_heads", "da_chunks",
+                          "cb_pairs"]
+    assert fp32["db_heads"][0] == (4, 2048, 48, 128)
+    assert fp32["cb_pairs"][0] == (4, 32, 1, 64, 64)
+    assert p_ssd.backward_scratch_shapes(4, 1024, 80, 64, 64, 256, torch.float32)["cb_pairs"][0] == (
+        4, 4, 10, 64, 64)  # 4 sub-tiles a chunk: 10 pairs J <= I
+    assert p_ssd.backward_scratch_bytes(4, 2048, 48, 64, 128, 64, torch.float32) == 816_889_856
+    assert p_ssd.backward_scratch_bytes(4, 1024, 80, 64, 64, 256, torch.float32) == 219_064_320
+    assert p_ssd.backward_scratch_bytes(4, 1024, 80, 64, 64, 256, torch.bfloat16) == 69_642_240
+
+
+def test_bf16_backward_scratch_at_mamba2_training_shape_is_below_the_cuda_core_design():
+    """At mamba2-780m's training shape (B 4, S 2048, H 48, P 64, N 128,
+    chunk 64) the bf16 backward's scratch is 462,471,168 bytes: the fp32
+    states and cotangents (402.7 MB), dB and dC over 6 head groups (50.3
+    MB) and the per-chunk terms, against the 816,889,856 bytes of the
+    CUDA-core design (per-head dB and dC, C_I B_J^T pairs) that fp32 keeps."""
+    bf16 = p_ssd.backward_scratch_bytes(4, 2048, 48, 64, 128, 64, torch.bfloat16)
+    assert bf16 == 462_471_168
+    assert bf16 < 816_889_856 == p_ssd.backward_scratch_bytes(4, 2048, 48, 64, 128, 64,
+                                                              torch.float32)
