@@ -106,13 +106,27 @@
    and ``repro_torch.examples.serve_multitask`` whole (Antler beats
    Vanilla, counters equal the prediction, the LM generates its tokens);
    and Pearson's guard: under grad on the card it raises.
-11. Prints one ``{"kernels": [...]}`` line, then the device line last.
+11. Serves the LeNet-5 and mistral-nemo-12b traces of steps 3 and 4 again,
+   from programs rebuilt from the same seeds, through sessions on
+   mesh-sharded engines (``EnginePolicy(mesh=..., sharding=...)``): a world
+   of one rank (NCCL), a (1, 1) ("data", "model") ``DeviceMesh``, under
+   ``TP_POLICY`` and ``FSDP_TP_POLICY``, against the same trace off the
+   mesh; then once more under a scripted "dispatch" fault whose group the
+   ladder's "single_device" rung serves off the mesh.  One device issues no
+   collective: outputs within the paths' tolerances of the off-mesh
+   session's, counters equal to the prediction with 0 collective bytes,
+   flash launched as often as off the mesh (on each rank's local heads).
+   Prints a ``mesh`` line per engine and policy (group ms and session
+   seconds on and off the mesh, host ms per dispatch, busy share, top
+   device operations), then destroys the process group.
+12. Prints one ``{"kernels": [...]}`` line, then the device line last.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the script checks that the kernels ran where the path runs
 them (Pearson 15 times per profile, the quickstart's included; flash
 attention 30 times in each transformer profile, twice per executed block
-in serving and in every session — a journaled one's lost work included —,
+in serving and in every session — a journaled one's lost work included,
+a mesh session's as often as off the mesh —,
 once per decoder layer of a prefill and of each batcher wave's prefill (8,
 24, 8, 48), 9 times in zamba2's, 72 times in whisper's (once per encoder
 layer, twice per decoder layer); the SSD once per Mamba2 layer of a
@@ -124,7 +138,8 @@ multitask example's flash and its backward once per layer of each of its
 10 nodes, 20 a step),
 that served counters equal the cost
 model's prediction field for field (every session's too, faults,
-streamed loads and checkpoint writes included), that served outputs match
+streamed loads, checkpoint writes and a one-device mesh's 0 collective
+bytes included), that served outputs match
 the per-block executor, that every session request succeeds, that faulted
 outputs match the fault-free session's, that streamed outputs are
 bit-identical to the synchronous session's, that journaled sessions answer
@@ -3152,6 +3167,188 @@ def pearson_guard_phase(device: torch.device) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------
+# The mesh: sharded serving on a (1, 1) DeviceMesh
+# --------------------------------------------------------------------------
+
+MESH_POLICIES = ("tp", "fsdp_tp")
+# The first group's two sharded attempts fault at dispatch; the ladder's
+# "single_device" rung serves it off the mesh.
+MESH_FAULTS = {"dispatch": {0, 1}}
+MESH_REPS = 5
+
+
+def mesh_recipe(engine, requests, build, hw, tol: float, label: str) -> dict:
+    """What ``mesh_phase`` needs to serve an engine's trace again once the
+    engine is gone: a function rebuilding its program (the same seed, so
+    the same weights), its task order, hardware model and requests."""
+    return {"build": build, "order": engine.order, "hw": hw, "requests": requests,
+            "tol": tol, "label": label}
+
+
+def mesh_session(engine, requests, device, retry=None) -> dict:
+    """A one-shot session over ``requests`` (greedy admission), launch
+    counts set to 0 just before and read just after."""
+    reset_launch_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    session = engine.session(retry=retry) if retry is not None else engine.session()
+    futures = [session.submit(r) for r in requests]
+    session.drain()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    for f in futures:
+        check(f.error() is None, f"mesh session request {f.seq} failed: {f.error()!r}")
+    return {"session": session, "responses": [f.result() for f in futures],
+            "seconds": seconds, "launches": launches}
+
+
+def mesh_outputs_err(got, want, tol: float, label: str) -> float:
+    """Max abs difference of two sessions' outputs, request for request."""
+    err = 0.0
+    for a, b in zip(got, want):
+        check(set(a.outputs) == set(b.outputs), f"{label}task sets differ")
+        for t, y in a.outputs.items():
+            check(bool(torch.isfinite(y).all()), f"{label}non-finite output")
+            err = max(err, float((y.float() - b.outputs[t].float()).abs().max()))
+    check(err <= tol, f"{label}mesh vs off-mesh max abs err {err}")
+    return err
+
+
+def mesh_group_times(engine, requests, device, reps: int = MESH_REPS) -> dict:
+    """Per planned group: device-clock ms of ``_execute_group`` (CUDA
+    events, back to back) and host ms per suffix dispatch; the largest
+    group's device breakdown (busy share, top device operations)."""
+    plan = engine.plan_groups(requests)
+    rows = []
+    for g in plan:
+        run = lambda g=g: engine._execute_group(g)  # noqa: E731
+        rows.append({"valid": g.valid, "dispatches": len(engine.group_order(g)),
+                     "ms": cuda_ms(run, reps=reps, warmup=1),
+                     "host_ms_per_dispatch": host_ms(run, reps=reps, warmup=1)
+                     / len(engine.group_order(g))})
+    i = max(range(len(plan)), key=lambda j: rows[j]["dispatches"] * plan[j].xs.shape[0])
+    trace = device_breakdown(lambda: engine._execute_group(plan[i]), rows[i]["ms"])
+    return {"groups": rows, "ms": sum(r["ms"] for r in rows),
+            "host_ms_per_dispatch": statistics.mean(r["host_ms_per_dispatch"] for r in rows),
+            "largest_group": i, "trace": trace}
+
+
+def mesh_timing(times, off_times) -> dict:
+    """The ``mesh`` line's timings: group ms on the mesh and off it, host ms
+    per dispatch, the largest group's device ms, busy share and top device
+    operations (nothing on the CPU)."""
+    if times is None:
+        return {}
+    return {
+        "groups": len(times["groups"]),
+        "group_ms": {"mesh": times["ms"], "off": off_times["ms"]},
+        "group_ms_ratio": times["ms"] / off_times["ms"],
+        "host_ms_per_dispatch": {"mesh": times["host_ms_per_dispatch"],
+                                 "off": off_times["host_ms_per_dispatch"]},
+        "largest_group_device_ms": {"mesh": times["trace"]["device_ms"],
+                                    "off": off_times["trace"]["device_ms"]},
+        "busy": {"mesh": times["trace"]["busy"], "off": off_times["trace"]["busy"]},
+        "top": {"mesh": times["trace"]["top"], "off": off_times["trace"]["top"]},
+    }
+
+
+def mesh_engine_phase(device: torch.device, mesh, recipe: dict) -> list:
+    """One engine's trace off the mesh and on it under each policy."""
+    from repro_torch.sharding.policy import POLICIES as SHARDING_POLICIES
+
+    label, tol, requests = f"mesh {recipe['label']} ", recipe["tol"], recipe["requests"]
+    program = recipe["build"]()
+    off = MultitaskEngine(program, hw=recipe["hw"], order=recipe["order"])
+    off_run = mesh_session(off, requests, device)
+    off_stats = off_run["session"]
+    check(off_stats.stats == off_stats.predicted, f"{label}off-mesh counters")
+    # Timed on the card only (CUDA events).
+    off_times = mesh_group_times(off, requests, device) if device.type == "cuda" else None
+    rows = []
+    for name in MESH_POLICIES:
+        t0 = time.perf_counter()
+        eng = MultitaskEngine(program, hw=recipe["hw"], order=recipe["order"],
+                              policy=EnginePolicy(mesh=mesh, sharding=SHARDING_POLICIES[name]))
+        check(eng.data_shards == 1 and eng.weight_shards == 1, f"{label}{name}: shard counts")
+        # Measure every dispatch's collectives (one calibration run each)
+        # before the launch counts are set to 0.
+        eng.predicted_group_stats(eng.plan_groups(requests))
+        run = mesh_session(eng, requests, device)
+        session = run["session"]
+        check(session.stats == session.predicted,
+              f"{label}{name}: counters {session.stats} != predicted {session.predicted}")
+        check(session.stats.collective_bytes == 0,
+              f"{label}{name}: {session.stats.collective_bytes} collective bytes on one device")
+        check(all(r.degraded is None for r in run["responses"]), f"{label}{name}: degraded")
+        check(run["launches"] == off_run["launches"],
+              f"{label}{name}: launches {run['launches']} != off the mesh {off_run['launches']}")
+        err = mesh_outputs_err(run["responses"], off_run["responses"], tol, f"{label}{name}: ")
+        times = mesh_group_times(eng, requests, device) if off_times else None
+        # The ladder: a group that fails twice on the mesh is served off it.
+        eng.fault_injector = FaultInjector(script=MESH_FAULTS, max_faults=2)
+        faulted = mesh_session(eng, requests, device,
+                               retry=RetryPolicy(max_retries=1, degrade=True))
+        eng.fault_injector = None
+        fs = faulted["session"]
+        rungs = [r.degraded for r in faulted["responses"]]
+        check(fs.degraded_runs == 1 and fs.groups_failed == 0,
+              f"{label}{name}: degraded runs {fs.degraded_runs}, failed {fs.groups_failed}")
+        check(set(rungs) == {"single_device", None} and rungs.count("single_device") >= 1,
+              f"{label}{name}: rungs {rungs}")
+        check(fs.stats == fs.predicted, f"{label}{name}: faulted counters")
+        check(fs.stats.collective_bytes == 0, f"{label}{name}: faulted collective bytes")
+        check(faulted["launches"] == off_run["launches"],
+              f"{label}{name}: faulted launches {faulted['launches']}")
+        fault_err = mesh_outputs_err(faulted["responses"], off_run["responses"], tol,
+                                     f"{label}{name} faulted: ")
+        row = {
+            "engine": recipe["label"], "policy": name, "mesh": [1, 1],
+            "requests": len(requests),
+            "session_s": {"mesh": run["seconds"], "off": off_run["seconds"]},
+            **mesh_timing(times, off_times),
+            "launches": run["launches"], "calibrations": eng.executor.calibrations,
+            "collective_bytes": session.stats.collective_bytes,
+            "max_abs_err": err, "faulted": {"rungs": rungs.count("single_device"),
+                                            "max_abs_err": fault_err},
+            "phase_s": time.perf_counter() - t0,
+        }
+        print(json.dumps({"mesh": row}), flush=True)
+        rows.append(row)
+        del eng, run, faulted
+        free_memory()
+    return rows
+
+
+def mesh_phase(device: torch.device, recipes) -> dict:
+    """Mesh-sharded serving on a (1, 1) ``DeviceMesh``: a world of one rank
+    (NCCL on the card, gloo on the CPU, a ``FileStore`` in a temporary
+    directory), each recipe's trace served off the mesh and then on it under
+    ``TP_POLICY`` and ``FSDP_TP_POLICY``.  One device issues no collective,
+    so the phase proves the placement, the kernels on local shards (as many
+    launches as off the mesh), the exact counters and the
+    ``single_device`` rung; the process group is destroyed before it
+    returns."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device=device.type)
+            for recipe in recipes:
+                out[recipe["label"]] = mesh_engine_phase(device, mesh, recipe)
+                free_memory()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def check_pipeline_launches(tf: dict, cfg, label: str) -> int:
     """A transformer pipeline's launches: flash twice per tapped block of
     each task in the profile (2 layers a block, 3 taps), Pearson once per
@@ -3215,6 +3412,14 @@ def main() -> int:
     reset_launch_counts()
     result = pipeline_phase(device)
     lenet_launches = launch_counts()
+    # The mesh phase serves this trace again at the end, from a rebuilt
+    # program (the same seed: the same weights).
+    mesh_recipes = [mesh_recipe(
+        result["engine"], result["requests"],
+        lambda g=result["engine"].program.graph: build_cnn_program(
+            g, [N_CLASSES] * N_TASKS, generator=torch.Generator().manual_seed(1),
+            device=device),
+        MSP430, PIPELINE_TOL, "lenet")]
     check(lenet_launches["pearson_gram"] == N_TASKS * N_BRANCH_POINTS,
           f"pearson kernel launched {lenet_launches['pearson_gram']} times on the LeNet "
           f"path, expected {N_TASKS * N_BRANCH_POINTS}")
@@ -3255,6 +3460,12 @@ def main() -> int:
     tf = transformer_pipeline_phase(device, cfg)
     prof, serve = tf["profile_launches"], tf["serve_launches"]
     layers_per_block = check_pipeline_launches(tf, cfg, "transformer")
+    mesh_recipes.append(mesh_recipe(
+        tf["engine"], tf["requests"],
+        lambda g=tf["engine"].program.graph, c=cfg: build_transformer_program(
+            g, c, [N_CLASSES] * N_TASKS, TF_SEQ,
+            generator=torch.Generator(device=device).manual_seed(1), device=device),
+        TPU_V5E, TF_TOL, ARCH))
     # The same engine and requests through sessions, then scripted faults.
     t0 = time.perf_counter()
     tf_sessions = session_phase(tf["engine"], tf["requests"], device, TF_TOL,
@@ -3374,6 +3585,14 @@ def main() -> int:
     print(json.dumps({"example_phases_seconds": time.perf_counter() - t1}), flush=True)
     pearson_guard_phase(device)
     print(json.dumps({"training_phases_seconds": time.perf_counter() - t0}), flush=True)
+
+    # Mesh-sharded serving of the LeNet-5 and mistral-nemo-12b traces on a
+    # (1, 1) mesh under both policies.
+    t0 = time.perf_counter()
+    mesh = mesh_phase(device, mesh_recipes)
+    mesh_flash = {f"mesh_{label}_{row['policy']}": row["launches"]["flash_attention"]
+                  for label, rows in mesh.items() for row in rows}
+    print(json.dumps({"mesh_phase_seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"smoke_seconds": time.perf_counter() - t_start}), flush=True)
 
     pearson_row = kernels["rows"][0]
@@ -3445,7 +3664,7 @@ def main() -> int:
                      + moe_prof["flash_attention"] + moe_serve["flash_attention"]
                      + sum(family_flash.values())
                      + launcher_whisper["launches"]["flash_attention"]
-                     + sum(train_flash.values())),
+                     + sum(train_flash.values()) + sum(mesh_flash.values())),
         "launches_by_path": {"transformer_profile": prof["flash_attention"],
                              "transformer_serve": serve["flash_attention"],
                              **{f"transformer_session_{name}": n
@@ -3460,7 +3679,7 @@ def main() -> int:
                              "moe_serve": moe_serve["flash_attention"],
                              **family_flash,
                              "whisper_launcher": launcher_whisper["launches"]["flash_attention"],
-                             **train_flash},
+                             **train_flash, **mesh_flash},
         "max_abs_err": flash["max_abs_err"],
         "ms": flash_row["kernel_ms"],
         "plain_ms": flash_row["plain_ms"],

@@ -10,9 +10,9 @@ realized ``gate_trace``), the weight-streaming terms (:meth:`plan_loads`,
 (:meth:`plan_checkpoints` and the write costs it places), and the
 adaptive-gating terms: a trace's per-block fire counts, and the *expected*
 counters under a gate model (:meth:`expected_stats`,
-:attr:`PlanPredictor.expected`).  The reference's
-collective terms and its ``weight_shards`` divisor wait for the mesh slice;
-the :class:`~repro_torch.core.types.ExecutionStats` fields they fill stay.
+:attr:`PlanPredictor.expected`); and the mesh terms: the per-dispatch
+collective bytes of a :class:`CollectiveCosts` source (``collectives=``)
+and the ``weight_shards`` divisor of the load terms.
 
 The cost matrix ``C`` has ``c[i, j]`` = additional cost of loading and
 executing task ``j`` given that task ``i`` just ran: the blocks on ``j``'s
@@ -31,7 +31,7 @@ costs 1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 
@@ -53,6 +53,11 @@ class GraphCostModel:
       hw: platform; ``None`` means abstract unit costs (1 load + 1 exec per
         block, as in the paper's Figure 4 walkthrough).
       metric: ``"time"`` or ``"energy"`` (paper evaluates both).
+      weight_shards: how many ways block weights are sharded over a device
+        mesh (``ShardingPolicy.weight_shards``): every load term divides by
+        it — each device streams only its slice — so the ordering solvers
+        minimize the *sharded* schedule cost.  ``1`` (one device) is the
+        unsharded model exactly.
       gate_model: optional object with ``task_probability(task)`` and
         ``fire_probability(task, depth)`` — the default for the
         ``expected_*`` methods.  ``None`` makes them degenerate to the
@@ -63,6 +68,7 @@ class GraphCostModel:
     block_costs: Sequence[BlockCost]
     hw: Optional[HardwareModel] = None
     metric: str = "time"
+    weight_shards: int = 1
     gate_model: Optional[Any] = None
 
     def block_cost(self, depth: int) -> float:
@@ -92,8 +98,11 @@ class GraphCostModel:
             return 1.0  # the Figure-4 unit-load convention
         bc = self.block_costs[depth]
         if self.metric == "energy":
-            return self.hw.energy_joules(0.0, 2.0 * bc.weight_bytes)
-        return bc.load_seconds(self.hw)
+            return (
+                self.hw.energy_joules(0.0, 2.0 * bc.weight_bytes)
+                / max(self.weight_shards, 1)
+            )
+        return bc.load_seconds(self.hw) / max(self.weight_shards, 1)
 
     def switching_cost(self, prev: int, nxt: int) -> float:
         """``c[prev, nxt]``: cost of the non-shared suffix of ``nxt``."""
@@ -229,6 +238,7 @@ class GraphCostModel:
         gate_trace: Optional[Sequence[TaskGateRecord]] = None,
         first_task_resume: int = 0,
         gate_model: Optional[Any] = None,
+        collectives: Optional["CollectiveCosts"] = None,
     ) -> None:
         """One group's counter prediction, mutating ``resident``/``stats``.
 
@@ -269,6 +279,12 @@ class GraphCostModel:
         are physical whether or not rows fire.  For pure per-block gating
         (every task runs) the expected counters are the exact mean of the
         realized ones by linearity.
+
+        ``collectives`` (``TaskGraphExecutor.collective_view``) adds the
+        mesh collective bytes of each task's suffix dispatch: the executor
+        resumes task ``t`` at the shared-prefix depth with its predecessor,
+        so the per-``(task, resume)`` measured breakdown lands on the same
+        counters the executor reports — exact by construction.
         """
         if gate_trace is not None and gate_model is not None:
             raise ValueError("gate_trace and gate_model are mutually exclusive")
@@ -364,6 +380,8 @@ class GraphCostModel:
                 stats.tasks_run += w
                 if rec is not None:
                     stats.tasks_skipped += batch_size - w
+            if collectives is not None:
+                stats.add_collectives(collectives.breakdown(t, shared))
             prev = t
 
     def predicted_stats(
@@ -374,6 +392,7 @@ class GraphCostModel:
         gate_trace: Optional[Sequence[TaskGateRecord]] = None,
         first_task_resume: int = 0,
         checkpoints: Optional[Sequence["CheckpointSite"]] = None,
+        collectives: Optional["CollectiveCosts"] = None,
     ) -> ExecutionStats:
         """Counter-level prediction the executor must match exactly.
 
@@ -396,7 +415,9 @@ class GraphCostModel:
         task resumes from a restored activation checkpoint at that depth;
         ``checkpoints`` (a :meth:`plan_checkpoints` plan) adds the group's
         checkpoint-write counters, which the journaling engine accounts
-        from the *same* plan — exact by construction.
+        from the *same* plan — exact by construction.  ``collectives`` is
+        the executor's per-dispatch collective-byte view for the group's
+        (padded) batch shape; see :meth:`_predict_into`.
         """
         resident: List[Optional[NodeId]] = (
             list(resume) if resume is not None else [None] * self.graph.depth
@@ -408,7 +429,7 @@ class GraphCostModel:
         stats = ExecutionStats()
         self._predict_into(
             order, batch_size, resident, stats, gate_trace,
-            first_task_resume=first_task_resume,
+            first_task_resume=first_task_resume, collectives=collectives,
         )
         for site in checkpoints or ():
             stats.checkpoint_bytes += site.bytes
@@ -423,6 +444,7 @@ class GraphCostModel:
         first_task_resume: int = 0,
         checkpoints: Optional[Sequence["CheckpointSite"]] = None,
         gate_model: Optional[Any] = None,
+        collectives: Optional["CollectiveCosts"] = None,
     ) -> ExecutionStats:
         """*Expected* counters under a gate model (defaults to this model's
         :attr:`gate_model`).
@@ -446,6 +468,7 @@ class GraphCostModel:
         self._predict_into(
             order, batch_size, resident, stats,
             first_task_resume=first_task_resume, gate_model=gm,
+            collectives=collectives,
         )
         for site in checkpoints or ():
             stats.checkpoint_bytes += site.bytes
@@ -713,6 +736,7 @@ class PlanPredictor:
         first_task_resume: int = 0,
         checkpoints: Optional[Sequence[CheckpointSite]] = None,
         gate_model: Optional[Any] = None,
+        collectives: Optional["CollectiveCosts"] = None,
     ) -> ExecutionStats:
         """Account one more admitted group; returns that group's delta.
 
@@ -732,7 +756,9 @@ class PlanPredictor:
 
         ``gate_model`` (defaults to the model's own) drives the parallel
         ``expected`` accumulator's delta — both walks run every append so
-        the two residency tracks stay consistent.
+        the two residency tracks stay consistent.  ``collectives`` adds the
+        mesh collective bytes of this group's dispatches (see
+        :meth:`GraphCostModel.predicted_stats`).
         """
         if not self.carry_residency:
             self._resident = [None] * self.model.graph.depth
@@ -740,10 +766,12 @@ class PlanPredictor:
         gm = gate_model if gate_model is not None else self.model.gate_model
         delta = self._delta(
             order, batch_size, self._resident, overlap_seconds,
-            first_task_resume, checkpoints, gate_trace=gate_trace)
+            first_task_resume, checkpoints, gate_trace=gate_trace,
+            collectives=collectives)
         exp_delta = self._delta(
             order, batch_size, self._exp_resident, overlap_seconds,
-            first_task_resume, checkpoints, gate_model=gm)
+            first_task_resume, checkpoints, gate_model=gm,
+            collectives=collectives)
         delta.tasks_skipped += int(extra_tasks_skipped)
         exp_delta.tasks_skipped += int(extra_tasks_skipped)
         self.stats = self.stats.merge(delta)
@@ -761,6 +789,7 @@ class PlanPredictor:
         checkpoints: Optional[Sequence[CheckpointSite]],
         gate_trace: Optional[Sequence[TaskGateRecord]] = None,
         gate_model: Optional[Any] = None,
+        collectives: Optional["CollectiveCosts"] = None,
     ) -> ExecutionStats:
         """One group's delta over the residency track ``resident`` (advanced
         in place): realized under ``gate_trace``, expected under
@@ -774,6 +803,7 @@ class PlanPredictor:
         self.model._predict_into(
             order, int(batch_size), resident, delta, gate_trace,
             first_task_resume=first_task_resume, gate_model=gate_model,
+            collectives=collectives,
         )
         for site in checkpoints or ():
             delta.checkpoint_bytes += site.bytes
@@ -787,3 +817,16 @@ class PlanPredictor:
             )
         return delta
 
+
+
+class CollectiveCosts(Protocol):
+    """Per-dispatch collective-byte source for counter predictions.
+
+    ``breakdown(task, resume)`` returns the per-kind collective bytes (the
+    reference's kind names -> bytes) of the suffix dispatch that runs
+    ``task`` resuming at depth ``resume`` —
+    ``TaskGraphExecutor.collective_view`` is the measured implementation.
+    """
+
+    def breakdown(self, task: int, resume: int) -> Dict[str, float]:
+        ...

@@ -62,11 +62,26 @@ host in one copy after its dispatches (one device sync per task, as the
 reference's readback), and the realized counts split each executed block's
 flops into fired and gated rows.
 
-Left for a later slice: the mesh path and its collective calibration.
+Mesh-sharded execution (``mesh=``, a ``DeviceMesh`` of the default process
+group; every rank runs the same program in lockstep): parameters are placed
+as ``DTensor``s by the sharding policy (``ShardingPolicy.param_spec``
+fitted to the mesh; each rank keeps its own slice of the full tensors every
+rank built from one seed, so placing issues no collective), each suffix
+input is committed to the batch layout, and every block's output (and the
+head's) is redistributed to it inside the fused suffix — the reference's
+activation constraint.  ``DTensor`` inserts the collectives the layouts
+need; plain tensors a block makes (positions, masks) count as replicated.
+A dispatch's per-kind collective bytes come from one calibration run of the
+same fused suffix on zeros of its input's shape, under a
+:class:`~repro_torch.sharding.collectives.CollectiveRecorder`, cached under
+the reference's key: the one dict both the counters and the cost model's
+prediction (:meth:`TaskGraphExecutor.collective_view`) add.  Outputs and
+fire masks come back as full tensors after each dispatch.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import (
@@ -81,6 +96,9 @@ from repro_torch.core.task_graph import TaskGraph
 from repro_torch.core.types import (
     BlockCost, ExecutionStats, NodeId, TaskGateRecord,
 )
+from repro_torch.sharding.collectives import CollectiveRecorder
+from repro_torch.sharding.policy import P, ShardingPolicy, TP_POLICY
+from repro_torch.sharding.utils import fit_spec, place, placements
 
 # What residency_state returns and what GraphCostModel.predicted_stats
 # accepts as ``resume``.
@@ -153,6 +171,12 @@ def _row_batched(fn: Callable) -> Callable:
     return batched
 
 
+def _is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
 def _gate_bcast(fire: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Reshape a per-row ``(B,)`` fire mask to broadcast against ``y``
     (``(B, ...)``) inside ``torch.where``; scalar masks broadcast as-is."""
@@ -210,15 +234,19 @@ def _masked_blocks(
     conf_fn: Callable,
     early: bool,
     batched: bool,
+    cst: Optional[Callable] = None,
 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Run ``fns`` over ``h``, each block gated per row (:func:`_gate_block`
-    with ``thrs[i]``).  Returns the per-depth activations and the fire
-    masks."""
+    with ``thrs[i]``) and its output then passed through ``cst`` (the mesh's
+    batch-layout constraint) when given.  Returns the per-depth activations
+    and the fire masks."""
     alive = _all_alive(h, batched)
     acts: List[torch.Tensor] = []
     fired: List[torch.Tensor] = []
     for i, (f, p) in enumerate(zip(fns, params_tuple)):
         h, fire, alive = _gate_block(f(p, h), h, alive, thrs[i], conf_fn, early)
+        if cst is not None:
+            h = cst(h)
         acts.append(h)
         fired.append(fire)
     return acts, _stack_fired(fired, alive)
@@ -482,6 +510,16 @@ class TaskGraphExecutor:
       program: the bound multitask program.
       fused: execute each non-shared suffix as one fused program (default);
         ``False`` selects the per-block reference dispatch path.
+      mesh: optional ``DeviceMesh`` for sharded execution: the batch
+        dimension shards over the policy's batch axes, parameters over its
+        ``model``/``fsdp`` axes (``ShardingPolicy.param_spec``), and
+        activations are redistributed to the batch layout after every block
+        of a fused suffix — so the executed suffix is the one the
+        collective calibration measures.  Requires the fused path.  Placed
+        parameters bypass the weight streamer's committed copies (the
+        values are the same; the counters do not change).
+      sharding: logical->physical axis policy; defaults to ``TP_POLICY``
+        when a mesh is given.
       gater: optional :class:`~repro_torch.adaptive.gating.BlockGater`
         making execution input-conditional: shape-preserving blocks of every
         dispatched suffix keep their output only for the batch rows whose
@@ -497,10 +535,31 @@ class TaskGraphExecutor:
         program: MultitaskProgram,
         fused: bool = True,
         gater: Optional[Any] = None,
+        mesh: Optional[Any] = None,
+        sharding: Optional[ShardingPolicy] = None,
     ):
         self.program = program
         self._fused = fused
         self.gater = gater
+        if mesh is not None and not fused:
+            raise ValueError(
+                "mesh-sharded execution requires the fused dispatch path "
+                "(fused=True)"
+            )
+        self.mesh = mesh
+        self.sharding: Optional[ShardingPolicy] = (
+            sharding if sharding is not None
+            else (TP_POLICY if mesh is not None else None)
+        )
+        # Mesh-placed parameter copies (input-independent; survive reset).
+        self._placed_node: Dict[NodeId, Any] = {}
+        self._placed_head: Dict[int, Any] = {}
+        # Calibration caches: suffix-input shapes, and the per-kind
+        # collective bytes each suffix dispatch adds to the counters.
+        self._suffix_in: Dict[Tuple, Tuple[Tuple[int, ...], torch.dtype]] = {}
+        self._coll_bytes: Dict[Tuple, Dict[str, float]] = {}
+        #: calibration runs made (one per new collective-cache key).
+        self.calibrations = 0
         # (task, resume, batched, x_shape, x_dtype, gate key) -> (callable,
         # mode); mode is "scan" (one fn over a homogeneous suffix) or
         # "unrolled".
@@ -545,20 +604,39 @@ class TaskGraphExecutor:
 
     def _confidence(self, batched: bool) -> Callable:
         """The gater's row confidence over a group (``torch.vmap`` over the
-        request axis, the reference's ``jax.vmap``) or one request."""
+        request axis, the reference's ``jax.vmap``) or one request.  On a
+        mesh it runs per rank on the local rows of the batch layout."""
         fn = self.gater.confidence_fn
-        return torch.vmap(fn) if batched else fn
+        fn = torch.vmap(fn) if batched else fn
+        if self.mesh is None:
+            return fn
+        from torch.distributed.tensor.experimental import local_map
+
+        def conf(h: Any) -> Any:
+            layout = placements(self._batch_spec(tuple(h.shape), batched), self.mesh)
+            return local_map(
+                fn, out_placements=[*layout], in_placements=(layout,),
+                device_mesh=self.mesh, redistribute_inputs=True,
+            )(h)
+
+        return conf
 
     @property
     def fused(self) -> bool:
         """Whether suffixes dispatch as single fused programs (vs. the
         per-block reference path).  Settable at any point between tasks —
         both paths produce identical counters and (allclose-)identical
-        outputs."""
+        outputs.  Mesh-sharded executors require the fused path and reject
+        ``False``."""
         return self._fused
 
     @fused.setter
     def fused(self, value: bool) -> None:
+        if not value and self.mesh is not None:
+            raise ValueError(
+                "mesh-sharded execution requires the fused dispatch path; "
+                "cannot set fused=False on a mesh executor"
+            )
         self._fused = bool(value)
 
     # ---------------------------------------------------------------- state
@@ -663,13 +741,67 @@ class TaskGraphExecutor:
         fn = self.program.head_fns[task]
         return _row_batched(fn) if batched else fn
 
-    # -------------------------------------------------------- fused suffix
+    # ------------------------------------------------------ mesh placement
+    def _place_param_leaf(self, leaf: torch.Tensor) -> Any:
+        """One parameter leaf as a ``DTensor`` in its policy layout."""
+        shape = tuple(leaf.shape)
+        spec = fit_spec(shape, self.sharding.param_spec(shape), self.mesh)
+        return place(leaf, spec, self.mesh)
+
     def _node_param(self, node: NodeId) -> Any:
-        """A node's params: its committed streamed copy, if one exists."""
-        streamed = self._streamed_node.get(node)
-        if streamed is not None:
-            return streamed
-        return self.program.node_params[node]
+        """A node's params: placed on a mesh, else its committed streamed
+        copy if one exists."""
+        if self.mesh is None:
+            streamed = self._streamed_node.get(node)
+            if streamed is not None:
+                return streamed
+            return self.program.node_params[node]
+        if node not in self._placed_node:
+            self._placed_node[node] = tree_map(
+                self._place_param_leaf, self.program.node_params[node])
+        return self._placed_node[node]
+
+    def _head_param(self, task: int) -> Any:
+        if self.mesh is None:
+            return self.program.head_params[task]
+        if task not in self._placed_head:
+            self._placed_head[task] = tree_map(
+                self._place_param_leaf, self.program.head_params[task])
+        return self._placed_head[task]
+
+    def _batch_spec(self, shape: Tuple[int, ...], batched: bool) -> P:
+        """The fitted spec of a batch-leading tensor (replicated when the
+        tensor carries no batch axis, i.e. the single-request path)."""
+        spec = P(self.sharding.physical("batch")) if batched else P()
+        return fit_spec(shape, spec, self.mesh)
+
+    def _commit(self, h: Any, batched: bool) -> Any:
+        """``h`` in the batch layout: a plain tensor is placed (no
+        collective), a ``DTensor`` redistributed (a no-op for activations
+        the fused suffix already constrained)."""
+        spec = self._batch_spec(tuple(h.shape), batched)
+        if isinstance(h, torch.Tensor) and not _is_dtensor(h):
+            return place(h, spec, self.mesh)
+        return h.redistribute(self.mesh, placements(spec, self.mesh))
+
+    def _act_constrainer(self, batched: bool) -> Optional[Callable]:
+        """Redistribution pinning activations to the batch layout inside
+        fused suffixes, so the executed suffix equals the calibrated one and
+        cached activations never reshard on re-entry."""
+        if self.mesh is None or not batched:
+            return None
+        return lambda y: self._commit(y, batched=True)
+
+    def _on_mesh(self):
+        """The context a mesh dispatch runs in: plain tensors a block makes
+        (positions, masks, thresholds) count as replicated."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        return implicit_replication()
+
+    # -------------------------------------------------------- fused suffix
 
     def _suffix_params(self, task: int, resume: int) -> Tuple[Any, ...]:
         return self._segment_params(task, resume, self.program.graph.depth)
@@ -677,6 +809,12 @@ class TaskGraphExecutor:
     def _segment_params(self, task: int, start: int, stop: int) -> Tuple[Any, ...]:
         path = self.program.graph.path(task)
         return tuple(self._node_param(path[d]) for d in range(start, stop))
+
+    def _plain_params(self, task: int, start: int, stop: int) -> Tuple[Any, ...]:
+        """The program's own (unplaced) params of blocks ``start .. stop-1``
+        of ``task``'s path: what shape probes run on."""
+        path = self.program.graph.path(task)
+        return tuple(self.program.node_params[path[d]] for d in range(start, stop))
 
     def _mode(self, suffix: Sequence[int], params: Sequence[Any],
               batched: bool, shape: Tuple[int, ...], dtype: torch.dtype) -> str:
@@ -721,7 +859,8 @@ class TaskGraphExecutor:
         fns = [self._block_fn(d, batched) for d in suffix]
         head = self._head_fn(task, batched)
         mode = self._mode(
-            suffix, self._suffix_params(task, resume), batched, shape, dtype)
+            suffix, self._plain_params(task, resume, depth), batched, shape, dtype)
+        cst = self._act_constrainer(batched) or (lambda y: y)
 
         if self.gater is not None:
             conf_fn = self._confidence(batched)
@@ -729,8 +868,8 @@ class TaskGraphExecutor:
 
             def fused(params_tuple, thrs, head_p, h):
                 acts, fired = _masked_blocks(
-                    fns, params_tuple, thrs, h, conf_fn, early, batched)
-                return acts, head(head_p, acts[-1] if acts else h), fired
+                    fns, params_tuple, thrs, h, conf_fn, early, batched, cst)
+                return acts, cst(head(head_p, acts[-1] if acts else h)), fired
 
         elif mode == "scan":
             step_fn = fns[0]
@@ -738,18 +877,18 @@ class TaskGraphExecutor:
             def fused(params_tuple, head_p, h):
                 acts = []
                 for p in params_tuple:
-                    h = step_fn(p, h)
+                    h = cst(step_fn(p, h))
                     acts.append(h)
-                return acts, head(head_p, h)
+                return acts, cst(head(head_p, h))
 
         else:
 
             def fused(params_tuple, head_p, h):
                 acts = []
                 for f, p in zip(fns, params_tuple):
-                    h = f(p, h)
+                    h = cst(f(p, h))
                     acts.append(h)
-                return acts, head(head_p, h)
+                return acts, cst(head(head_p, h))
 
         self._compiled_fused[key] = (fused, mode)
         return fused, mode
@@ -783,7 +922,7 @@ class TaskGraphExecutor:
         graph = self.program.graph
         fn, _mode = self._fused_fn(task, resume, batched, tuple(h.shape), h.dtype)
         params = self._suffix_params(task, resume)
-        head_p = self.program.head_params[task]
+        head_p = self._head_param(task)
         if self.gater is not None:
             acts, out, fired = fn(
                 params, self._suffix_thresholds(resume, graph.depth, h.device),
@@ -831,7 +970,8 @@ class TaskGraphExecutor:
         segment = list(range(start, stop))
         fns = [self._block_fn(d, batched) for d in segment]
         mode = self._mode(
-            segment, self._segment_params(task, start, stop), batched, shape, dtype)
+            segment, self._plain_params(task, start, stop), batched, shape, dtype)
+        cst = self._act_constrainer(batched) or (lambda y: y)
 
         if self.gater is not None:
             conf_fn = self._confidence(batched)
@@ -839,7 +979,7 @@ class TaskGraphExecutor:
 
             def seg(params_tuple, thrs, h):
                 return _masked_blocks(
-                    fns, params_tuple, thrs, h, conf_fn, early, batched)
+                    fns, params_tuple, thrs, h, conf_fn, early, batched, cst)
 
         elif mode == "scan":
             step_fn = fns[0]
@@ -847,7 +987,7 @@ class TaskGraphExecutor:
             def seg(params_tuple, h):
                 acts = []
                 for p in params_tuple:
-                    h = step_fn(p, h)
+                    h = cst(step_fn(p, h))
                     acts.append(h)
                 return acts
 
@@ -856,7 +996,7 @@ class TaskGraphExecutor:
             def seg(params_tuple, h):
                 acts = []
                 for f, p in zip(fns, params_tuple):
-                    h = f(p, h)
+                    h = cst(f(p, h))
                     acts.append(h)
                 return acts
 
@@ -945,7 +1085,7 @@ class TaskGraphExecutor:
                 checkpoint_hook(d)
         if gated:
             self._fired_frags.append((resume, _stack_fired(fired, alive)))
-        out = self._head_fn(task, batched)(self.program.head_params[task], h)
+        out = self._head_fn(task, batched)(self._head_param(task), h)
         self.dispatch_count += 1
         return out
 
@@ -1028,15 +1168,26 @@ class TaskGraphExecutor:
         stats.tasks_run += weight
 
         h = self._activations[resume - 1] if resume > 0 else x
-        if self._fused:
-            if checkpoint_depths:
-                out = self._run_suffix_segmented(
-                    task, resume, h, batched, checkpoint_depths, checkpoint_hook)
+        if self.mesh is not None:
+            # Commit the suffix input to the batch layout (a no-op for
+            # cached activations, which the fused suffix already
+            # constrained) and account this dispatch's measured collective
+            # traffic — physical, once per dispatch, like the load counters.
+            h = self._commit(h, batched)
+            stats.add_collectives(self.suffix_collective_bytes(
+                task, resume, tuple(h.shape), h.dtype, batched))
+        with self._on_mesh():
+            if self._fused:
+                if checkpoint_depths:
+                    out = self._run_suffix_segmented(
+                        task, resume, h, batched, checkpoint_depths, checkpoint_hook)
+                else:
+                    out = self._run_suffix_fused(task, resume, h, batched)
             else:
-                out = self._run_suffix_fused(task, resume, h, batched)
-        else:
-            out = self._run_suffix_blocks(
-                task, resume, h, batched, checkpoint_depths, checkpoint_hook)
+                out = self._run_suffix_blocks(
+                    task, resume, h, batched, checkpoint_depths, checkpoint_hook)
+        if _is_dtensor(out):
+            out = out.full_tensor()
         if gated:
             fired_rows = self._collect_fired(weight, batched, row_mask)
             if len(fired_rows) != len(executed_costs):
@@ -1070,7 +1221,8 @@ class TaskGraphExecutor:
         the first ``weight`` rows (the scheduler pads at the tail), else the
         whole single request.
         """
-        frags = [f for _start, f in self._fired_frags if f.shape[0]]
+        frags = [f.full_tensor() if _is_dtensor(f) else f
+                 for _start, f in self._fired_frags if f.shape[0]]
         if not frags:
             return []
         t0 = time.perf_counter()
@@ -1196,6 +1348,142 @@ class TaskGraphExecutor:
             results[t] = self.run_task_batch(t, xs, stats, weight=v)
             self.last_trace.append(self.last_gate_record)
         return results, stats
+
+    # ------------------------------------------- collective calibration
+    def _suffix_input(
+        self,
+        task: int,
+        resume: int,
+        x_shape: Tuple[int, ...],
+        dtype: torch.dtype,
+        batched: bool,
+    ) -> Tuple[Tuple[int, ...], torch.dtype]:
+        """Shape and dtype of the fused suffix's input given the group input.
+
+        For ``resume > 0`` the suffix consumes the cached activation at
+        depth ``resume - 1``: blocks ``0 .. resume-1`` of the task's own
+        path run on meta tensors (the reference's ``jax.eval_shape``; a
+        shared prefix runs the same depth fns, so the shapes match whichever
+        task produced the cache).  A prefix that cannot run on meta tensors
+        (flash attention refuses them) runs once on zeros with the
+        program's own parameters instead — off the mesh, so it issues no
+        collective.
+        """
+        key = (task, resume, tuple(x_shape), dtype, batched)
+        if key not in self._suffix_in:
+            path = self.program.graph.path(task)
+            spec: Optional[Tuple[Tuple[int, ...], torch.dtype]] = (tuple(x_shape), dtype)
+            for d in range(resume):
+                spec = _probe_output(
+                    self._block_fn(d, batched), self.program.node_params[path[d]],
+                    *spec)
+                if spec is None:
+                    break
+            if spec is None:
+                h = torch.zeros(x_shape, dtype=dtype, device=self.program.device)
+                for d in range(resume):
+                    h = self._block_fn(d, batched)(self.program.node_params[path[d]], h)
+                spec = (tuple(h.shape), h.dtype)
+            self._suffix_in[key] = spec
+        return self._suffix_in[key]
+
+    def _run_calibration(
+        self,
+        task: int,
+        resume: int,
+        shape: Tuple[int, ...],
+        dtype: torch.dtype,
+        batched: bool,
+    ) -> Any:
+        """Run the fused suffix that dispatches ``task`` from ``resume`` on
+        zeros of its input's shape, committed to the batch layout, with the
+        placed parameters — the program the dispatch runs — and return its
+        outputs.  Residency, activations, gate records and counters are
+        untouched; every rank runs it in lockstep, as every rank runs the
+        same session."""
+        fn, _mode = self._fused_fn(task, resume, batched, tuple(shape), dtype)
+        h = self._commit(
+            torch.zeros(shape, dtype=dtype, device=self.program.device), batched)
+        params = self._suffix_params(task, resume)
+        with self._on_mesh():
+            if self.gater is not None:
+                thrs = self._suffix_thresholds(
+                    resume, self.program.graph.depth, self.program.device)
+                return fn(params, thrs, self._head_param(task), h)
+            return fn(params, self._head_param(task), h)
+
+    def suffix_trace(
+        self, task: int, resume: int, xs: Any, batched: bool = True
+    ) -> Any:
+        """Re-run the dispatch of ``task`` from depth ``resume`` for group
+        input ``xs`` (the calibration run, without the recorder): the hook
+        a test uses to measure that dispatch's collectives on its own."""
+        shape, dtype = self._suffix_input(
+            task, resume, tuple(xs.shape), xs.dtype, batched)
+        return self._run_calibration(task, resume, shape, dtype, batched)
+
+    def suffix_collective_bytes(
+        self,
+        task: int,
+        resume: int,
+        shape: Tuple[int, ...],
+        dtype: torch.dtype,
+        batched: bool = True,
+    ) -> Dict[str, float]:
+        """Measured per-kind collective bytes of one suffix dispatch.
+
+        ``shape``/``dtype`` describe the suffix *input* (the activation at
+        ``resume - 1``, or the group input when ``resume == 0``).  Cached per
+        key — the one source both the executor's counters and the cost
+        model's predictions add from, which is what makes
+        ``session.stats == session.predicted`` exact on a mesh.
+        """
+        shape = tuple(shape)
+        key = (task, resume, batched, shape, dtype, self._gate_key())
+        if key not in self._coll_bytes:
+            with CollectiveRecorder() as rec:
+                self._run_calibration(task, resume, shape, dtype, batched)
+            self.calibrations += 1
+            self._coll_bytes[key] = rec.breakdown()
+        return self._coll_bytes[key]
+
+    def collective_view(
+        self, xs: Any, batched: bool = True
+    ) -> Optional["CollectiveView"]:
+        """A :class:`CollectiveView` bound to group input ``xs``, for
+        ``GraphCostModel.predicted_stats(..., collectives=view)``; ``None``
+        without a mesh (one-device programs have no collectives)."""
+        if self.mesh is None:
+            return None
+        return CollectiveView(self, tuple(xs.shape), xs.dtype, batched)
+
+
+class CollectiveView:
+    """Per-(task, resume) measured collective bytes for one batch shape.
+
+    The ``CollectiveCosts`` implementation the cost model consumes: bound to
+    a group's (padded) input shape, it resolves each ``(task, resume)`` to
+    the suffix input's shape and returns the executor's cached breakdown —
+    the exact dict execution adds.
+    """
+
+    def __init__(
+        self,
+        executor: TaskGraphExecutor,
+        x_shape: Tuple[int, ...],
+        dtype: torch.dtype,
+        batched: bool = True,
+    ):
+        self._executor = executor
+        self._x_shape = tuple(x_shape)
+        self._dtype = dtype
+        self._batched = bool(batched)
+
+    def breakdown(self, task: int, resume: int) -> Dict[str, float]:
+        shape, dtype = self._executor._suffix_input(
+            task, resume, self._x_shape, self._dtype, self._batched)
+        return self._executor.suffix_collective_bytes(
+            task, resume, shape, dtype, self._batched)
 
 
 class VanillaExecutor:

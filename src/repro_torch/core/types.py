@@ -140,9 +140,9 @@ class ExecutionStats:
     tests assert the two agree.
 
     The ``*_collective_bytes`` counters are the per-kind inter-chip traffic
-    of mesh-sharded execution, calibrated per fused-suffix dispatch from the
-    lowered HLO in the reference; they stay zero on single-device engines
-    (the only kind the port has so far).  Flat floats (not a dict) so
+    of mesh-sharded execution, measured per fused-suffix dispatch (the
+    reference calibrates them from the lowered HLO); they stay zero on
+    single-device engines and on a mesh of one device.  Flat floats (not a dict) so
     ``dataclasses.replace`` copies — handed to every response in a group —
     never share mutable state.
     """

@@ -8,7 +8,10 @@ CUDA tensors it launches the hand-written kernel in
 ``repro/kernels/flash_attention.py::flash_attention`` and the ``jnp.repeat``
 of its GQA wrapper.  On CPU tensors it runs the plain version,
 :func:`~repro_torch.kernels.ref.flash_attention_ref`; there is no other
-route.
+route.  A mesh engine's ``DTensor`` q, k and v reach the kernel through
+:func:`repro_torch.kernels.ops.flash_attention_bhsd`, whose ``local_map``
+launches it once per rank on that rank's batch rows and heads (each
+launch counted once).
 
 Bound on an H100: 4 * (allowed query-key pairs) * d operations per head
 against q, k, v and o moved once — at the main paths' shapes (S = 128 or 512,

@@ -37,11 +37,50 @@ def flash_attention_bhsd(
     ``q`` (B, S, Hq, d), ``k``/``v`` (B, T, Hk, d) with Hq a multiple of
     Hk; returns (B, S, Hq, d) in ``q``'s dtype.  A CUDA input launches the
     flash-attention kernel, which reads the KV head of each query head in
-    place; a CPU input runs the plain version.
+    place; a CPU input runs the plain version.  ``DTensor`` inputs (a mesh
+    engine's activations) run per rank on the local batch rows and heads
+    (:func:`_flash_on_mesh`).
     """
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(q, DTensor):
+        return _flash_on_mesh(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_bhsd_ref(q, k, v, causal=causal, window=window)
     return flash_attention_bhsd_kernel(q, k, v, causal=causal, window=window)
+
+
+def _flash_on_mesh(q, k, v, causal: bool, window: Optional[int]):
+    """Flash attention of ``DTensor`` q, k, v through ``local_map``.
+
+    Every mesh dimension over which ``q`` shards its batch keeps it sharded;
+    each other dimension splits the query and KV heads alike where both
+    divide (so each rank's query heads read its own KV heads), and
+    replicates them otherwise.  The inputs are redistributed to that layout
+    and each rank attends over its local rows and heads: the kernel on CUDA
+    (one launch per rank, counted once in ``flash_attention.launches``),
+    the plain version on the CPU.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    hq, hk = q.shape[2], k.shape[2]
+    layout, split = [], 1
+    for mdim, pl in enumerate(q.placements):
+        n = mesh.size(mdim)
+        if pl == Shard(0):
+            layout.append(Shard(0))
+        elif hq % (split * n) == 0 and hk % (split * n) == 0:
+            split *= n
+            layout.append(Shard(2))
+        else:
+            layout.append(Replicate())
+    return local_map(
+        lambda a, b, c: flash_attention_bhsd(a, b, c, causal=causal, window=window),
+        out_placements=[*layout], in_placements=(layout, layout, layout),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(q, k, v)
 
 
 def ssd_scan(

@@ -9,8 +9,8 @@ enc-dec family, (batch, prompt-len, enc_inputs) normal frontend features
 from the same numpy generator, as the reference's launcher makes them), one
 ``LMServer.generate``; prints the tokens per second, timed after a CUDA
 synchronise, and a sample.  Runs on ``cuda`` unless ``--device`` names
-another.  The reference's mesh options have no counterpart here: one
-device.
+another.  The reference's mesh options come with the next slice
+(ROADMAP item 9b): this launcher serves on one device.
 """
 from __future__ import annotations
 

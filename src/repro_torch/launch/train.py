@@ -13,8 +13,8 @@ family, (batch, seq, enc_inputs) normal features drawn from
 ``step … loss … lr … gnorm`` line every 10 steps and at the last, then the
 step time and tokens per second (after a CUDA synchronise), and saves
 ``{"params": ...}`` to ``--ckpt``.  Runs on ``cuda`` unless ``--device``
-names another.  One device: the reference's production mesh has no
-counterpart here.
+names another.  One device: the reference's production mesh comes with
+the next slice (ROADMAP item 9b).
 """
 from __future__ import annotations
 
@@ -52,10 +52,12 @@ def main(argv: Optional[Sequence[str]] = None, params: Any = None) -> Dict[str, 
     ap.add_argument("--ckpt", default=None, help="checkpoint path to save")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the reference's 16x16 mesh: not ported (one device)")
+                    help="the reference's 16x16 mesh: next slice (ROADMAP item 9b)")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        raise NotImplementedError("the port runs on one device: no production mesh yet")
+        raise NotImplementedError(
+            "--production-mesh: training on a mesh comes with the next slice "
+            "(ROADMAP item 9b); this launcher trains on one device")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = resolve_device(args.device)

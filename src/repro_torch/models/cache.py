@@ -6,7 +6,7 @@ A sliding-window config keeps a ring buffer of ``window`` slots, which is
 what makes long-context decode feasible for SWA architectures (the cache is
 O(window), not O(seq)).  Where the reference describes a cache abstractly
 with ``ShapeDtypeStruct``s, the port uses tensors on the ``meta`` device.
-The sharding specs come with the mesh.
+The sharding specs come with the next slice (ROADMAP item 9b).
 """
 from __future__ import annotations
 

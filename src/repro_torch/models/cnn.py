@@ -25,13 +25,61 @@ BlockApply = Callable[[Params, torch.Tensor], torch.Tensor]
 
 def conv2d(params: Params, x: torch.Tensor) -> torch.Tensor:
     """3x3 SAME conv + bias.  x: (B, H, W, C); w: (3, 3, Cin, Cout)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), params["w"].permute(3, 2, 0, 1), padding=1)
+    y = _conv_nchw(x.permute(0, 3, 1, 2), params["w"].permute(3, 2, 0, 1))
     return y.permute(0, 2, 3, 1) + params["b"]
+
+
+def _conv_nchw(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``F.conv2d`` with padding 1; on a mesh, per rank on its local shards.
+
+    DTensor's convolution rule reads an output-channel-sharded weight as
+    replicated, so a mesh input runs through ``local_map``: the batch stays
+    where it is sharded, the weight keeps its output-channel shards on the
+    mesh dimensions that do not shard the batch (every other shard is
+    gathered first), and the output is sharded as both.
+    """
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(x, DTensor):
+        return F.conv2d(x, w, padding=1)
+    batch = tuple(p == Shard(0) for p in x.placements)
+    wpl = w.placements if isinstance(w, DTensor) else (Replicate(),) * len(batch)
+    chan = tuple(p == Shard(0) and not b for p, b in zip(wpl, batch))
+    x_in = tuple(Shard(0) if b else Replicate() for b in batch)
+    w_in = tuple(Shard(0) if c else Replicate() for c in chan)
+    out = tuple(Shard(0) if b else Shard(1) if c else Replicate()
+                for b, c in zip(batch, chan))
+    return local_map(
+        lambda a, b: F.conv2d(a, b, padding=1), out_placements=[*out],
+        in_placements=(x_in, w_in), device_mesh=x.device_mesh,
+        redistribute_inputs=True,
+    )(x, w)
 
 
 def maxpool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 VALID max-pool, stride 2, of an NHWC tensor."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    return _pool_nchw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def _pool_nchw(x: torch.Tensor) -> torch.Tensor:
+    """``F.max_pool2d(x, 2)``; on a mesh, per rank on its local shards.
+
+    DTensor has no max-pool rule in every PyTorch release, so a mesh input
+    runs through ``local_map``: batch and channel shards stay, the pooled
+    spatial dimensions are whole on every rank.
+    """
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(x, DTensor):
+        return F.max_pool2d(x, 2)
+    layout = tuple(p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+                   for p in x.placements)
+    return local_map(
+        lambda a: F.max_pool2d(a, 2), out_placements=[*layout], in_placements=(layout,),
+        device_mesh=x.device_mesh, redistribute_inputs=True,
+    )(x)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,8 @@ each slot back to its token, which on CUDA would be an atomic
 own kept slots and adds them in ascending expert order, the order of the
 reference's scatter, so two calls give the same bits.
 
-The expert-parallel sharding spec (``spec_moe_mlp``) comes with the mesh.
+The expert-parallel sharding spec (``spec_moe_mlp``) comes with the next
+slice (ROADMAP item 9b).
 """
 from __future__ import annotations
 

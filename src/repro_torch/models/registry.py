@@ -22,7 +22,7 @@ every attention layer, every Mamba2 layer's conv window and SSD state) and
 returns that same object.
 
 The reference's sharding members (``param_specs``, ``cache_spec``) come
-with the mesh.
+with the next slice (ROADMAP item 9b).
 """
 from __future__ import annotations
 

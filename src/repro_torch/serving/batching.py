@@ -84,15 +84,27 @@ class RequestGroupScheduler:
     are homogeneous (same task subset, same input shape/dtype); every
     group's padded width is one of ``batch_shapes``; padded rows are
     replicas of the last real row, executed and then sliced away.  Arrival
-    order is preserved within a bucket.  (The reference's mesh
-    ``shard_multiple`` comes with the mesh slice.)
+    order is preserved within a bucket.
+
+    ``shard_multiple`` rounds every allowed batch shape up to a multiple of
+    the mesh's data-shard count (``ShardingPolicy.data_shards``) so a padded
+    group always splits evenly over the batch axes — the engine folds this
+    in automatically when given a mesh.
     """
 
-    def __init__(self, batch_shapes: Sequence[int] = DEFAULT_BATCH_SHAPES):
-        shapes = tuple(sorted({int(s) for s in batch_shapes}))
+    def __init__(
+        self,
+        batch_shapes: Sequence[int] = DEFAULT_BATCH_SHAPES,
+        shard_multiple: int = 1,
+    ):
+        m = int(shard_multiple)
+        if m < 1:
+            raise ValueError(f"invalid shard multiple: {shard_multiple!r}")
+        shapes = tuple(sorted({-(-int(s) // m) * m for s in batch_shapes}))
         if not shapes or shapes[0] < 1:
             raise ValueError(f"invalid batch shapes: {batch_shapes!r}")
         self.batch_shapes = shapes
+        self.shard_multiple = m
 
     def chunk_sizes(self, n: int) -> List[Tuple[int, int]]:
         """Split a bucket of ``n`` requests into ``(take, padded_to)`` chunks.

@@ -23,8 +23,14 @@ request row on a confidence threshold (:mod:`repro_torch.adaptive`), the
 cost model predicts *expected* counters from a gate model (calibrated
 online from the realized traces when the policy asks), and each group can
 run at the threshold its session's deadline ladder picks.
-:class:`LMServer` runs batched prefill and greedy decode.  The mesh waits
-for a later slice.
+With ``EnginePolicy.mesh`` each group runs sharded over a ``DeviceMesh``
+(``TaskGraphExecutor`` with ``mesh=``/``sharding=``): the scheduler pads
+groups to the mesh's data-shard multiple, the cost model divides its load
+terms by the weight-shard count and adds each dispatch's measured
+collective bytes, and a group that fails on the mesh can be served off it
+(:meth:`MultitaskEngine.execute_group_fallback`, the session ladder's
+``"single_device"`` rung).  :class:`LMServer` runs batched prefill and
+greedy decode; its mesh comes with the next slice (ROADMAP item 9b).
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from repro_torch.serving.batching import (
     RequestGroup, RequestGroupScheduler, effective_order, normalize_subset,
 )
 from repro_torch.serving.policies import EnginePolicy
+from repro_torch.sharding.policy import ShardingPolicy, TP_POLICY
 
 if TYPE_CHECKING:  # session imports engine; keep the runtime import lazy
     from repro_torch.serving.journal import Journal
@@ -99,8 +106,8 @@ class MultitaskResponse:
     global task order; ``effective_order`` the sequence the request's group
     actually ran.  ``retries`` counts the failed attempts before the one
     that produced this response; ``degraded`` names the recovery rung that
-    succeeded (``"unfused"``: the per-block dispatch), ``None`` for the
-    primary path.  ``recovered`` is set when the response was rebuilt from a
+    succeeded (``"unfused"``: the per-block dispatch; ``"single_device"``:
+    the off-mesh fallback executor), ``None`` for the primary path.  ``recovered`` is set when the response was rebuilt from a
     durable journal commit by ``ServingSession.recover`` instead of
     produced by a live execution — the exactly-once path after a power
     failure.
@@ -220,6 +227,29 @@ class MultitaskEngine:
             policy = dataclasses.replace(
                 policy, scheduler=RequestGroupScheduler()
             )
+        self.mesh = policy.mesh
+        self.sharding: Optional[ShardingPolicy] = (
+            policy.sharding if policy.sharding is not None
+            else (TP_POLICY if self.mesh is not None else None)
+        )
+        self.data_shards = (
+            self.sharding.data_shards(self.mesh) if self.sharding else 1
+        )
+        self.weight_shards = (
+            self.sharding.weight_shards(self.mesh) if self.sharding else 1
+        )
+        if self.data_shards > 1 and any(
+            s % self.data_shards for s in policy.scheduler.batch_shapes
+        ):
+            # Fold the mesh's per-shard multiple into the scheduler so every
+            # padded group splits evenly over the batch axes.
+            policy = dataclasses.replace(
+                policy,
+                scheduler=RequestGroupScheduler(
+                    batch_shapes=policy.scheduler.batch_shapes,
+                    shard_multiple=self.data_shards,
+                ),
+            )
         if policy.streaming and not policy.warm_start:
             raise ValueError(
                 "EnginePolicy.streaming requires warm_start: a cold engine "
@@ -261,6 +291,7 @@ class MultitaskEngine:
         )
         self.cost_model = GraphCostModel(
             program.graph, program.block_costs, hw,
+            weight_shards=self.weight_shards,
             gate_model=(
                 self.adaptive.gate_model if self.adaptive is not None else None
             ),
@@ -289,11 +320,16 @@ class MultitaskEngine:
                 "gate_deps edges conflict with the engine's task order: a "
                 "gate would read an output its order produces later"
             )
-        self.executor = TaskGraphExecutor(program, gater=self._gater)
+        self.executor = TaskGraphExecutor(
+            program, gater=self._gater, mesh=self.mesh, sharding=self.sharding,
+        )
         if policy.streaming:
             self.executor.streamer.prepare()
         self.fault_injector = fault_injector
         self.power_injector = power_injector
+        # Lazily built off-mesh executor for the degradation ladder's
+        # "single_device" rung (mesh engines only; see execute_group_fallback).
+        self._fallback_executor: Optional[TaskGraphExecutor] = None
         # Cumulative counters of the most recent serve_batch call (its
         # one-shot session's stats); with no gates and the default greedy
         # scheduling these equal predicted_group_stats(plan_groups(requests))
@@ -478,6 +514,7 @@ class MultitaskEngine:
             predictor.append(
                 eff, batch_size=g.valid,
                 extra_tasks_skipped=(len(self.order) - len(eff)) * g.valid,
+                collectives=self.executor.collective_view(g.xs),
             )
         return predictor.stats
 
@@ -505,6 +542,7 @@ class MultitaskEngine:
             predictor.append(
                 eff, batch_size=g.valid,
                 extra_tasks_skipped=(len(self.order) - len(eff)) * g.valid,
+                collectives=self.executor.collective_view(g.xs),
                 gate_model=gm,
             )
         return predictor.expected
@@ -532,6 +570,7 @@ class MultitaskEngine:
         eff: Sequence[int],
         intermittent: Optional[IntermittentContext] = None,
         ckpt_plan: Optional[Sequence[CheckpointSite]] = None,
+        executor: Optional[TaskGraphExecutor] = None,
     ) -> Tuple[List[Dict[int, torch.Tensor]], ExecutionStats,
                List[TaskGateRecord]]:
         """Execute one homogeneous request group through the batched path.
@@ -551,9 +590,11 @@ class MultitaskEngine:
         With ``intermittent`` the ``"group"`` power site fires before each
         task's dispatch, and a task with planned checkpoint sites
         (``ckpt_plan``) runs its suffix segmented at their depths, the
-        journal hook firing after each cut.
+        journal hook firing after each cut.  ``executor`` defaults to the
+        engine's own (the degradation ladder passes the off-mesh fallback
+        executor instead).
         """
-        ex = self.executor
+        ex = executor if executor is not None else self.executor
         v = group.valid
         per_request: List[Dict[int, torch.Tensor]] = [dict() for _ in range(v)]
         stats = ExecutionStats()
@@ -733,6 +774,7 @@ class MultitaskEngine:
                 eff, batch_size=group.valid, resume=resume,
                 first_task_resume=first_task_resume, checkpoints=ckpt_plan,
                 gate_model=self.cost_model.gate_model or GateModel(),
+                collectives=self.executor.collective_view(group.xs),
             )
             expected.tasks_skipped += (len(self.order) - len(eff)) * group.valid
         streamer = self.executor.streamer
@@ -746,11 +788,14 @@ class MultitaskEngine:
         predicted = self.cost_model.predicted_stats(
             eff, batch_size=group.valid, resume=resume, gate_trace=trace,
             first_task_resume=first_task_resume, checkpoints=ckpt_plan,
+            collectives=self.executor.collective_view(group.xs),
         )
         warm_saved = 0.0
         if self.warm_start:
-            # The cold reference needs ``first_task_resume`` too: the
-            # trace's resume depths come from the executed walk.
+            # Collectives are resume-independent and warm_saved reads only
+            # the load counter, so the cold reference needs no collective
+            # terms.  It needs ``first_task_resume``: the trace's resume
+            # depths come from the executed walk.
             cold_pred = self.cost_model.predicted_stats(
                 eff, batch_size=group.valid, gate_trace=trace,
                 first_task_resume=first_task_resume,
@@ -788,13 +833,62 @@ class MultitaskEngine:
             expected=expected, gate_trace=trace,
         )
 
+    def execute_group_fallback(
+        self,
+        group: RequestGroup,
+        adaptive_threshold: Optional[float] = None,
+    ) -> GroupExecution:
+        """Degradation-ladder rung for mesh engines: run ``group`` cold on a
+        lazily built off-mesh executor.
+
+        The fallback executor shares the program — its full, unplaced
+        parameters, so it needs no collective — and produces the same
+        outputs; its counters carry no collective bytes, and its
+        prediction, computed cold without a collective view from the *same*
+        cost model, matches them field for field (``weight_shards`` only
+        scales derived seconds, never the byte counters).  It is reset
+        before every use: degraded runs are the rare recovery path, and a
+        cold run keeps the primary executor's rolled-back residency
+        authoritative for every later group's incremental prediction.
+        """
+        if self._fallback_executor is None:
+            # Shares the engine's gater, so a degraded adaptive run gates
+            # identically to the primary path.
+            self._fallback_executor = TaskGraphExecutor(
+                self.program, gater=self._gater)
+        ex = self._fallback_executor
+        ex.reset()
+        if self._gater is not None and adaptive_threshold is not None:
+            self._gater.threshold = float(adaptive_threshold)
+        group = dataclasses.replace(group, xs=group.xs.to(self.device))
+        eff = self.group_order(group)
+        expected: Optional[ExecutionStats] = None
+        if self.adaptive is not None:
+            expected = self.cost_model.expected_stats(
+                eff, batch_size=group.valid,
+                gate_model=self.cost_model.gate_model or GateModel(),
+            )
+            expected.tasks_skipped += (len(self.order) - len(eff)) * group.valid
+        per_request, stats, trace = self._run_group(group, eff, executor=ex)
+        predicted = self.cost_model.predicted_stats(
+            eff, batch_size=group.valid, gate_trace=trace)
+        predicted.tasks_skipped += (len(self.order) - len(eff)) * group.valid
+        return GroupExecution(
+            group=group, eff=eff, outputs=per_request, stats=stats,
+            predicted=predicted, warm_saved=0.0,
+            expected=expected, gate_trace=trace,
+        )
+
     def _group_responses(
         self, execution: GroupExecution
     ) -> List[MultitaskResponse]:
         """Responses for one executed group, in group-slot order."""
         stats = execution.stats
         group = execution.group
-        per_req_seconds = stats.seconds(self.hw) / max(group.valid, 1)
+        # Per-request share of the group's cost as executed.  On a mesh
+        # each device streams only its weight slice, hence the divisor.
+        per_req_seconds = stats.seconds(
+            self.hw, weight_shards=self.weight_shards) / max(group.valid, 1)
         return [
             MultitaskResponse(
                 outputs=execution.outputs[slot],

@@ -23,9 +23,8 @@ Four policies ship:
   oversubscribed buckets admit priority-first.
 
 :class:`EnginePolicy` folds everything schedule-shaped about the engine into
-one config object, weight streaming and input-adaptive gating included.
-The reference's ``mesh`` and ``sharding`` fields come with the slice that
-ports the mesh.
+one config object: the mesh, weight streaming and input-adaptive gating
+included.
 """
 from __future__ import annotations
 
@@ -33,6 +32,7 @@ import dataclasses
 from typing import TYPE_CHECKING, Any, Dict, List, Optional, Protocol
 
 from repro_torch.serving.batching import RequestGroupScheduler, effective_order
+from repro_torch.sharding.policy import ShardingPolicy
 
 if TYPE_CHECKING:  # session/engine import this module; keep runtime acyclic
     from repro_torch.serving.engine import MultitaskEngine
@@ -313,6 +313,16 @@ class EnginePolicy:
       scheduler: the request-group scheduler (bucketing / padding shapes);
         ``None`` means a default :class:`RequestGroupScheduler`, which the
         engine folds back into its ``policy`` at construction.
+      mesh: optional ``DeviceMesh`` (``repro_torch.launch.mesh.make_mesh``)
+        to shard group execution over: each group's batch dimension splits
+        across the ``sharding`` policy's batch axes and the suffix weights
+        across its ``model`` / ``fsdp`` axes.  The engine rounds the
+        scheduler's batch shapes up to per-shard multiples and extends cost
+        prediction with measured per-collective byte terms, so
+        ``session.stats == session.predicted`` stays exact on the mesh.
+      sharding: logical->physical axis mapping used with ``mesh``
+        (``TP_POLICY`` when unset; ``FSDP_TP_POLICY`` additionally shards
+        weights over the data axis).
       streaming: double-buffered weight streaming: while each group
         executes, the session prefetches the *next* group's non-resident
         block params (``MultitaskEngine.prefetch_group`` ->
@@ -337,7 +347,7 @@ class EnginePolicy:
 
     The defaults reproduce the reference engine: greedy one-shot admission,
     warm starts, cost-aware group ordering, global task order, synchronous
-    loads.
+    loads, one device.
     """
 
     warm_start: bool = True
@@ -347,5 +357,7 @@ class EnginePolicy:
         default_factory=_default_scheduling
     )
     scheduler: Optional[RequestGroupScheduler] = None
+    mesh: Optional[Any] = None
+    sharding: Optional[ShardingPolicy] = None
     streaming: bool = False
     adaptive: Optional[Any] = None

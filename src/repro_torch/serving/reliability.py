@@ -13,8 +13,8 @@ The session uses these pieces so that a failure stays inside its group:
   admission queue;
 * **:class:`RetryPolicy`** — how a session recovers a failed group: bounded
   exponential backoff on the primary path, then a graceful-degradation
-  ladder (re-run the fused dispatch as the unrolled per-block reference)
-  before giving up;
+  ladder (re-run the fused dispatch as the unrolled per-block reference, or
+  re-run a mesh-sharded group off the mesh) before giving up;
 * **:class:`FaultInjector`** — deterministic, seeded fault injection at the
   plan/load/dispatch boundaries of the engine, the hook the chaos checks
   and the property tests drive.  Its generator is numpy's
@@ -26,11 +26,12 @@ on the device, which is what keeps the engine's counter-exact
 ``session.stats == session.predicted`` invariant provable *through*
 failures — a rolled-back group contributes nothing to either side.
 
-The ``"prefetch"`` fault site, the mesh's ``"single_device"`` rung and the
-intermittent-power pieces (:class:`PowerFailure`,
-:class:`PowerFailureInjector`, :class:`EnergyBudget`) are here for the
-weight-streaming, journal and mesh slices of the port; this slice's engine
-and session use none of them.
+On a mesh every rank runs the same session: the injector decides the same
+way on every rank, because its generator is built from the one seed and
+every rank consults it at the same sites in the same order — so a fault
+fails the same attempt everywhere and the ranks walk the ladder in
+lockstep (a fault on one rank alone would hang the others inside a
+collective).
 """
 from __future__ import annotations
 
@@ -134,9 +135,12 @@ class RetryPolicy:
        between attempts — classic bounded exponential backoff, aimed at
        transient faults;
     2. with ``degrade=True``, a still-failing group walks the fallback
-       ladder: the engine re-runs the group with fused dispatch off (the
-       unrolled per-block reference path, identical counters).  Successful degraded runs are recorded on the
-       response (``MultitaskResponse.degraded``);
+       ladder: a one-device engine re-runs the group with fused dispatch
+       off (the unrolled per-block reference path, identical counters); a
+       mesh-sharded engine re-runs the group cold on a lazily built
+       off-mesh executor (``"single_device"``, no collective bytes).
+       Successful degraded runs are recorded on the response
+       (``MultitaskResponse.degraded``);
     3. only when every rung fails do the group's futures fail, each with its
        own :class:`RequestError` — the rest of the session is untouched.
 

@@ -49,12 +49,16 @@ fault boundary of the serving stack, and its unit of failure is the
   anywhere (prediction, weight load, dispatch, a user gate), the snapshot
   is rolled back (``set_residency``) and the group is retried under the
   session's :class:`~repro_torch.serving.reliability.RetryPolicy`: bounded
-  exponential backoff on the primary path, then the ``"unfused"`` rung (the
-  group re-run with fused dispatch off).  Each retry re-enters
-  ``engine._execute_group``, which re-predicts the group from the *actual*
-  post-rollback residency, so ``session.stats == session.predicted`` stays
-  exact across any number of rollbacks and retries (only successful
-  attempts are merged into either side).  A group that exhausts the ladder
+  exponential backoff on the primary path, then one degraded rung — the
+  ``"unfused"`` rung (the group re-run with fused dispatch off) or, on a
+  mesh engine, whose suffixes cannot unfuse, the ``"single_device"`` rung
+  (the group re-run cold on the engine's off-mesh fallback executor, the
+  primary executor's residency snapshot restored if that fails too).
+  Each retry re-enters ``engine._execute_group``, which re-predicts the
+  group from the *actual* post-rollback residency, so
+  ``session.stats == session.predicted`` stays exact across any number of
+  rollbacks and retries (only successful attempts are merged into either
+  side).  A group that exhausts the ladder
   fails only its own futures, each with a :class:`RequestError` carrying
   the request's ``seq``, task subset, tenant and group id, the original
   traceback chained.  A CUDA error that poisons the context (an illegal
@@ -87,8 +91,10 @@ fault boundary of the serving stack, and its unit of failure is the
   included) fit the storage capacitor, else the pump sleeps exactly the
   harvest time the deficit needs.
 
-The mesh's ``"single_device"`` rung comes with the slice that ports the
-mesh.
+On a mesh engine both sides of ``session.stats == session.predicted``
+include the per-kind collective bytes each dispatch measured.  Every rank
+runs the same session in lockstep: the same requests, the same plan, the
+same fault schedule (one seed), so every rank issues the same collectives.
 
 Driving the loop: callers either poll :meth:`step` on their own cadence,
 call :meth:`flush` to force one admit-everything pass, or call :meth:`drain`
@@ -365,6 +371,14 @@ class ServingSession:
         self.journal = journal
         self.checkpointing = bool(checkpointing)
         self.energy = energy
+        if journal is not None and engine.mesh is not None:
+            raise ValueError(
+                "journaled (intermittent) sessions are not supported on "
+                "mesh-sharded engines: segmented suffix dispatch would "
+                "split the fused suffixes the per-suffix collective "
+                "calibration was measured for, breaking counter exactness — "
+                "run intermittent serving on a single-device engine"
+            )
         if journal is not None and not engine.warm_start:
             raise ValueError(
                 "journaled (intermittent) sessions require a warm-start "
@@ -807,8 +821,9 @@ class ServingSession:
         adaptive_threshold: Optional[float] = None,
     ) -> Tuple[Optional["GroupExecution"], int, Optional[str]]:
         """Execute one group with rollback, bounded retries, and the
-        ``"unfused"`` rung, every attempt at ``adaptive_threshold`` (the
-        ladder's pick, ``None`` for the gater's base).  Returns
+        ``"unfused"`` rung (``"single_device"`` on a mesh engine), every
+        attempt at ``adaptive_threshold`` (the ladder's pick, ``None`` for
+        the gater's base).  Returns
         ``(execution, failed_attempts, degraded_rung)``; ``execution`` is
         ``None`` when every rung failed (the members' futures are failed
         before returning)."""
@@ -831,7 +846,7 @@ class ServingSession:
             except Exception as err:
                 failures += 1
                 last_err = err
-        if retry.degrade and self.engine.executor.fused:
+        if retry.degrade and self.engine.mesh is None and self.engine.executor.fused:
             # Rung: the per-block reference dispatch on the same executor —
             # identical counters, allclose outputs, no fused program in the
             # failure path.
@@ -846,6 +861,19 @@ class ServingSession:
                 last_err = err
             finally:
                 self.engine.executor.fused = True
+        elif retry.degrade and self.engine.mesh is not None:
+            # Rung: a cold run on the engine's off-mesh fallback executor
+            # (mesh suffixes cannot unfuse).
+            snapshot = self.engine.executor.residency_state()
+            try:
+                execution = self.engine.execute_group_fallback(
+                    group, adaptive_threshold=adaptive_threshold)
+                self.degraded_runs += 1
+                return execution, failures, "single_device"
+            except Exception as err:
+                failures += 1
+                last_err = err
+                self.engine.executor.set_residency(snapshot)
         self.groups_failed += 1
         self._fail_batch(members, last_err, group_id=group_id)
         return None, failures, None
@@ -1000,7 +1028,9 @@ class ServingSession:
             },
             stats=stats,
             order=self.engine.order,
-            predicted_seconds=stats.seconds(self.engine.hw) / group_size,
+            predicted_seconds=stats.seconds(
+                self.engine.hw, weight_shards=self.engine.weight_shards,
+            ) / group_size,
             group_size=int(rec["group_size"]),
             recovered=True,
         )

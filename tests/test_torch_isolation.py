@@ -23,8 +23,12 @@ def _modules():
 
 def test_every_package_is_covered():
     """The checks below walk every module of the port, the input-adaptive
-    package's, the training slice's and the two examples included."""
+    package's, the training slice's, the two examples and the mesh's
+    included."""
     assert {"repro_torch.adaptive", "repro_torch.adaptive.gating",
+            "repro_torch.sharding", "repro_torch.sharding.policy",
+            "repro_torch.sharding.utils", "repro_torch.sharding.collectives",
+            "repro_torch.launch.mesh",
             "repro_torch.adaptive.gate_model", "repro_torch.adaptive.policy",
             "repro_torch.core.executor", "repro_torch.serving.session",
             "repro_torch.training", "repro_torch.training.optimizer",
@@ -97,3 +101,19 @@ def test_examples_raise_without_cuda(example):
     module = importlib.import_module(f"repro_torch.examples.{example}")
     with pytest.raises(RuntimeError, match="CUDA"):
         module.main(["--steps", "1"] if example == "train_multitask" else [])
+
+
+def test_make_mesh_raises_without_cuda():
+    """A mesh defaults to the card: without one ``make_mesh`` raises before
+    it makes any process group, and never falls back to a CPU mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_host_mesh()
+    assert not dist.is_initialized()
