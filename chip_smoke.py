@@ -119,7 +119,22 @@
    Prints a ``mesh`` line per engine and policy (group ms and session
    seconds on and off the mesh, host ms per dispatch, busy share, top
    device operations), then destroys the process group.
-12. Prints one ``{"kernels": [...]}`` line, then the device line last.
+12. LM serving and training on a (1, 1) mesh (``lm_mesh_phase``; a world
+   of one rank, NCCL, made and ended by ``launch.mesh.launcher_world``),
+   each run off the mesh and then on it from the same params, placed by
+   ``fit_specs(params, model.param_specs(policy), mesh)``:
+   ``LMServer.generate`` on mistral-nemo-12b (full width, 8 layers, bf16,
+   4 x 512, 16 steps) under TP and FSDP_TP, on qwen2-moe-a2.7b (full, 4 x
+   512, 8 steps) under EXPERT_TP and FSDP_EXPERT and on mamba2-780m
+   (full, 4 x 2048, 8 steps; the SSD on local heads) under TP; 3 AdamW
+   steps of mistral-nemo-12b (8 layers, 4 x 512, remat) under FSDP_TP and
+   2 of mamba2-780m (4 x 2048) under TP.  Gates: the same tokens, prefill
+   logits within 5e-2 of the largest |logit|, losses and grad norms
+   within 2e-2, the same flash and SSD launches forward and backward, no
+   collective bytes.  Prints an ``lm_mesh`` line a run (prefill and
+   decode ms, host ms a decode step, tokens/s, busy share, step ms and
+   peak GB, on and off the mesh, beside the card's name and power limit).
+13. Prints one ``{"kernels": [...]}`` line, then the device line last.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the script checks that the kernels ran where the path runs
@@ -135,7 +150,7 @@ attention layer of a step, forward and remat, and its backward once; the
 SSD twice per Mamba2 layer of a step and its backward once, zamba2's
 shared attention once forward and once backward per invocation; the
 multitask example's flash and its backward once per layer of each of its
-10 nodes, 20 a step),
+10 nodes, 20 a step; on the LM mesh as often as off it),
 that served counters equal the cost
 model's prediction field for field (every session's too, faults,
 streamed loads, checkpoint writes and a one-device mesh's 0 collective
@@ -241,7 +256,9 @@ from repro_torch.serving import (  # noqa: E402
     MemoryJournalStore, MultitaskEngine, MultitaskRequest, PowerFailure,
     PowerFailureInjector, RetryPolicy, ServingSession, SloAwarePolicy, WindowPolicy,
 )
-from repro_torch.serving.engine import _grow_cache  # noqa: E402
+from repro_torch.serving.engine import _grow_cache, greedy  # noqa: E402
+from repro_torch.sharding.collectives import CollectiveRecorder  # noqa: E402
+from repro_torch.sharding.utils import is_dtensor  # noqa: E402
 from repro_torch.training import (  # noqa: E402
     AdamWConfig, AdamWState, adamw_init, global_norm, loss_and_grads, make_train_step,
     restore_checkpoint, save_checkpoint,
@@ -3171,6 +3188,19 @@ def pearson_guard_phase(device: torch.device) -> dict:
 # The mesh: sharded serving on a (1, 1) DeviceMesh
 # --------------------------------------------------------------------------
 
+# The LM mesh phase on a (1, 1) mesh: serving (arch, layers (None: all),
+# batch, prompt, steps, policies) and training (arch, layers, batch, seq,
+# steps, policy), each run off the mesh and then on it.
+LM_MESH_SERVE = (
+    ("mistral-nemo-12b", 8, 4, 512, 16, ("tp", "fsdp_tp")),
+    ("qwen2-moe-a2.7b", None, 4, 512, 8, ("expert_tp", "fsdp_expert")),
+    ("mamba2-780m", None, 4, 2048, 8, ("tp",)),
+)
+LM_MESH_TRAIN = (
+    ("mistral-nemo-12b", 8, 4, 512, 3, "fsdp_tp"),
+    ("mamba2-780m", None, 4, 2048, 2, "tp"),
+)
+LM_MESH_TOL = 5e-2  # prefill logits on vs off the mesh, of the largest |logit|
 MESH_POLICIES = ("tp", "fsdp_tp")
 # The first group's two sharded attempts fault at dispatch; the ladder's
 # "single_device" rung serves it off the mesh.
@@ -3347,6 +3377,175 @@ def mesh_phase(device: torch.device, recipes) -> dict:
         finally:
             dist.destroy_process_group()
     return out
+
+
+def lm_serve_run(device: torch.device, model, params, prompts, steps: int,
+                 policy=None) -> dict:
+    """One ``LMServer.generate`` (off the mesh where ``policy`` is None, else
+    on the ambient mesh that ``params`` lie on) with its launches, seconds,
+    tokens/s and peak memory; then one prefill and one decode step under
+    the ``CollectiveRecorder``, the prefill's last-position logits, and on
+    the card the prefill's and a decode step's device ms, a decode step's
+    host ms and the device's busy share over it."""
+    args = () if policy is None else (policy,)
+    server = LMServer(model, params, *args)
+    s0 = prompts.shape[1]
+    reset_peak(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = server.generate(prompts, steps)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches, peak = launch_counts(), peak_gb(device)
+    with CollectiveRecorder() as rec:
+        logits, cache = model.prefill(params, prompts, *args)
+        cache = _grow_cache(model, cache, s0 + steps, s0, *args)
+        tok = greedy(logits)
+        model.decode_step(params, tok, cache, s0, *args)
+    sync(device)
+    logits = logits.full_tensor() if is_dtensor(logits) else logits
+    out = {"tokens": tokens, "launches": launches, "generate_s": seconds,
+           "tokens_per_s": tokens.size / seconds, "peak_gb": peak,
+           "collective_bytes": sum(rec.bytes.values()), "collectives": rec.counts,
+           "logits": logits.float()}
+    if device.type == "cuda":
+        prefill = lambda: model.prefill(params, prompts, *args)  # noqa: E731
+        decode = lambda: model.decode_step(params, tok, cache, s0, *args)  # noqa: E731
+        out["prefill_ms"] = cuda_ms(prefill, reps=2, warmup=1)
+        out["decode_ms"] = cuda_ms(decode, reps=3, warmup=1)
+        out["decode_host_ms"] = host_ms(decode, reps=3, warmup=0)
+        out["busy"] = device_breakdown(decode, out["decode_ms"], top=4, warm=False)["busy"]
+    return out
+
+
+def lm_train_run(device: torch.device, model, params, batches, steps: int,
+                 policy=None) -> dict:
+    """``steps`` AdamW steps (lr 3e-4, warmup 1) from ``params`` (off the
+    mesh where ``policy`` is None, else on it), the first under the
+    ``CollectiveRecorder`` and untimed, the rest timed on the host clock to
+    a sync; the losses, grad norms, launches, step ms and peak memory."""
+    args = () if policy is None else (policy,)
+    opt = adamw_init(params)
+    step_fn = make_train_step(model, AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps),
+                              *args)
+    reset_launch_counts()
+    reset_peak(device)
+    losses, gnorms, step_ms = [], [], []
+    rec = CollectiveRecorder()
+    for i, tokens in enumerate(batches[:steps]):
+        t0 = time.perf_counter()
+        with rec if i == 0 else contextlib.nullcontext():
+            params, opt, metrics = step_fn(params, opt, tokens)
+        sync(device)
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+    out = {"losses": losses, "grad_norms": gnorms, "launches": launch_counts(),
+           "step_ms": step_ms, "steady_step_ms": statistics.median(step_ms),
+           "peak_gb": peak_gb(device), "collective_bytes": sum(rec.bytes.values()),
+           "collectives": rec.counts}
+    del params, opt
+    free_memory()
+    return out
+
+
+def lm_mesh_phase(device: torch.device, smi: str, serve=LM_MESH_SERVE,
+                  train=LM_MESH_TRAIN, config=get_config) -> dict:
+    """LM serving and training on a (1, 1) ``DeviceMesh`` (a world of one,
+    NCCL on the card, gloo on the CPU, made and ended by
+    ``launch.mesh.launcher_world``): each run off the mesh and then on it
+    from the same params, placed by ``fit_specs(params,
+    param_specs(policy), mesh)``.  Gates: the same tokens; prefill logits
+    within ``LM_MESH_TOL`` of the largest |logit|; losses and grad norms
+    within ``TRAIN_LOSS_TOL``; the same flash and SSD launches, forward and
+    backward (the kernels run on each rank's local shards); no collective
+    bytes.  Prints one ``lm_mesh`` line a run, with ``smi`` (the card's name
+    and power limit)."""
+    from repro_torch.launch.mesh import launcher_world, make_host_mesh, set_mesh
+    from repro_torch.sharding.policy import POLICIES as SHARDING_POLICIES
+    from repro_torch.sharding.utils import place_tree
+
+    keys = ("prefill_ms", "decode_ms", "decode_host_ms", "tokens_per_s", "busy", "peak_gb",
+            "generate_s")
+    rows, launches = [], {}
+    gen_device = device if device.type == "cuda" else torch.device("cpu")
+    with launcher_world(device.type):
+        mesh = make_host_mesh(device=device.type)
+        for arch, layers, batch, prompt, steps, policies in serve:
+            cfg = config(arch)
+            cfg = cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+            model = get_model(cfg)
+            params = model.init(torch.Generator(device=gen_device).manual_seed(2), device)
+            prompts = np.random.default_rng(2).integers(
+                0, cfg.raw_vocab_size, (batch, prompt)).astype(np.int32)
+            off = lm_serve_run(device, model, params, prompts, steps)
+            for name in policies:
+                t0 = time.perf_counter()
+                policy = SHARDING_POLICIES[name]
+                with set_mesh(mesh):
+                    on = lm_serve_run(device, model, place_tree(
+                        params, model.param_specs(policy), mesh), prompts, steps, policy)
+                label = f"lm_mesh {arch} {name}"
+                check(np.array_equal(on["tokens"], off["tokens"]), f"{label}: tokens differ")
+                diff = float((on["logits"] - off["logits"]).abs().max())
+                scale = float(off["logits"].abs().max())
+                check(diff <= LM_MESH_TOL * scale,
+                      f"{label}: prefill logits differ by {diff} > {LM_MESH_TOL} x {scale}")
+                check(on["launches"] == off["launches"],
+                      f"{label}: launches {on['launches']} != off the mesh {off['launches']}")
+                check(on["collective_bytes"] == 0,
+                      f"{label}: {on['collective_bytes']} collective bytes on one device")
+                row = {"kind": "serve", "arch": arch, "policy": name, "mesh": [1, 1],
+                       "layers": cfg.num_layers, "batch": batch, "prompt": prompt,
+                       "steps": steps, "card": smi, "logit_max_abs_diff": diff,
+                       "max_abs_logit": scale, "launches": on["launches"],
+                       "collectives": on["collectives"],
+                       **{k: {"mesh": on.get(k), "off": off.get(k)} for k in keys},
+                       "phase_s": time.perf_counter() - t0}
+                print(json.dumps({"lm_mesh": row}), flush=True)
+                rows.append(row)
+                launches[f"lm_mesh_{arch}_{name}"] = on["launches"]
+            del model, params, off, on
+            free_memory()
+        for arch, layers, batch, seq, steps, name in train:
+            t0 = time.perf_counter()
+            cfg = config(arch)
+            cfg = cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+            model = get_model(cfg)
+            params = model.init(torch.Generator(device=gen_device).manual_seed(0), device)
+            it = lm_batches(cfg.vocab_size, batch, seq, seed=0)
+            batches = [next(it) for _ in range(steps)]
+            off = lm_train_run(device, model, params, batches, steps)
+            policy = SHARDING_POLICIES[name]
+            with set_mesh(mesh):
+                on = lm_train_run(device, model, place_tree(
+                    params, model.param_specs(policy), mesh), batches, steps, policy)
+            label = f"lm_mesh train {arch} {name}"
+            worst = max(max(rel(a, b) for a, b in zip(on["losses"], off["losses"])),
+                        max(rel(a, b) for a, b in zip(on["grad_norms"], off["grad_norms"])))
+            check(worst <= TRAIN_LOSS_TOL,
+                  f"{label}: losses {on['losses']} vs {off['losses']}, grad norms "
+                  f"{on['grad_norms']} vs {off['grad_norms']}, > {TRAIN_LOSS_TOL} relative")
+            check(on["launches"] == off["launches"],
+                  f"{label}: launches {on['launches']} != off the mesh {off['launches']}")
+            check(on["collective_bytes"] == 0,
+                  f"{label}: {on['collective_bytes']} collective bytes on one device")
+            row = {"kind": "train", "arch": arch, "policy": name, "mesh": [1, 1],
+                   "layers": cfg.num_layers, "remat": cfg.remat, "batch": batch, "seq": seq,
+                   "steps": steps, "card": smi, "max_rel_diff": worst,
+                   "losses": {"mesh": on["losses"], "off": off["losses"]},
+                   "grad_norms": {"mesh": on["grad_norms"], "off": off["grad_norms"]},
+                   "launches": on["launches"], "collectives": on["collectives"],
+                   **{k: {"mesh": on[k], "off": off[k]}
+                      for k in ("steady_step_ms", "step_ms", "peak_gb")},
+                   "phase_s": time.perf_counter() - t0}
+            print(json.dumps({"lm_mesh": row}), flush=True)
+            rows.append(row)
+            launches[f"lm_mesh_train_{arch}_{name}"] = on["launches"]
+            del model, params, off, on
+            free_memory()
+    return {"rows": rows, "launches": launches}
 
 
 def check_pipeline_launches(tf: dict, cfg, label: str) -> int:
@@ -3593,6 +3792,14 @@ def main() -> int:
     mesh_flash = {f"mesh_{label}_{row['policy']}": row["launches"]["flash_attention"]
                   for label, rows in mesh.items() for row in rows}
     print(json.dumps({"mesh_phase_seconds": time.perf_counter() - t0}), flush=True)
+    # LM serving and training on a (1, 1) mesh: mistral-nemo-12b, qwen2-moe
+    # and mamba2-780m, each off the mesh and then on it.
+    t0 = time.perf_counter()
+    lm_mesh = lm_mesh_phase(device, smi)
+    lm_mesh_by = {name: {path: n[name] for path, n in lm_mesh["launches"].items()}
+                  for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                               "ssd_scan_bwd")}
+    print(json.dumps({"lm_mesh_phase_seconds": time.perf_counter() - t0}), flush=True)
     print(json.dumps({"smoke_seconds": time.perf_counter() - t_start}), flush=True)
 
     pearson_row = kernels["rows"][0]
@@ -3664,7 +3871,8 @@ def main() -> int:
                      + moe_prof["flash_attention"] + moe_serve["flash_attention"]
                      + sum(family_flash.values())
                      + launcher_whisper["launches"]["flash_attention"]
-                     + sum(train_flash.values()) + sum(mesh_flash.values())),
+                     + sum(train_flash.values()) + sum(mesh_flash.values())
+                     + sum(lm_mesh_by["flash_attention"].values())),
         "launches_by_path": {"transformer_profile": prof["flash_attention"],
                              "transformer_serve": serve["flash_attention"],
                              **{f"transformer_session_{name}": n
@@ -3679,7 +3887,8 @@ def main() -> int:
                              "moe_serve": moe_serve["flash_attention"],
                              **family_flash,
                              "whisper_launcher": launcher_whisper["launches"]["flash_attention"],
-                             **train_flash, **mesh_flash},
+                             **train_flash, **mesh_flash,
+                             **lm_mesh_by["flash_attention"]},
         "max_abs_err": flash["max_abs_err"],
         "ms": flash_row["kernel_ms"],
         "plain_ms": flash_row["plain_ms"],
@@ -3695,8 +3904,8 @@ def main() -> int:
         # No pallas_call: the reference differentiates its jnp attention
         # (attention_chunked) with XLA's autodiff.
         "replaces": "src/repro/models/layers.py:176",
-        "launches": sum(train_bwd.values()),
-        "launches_by_path": train_bwd,
+        "launches": sum(train_bwd.values()) + sum(lm_mesh_by["flash_attention_bwd"].values()),
+        "launches_by_path": {**train_bwd, **lm_mesh_by["flash_attention_bwd"]},
         "max_abs_err": flash_bwd["max_abs_err"],
         "max_rel_err": flash_bwd["max_rel_err"],
         "ms": bwd_row["kernel_ms"],
@@ -3714,8 +3923,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:100",
-        "launches": sum(ssd_by_path.values()),
-        "launches_by_path": ssd_by_path,
+        "launches": sum(ssd_by_path.values()) + sum(lm_mesh_by["ssd_scan"].values()),
+        "launches_by_path": {**ssd_by_path, **lm_mesh_by["ssd_scan"]},
         "max_abs_err": ssd["max_abs_err"],
         "ms": ssd_main[0]["kernel_ms"],
         "plain_ms": ssd_main[0]["plain_ms"],
@@ -3731,8 +3940,8 @@ def main() -> int:
         # No pallas_call: the reference differentiates its jnp oracle
         # ssd_chunked with XLA's autodiff.
         "replaces": "src/repro/models/ssm.py:40",
-        "launches": sum(ssd_bwd_by_path.values()),
-        "launches_by_path": ssd_bwd_by_path,
+        "launches": sum(ssd_bwd_by_path.values()) + sum(lm_mesh_by["ssd_scan_bwd"].values()),
+        "launches_by_path": {**ssd_bwd_by_path, **lm_mesh_by["ssd_scan_bwd"]},
         "max_abs_err": ssd_bwd["max_abs_err"],
         "max_rel_err": ssd_bwd["max_rel_err"],
         "ms": ssd_bwd_row["kernel_ms"],

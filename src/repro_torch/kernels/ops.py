@@ -91,5 +91,55 @@ def ssd_scan(
     (B, S, H, P), ``dt`` (B, S, H) fp32, ``a`` (H,) fp32, ``b_in``/``c_in``
     (B, S, N); returns (y (B, S, H, P) in ``x``'s dtype, final state
     (B, H, P, N) fp32).  A CUDA input launches the SSD kernel, which reads
-    x, B and C through their strides; a CPU input runs the plain version."""
+    x, B and C through their strides; a CPU input runs the plain version.
+    ``DTensor`` inputs (a mesh model's activations) run per rank on the
+    local batch rows and heads (:func:`_ssd_on_mesh`)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return _ssd_on_mesh(x, dt, a, b_in, c_in, chunk)
     return _ssd_scan(x, dt, a, b_in, c_in, chunk)
+
+
+def _ssd_on_mesh(x, dt, a, b_in, c_in, chunk: int):
+    """The SSD of ``DTensor`` inputs through ``local_map``.
+
+    Every mesh dimension over which ``x`` shards its batch keeps it sharded
+    (x, dt, B, C and the final state split together); each other dimension
+    splits the heads of x, dt, ``a`` and the final state where they divide
+    and replicates them otherwise, with B and C (shared by every head)
+    replicated.  Each rank scans its local rows and heads: the kernel on
+    CUDA (one launch per rank, counted once in ``ssd_scan.launches``; under
+    autograd ``SSDScanFunction`` and its backward kernels), the plain
+    version on the CPU.  The gradients of what a rank holds whole but only
+    part of the work reads are partial sums: ``a``'s over the batch
+    shards, B's and C's over the head shards.
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    # Per mesh dimension, the placements of (x and dt, the final state, a,
+    # B and C) and the gradients' of (a, B and C): batch-split, head-split
+    # or replicated.
+    batch = (Shard(0), Shard(0), Replicate(), Shard(0), Partial(), Shard(0))
+    heads = (Shard(2), Shard(1), Shard(0), Replicate(), Shard(0), Partial())
+    whole = (Replicate(),) * 6
+    rows, split = [], 1
+    for mdim, pl in enumerate(x.placements):
+        n = mesh.size(mdim)
+        if pl == Shard(0):
+            rows.append(batch)
+        elif n > 1 and x.shape[2] % (split * n) == 0:
+            split *= n
+            rows.append(heads)
+        else:
+            rows.append(whole)
+    xl, sl, al, bl, ga, gb = (list(c) for c in zip(*rows))
+    return local_map(
+        lambda *t: _ssd_scan(*t, chunk),
+        out_placements=(xl, sl),
+        in_placements=(xl, xl, al, bl, bl),
+        in_grad_placements=(xl, xl, ga, gb, gb),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(x, dt, a, b_in, c_in)

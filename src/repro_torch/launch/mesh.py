@@ -7,12 +7,14 @@ product of the mesh's shape: NCCL on CUDA (one rank per GPU), gloo on the
 CPU.  The single-pod production mesh is 16 x 16 = 256 devices
 ``(data, model)``; the multi-pod one 2 x 16 x 16 = 512 ``(pod, data,
 model)``.  :func:`set_mesh` installs the ambient mesh that
-``ShardingPolicy.spec`` and ``shard_act`` read.
+``ShardingPolicy.spec`` and ``shard_act`` read; :func:`launcher_world`
+gives a launcher its process group.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import tempfile
 from typing import Any, Iterator, Sequence
 
 import torch
@@ -73,3 +75,31 @@ def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> An
 def make_host_mesh(device: str = "cuda") -> Any:
     """The one-device ``(data, model)`` mesh (axes present, size 1)."""
     return make_mesh((1, 1), ("data", "model"), device=device)
+
+
+@contextlib.contextmanager
+def launcher_world(device: str = "cuda") -> Iterator[bool]:
+    """The process group a launcher runs in, for the ``with`` body, which
+    gets whether the group was made here.
+
+    An existing default group is used as it is.  Under ``torchrun`` (``RANK``
+    in the environment) the group is made from the environment; otherwise
+    a world of one rank joins through a ``FileStore`` in a temporary
+    directory.  NCCL on CUDA, gloo on the CPU.  A group made here is
+    destroyed when the body exits, so no caller is left holding one.
+    """
+    if dist.is_initialized():
+        yield False
+        return
+    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        if "RANK" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(
+                backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                rank=0, world_size=1)
+        try:
+            yield True
+        finally:
+            dist.destroy_process_group()

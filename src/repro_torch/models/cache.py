@@ -6,17 +6,23 @@ A sliding-window config keeps a ring buffer of ``window`` slots, which is
 what makes long-context decode feasible for SWA architectures (the cache is
 O(window), not O(seq)).  Where the reference describes a cache abstractly
 with ``ShapeDtypeStruct``s, the port uses tensors on the ``meta`` device.
-The sharding specs come with the next slice (ROADMAP item 9b).
+
+Each cache has the reference's spec function (``kv_cache_spec``,
+``ssm_cache_spec``, ``hybrid_cache_spec``, ``encdec_cache_spec``): a cache
+of the same dataclass holding a :class:`~repro_torch.sharding.policy.P` per
+tensor.  :func:`place_cache` lays a cache out on a mesh by such a spec and
+:func:`zeros_like_spec` allocates a zero cache directly in that layout.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.policy import P, ShardingPolicy, _ambient_mesh, mesh_axes
 
 
 @dataclasses.dataclass
@@ -62,6 +68,27 @@ def kv_cache_zeros(
     )
 
 
+def kv_cache_spec(cfg: ModelConfig, policy: ShardingPolicy) -> KVCache:
+    """Batch over data axes; heads or sequence over the model axis.
+
+    Mesh-adaptive, as the reference: where the KV-head count divides the
+    ambient mesh's model axis the heads shard; where it does not (MQA,
+    GQA with few KV heads) the cache would be fully replicated, so the
+    sequence axis shards instead.
+    """
+    b = policy.physical("batch")
+    m = policy.physical("model")
+    mesh = _ambient_mesh()
+    model_size = 1
+    if mesh is not None and isinstance(m, str) and m in mesh_axes(mesh):
+        model_size = mesh_axes(mesh)[m]
+    if model_size > 1 and cfg.n_kv_heads % model_size != 0:
+        spec = P(None, b, m, None, None)   # sequence-sharded ring/cache
+    else:
+        spec = P(None, b, None, m, None)   # head-sharded
+    return KVCache(k=spec, v=spec)
+
+
 @dataclasses.dataclass
 class SSMCache:
     """Mamba2 decode state: conv ring + SSD state, stacked over layers.
@@ -99,6 +126,12 @@ def ssm_cache_zeros(
                     state=torch.zeros_like(s.state, device=device))
 
 
+def ssm_cache_spec(cfg: ModelConfig, policy: ShardingPolicy) -> SSMCache:
+    b = policy.physical("batch")
+    m = policy.physical("model")
+    return SSMCache(conv=P(None, b, None, None), state=P(None, b, m, None, None))
+
+
 @dataclasses.dataclass
 class HybridCache:
     """Zamba2 decode state: SSM caches for every Mamba2 layer + KV caches for
@@ -125,6 +158,10 @@ def hybrid_cache_zeros(
         ssm=ssm_cache_zeros(cfg, batch, layers=cfg.num_layers, device=device),
         kv=kv_cache_zeros(cfg, batch, seq_len, layers=n_inv, device=device),
     )
+
+
+def hybrid_cache_spec(cfg: ModelConfig, policy: ShardingPolicy) -> HybridCache:
+    return HybridCache(ssm=ssm_cache_spec(cfg, policy), kv=kv_cache_spec(cfg, policy))
 
 
 @dataclasses.dataclass
@@ -158,3 +195,61 @@ def encdec_cache_zeros(
         cross_k=torch.zeros_like(s.cross_k, device=device),
         cross_v=torch.zeros_like(s.cross_v, device=device),
     )
+
+
+def encdec_cache_spec(cfg: ModelConfig, policy: ShardingPolicy) -> EncDecCache:
+    b = policy.physical("batch")
+    m = policy.physical("model")
+    cross = P(None, b, None, m, None)
+    return EncDecCache(self_kv=kv_cache_spec(cfg, policy), cross_k=cross, cross_v=cross)
+
+
+def map_cache(fn, cache: Any, *others: Any) -> Any:
+    """``fn(tensor, *matching leaves of others)`` over the tensors of a cache
+    dataclass (nested caches included), into a cache of the same type."""
+    if dataclasses.is_dataclass(cache):
+        return type(cache)(**{
+            f.name: map_cache(fn, getattr(cache, f.name), *(getattr(o, f.name) for o in others))
+            for f in dataclasses.fields(cache)})
+    return fn(cache, *others)
+
+
+def cache_leaves(cache: Any) -> list:
+    """The tensors of a cache dataclass, nested caches included."""
+    leaves: list = []
+    map_cache(leaves.append, cache)
+    return leaves
+
+
+def place_cache(cache: Any, spec: Any, mesh: Any) -> Any:
+    """``cache`` laid out on ``mesh`` by ``spec`` (a cache of :class:`P`,
+    fitted to each tensor's shape): a plain tensor is placed from its full
+    value (no collective), a ``DTensor`` redistributed."""
+    from repro_torch.sharding.utils import fit_spec, is_dtensor, place, placements
+
+    def one(t, sp):
+        sp = fit_spec(tuple(t.shape), sp, mesh)
+        if is_dtensor(t):
+            return t.redistribute(mesh, placements(sp, mesh))
+        return place(t, sp, mesh)
+
+    return map_cache(one, cache, spec)
+
+
+def zeros_like_spec(shapes: Any, spec: Any, mesh: Any) -> Any:
+    """A zero cache of ``shapes``' shapes and dtypes (a cache of tensors,
+    ``meta`` ones included) on ``mesh``'s device, each tensor allocated as
+    its own shard of ``spec``'s fitted layout: no rank ever holds a full
+    copy."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.utils import _contiguous_strides, fit_spec, local_extent, placements
+
+    def one(t, sp):
+        pls = placements(fit_spec(tuple(t.shape), sp, mesh), mesh)
+        local = [n for _, n in local_extent(t.shape, pls, mesh)]
+        z = torch.zeros(local, dtype=t.dtype, device=mesh.device_type)
+        return DTensor.from_local(z, mesh, pls, run_check=False, shape=t.shape,
+                                  stride=_contiguous_strides(t.shape))
+
+    return map_cache(one, shapes, spec)

@@ -26,6 +26,12 @@ encoder and cross-attention of ``encode`` and ``forward``, and in
 port is held to the reference, so :func:`reference_keys` pads the same keys
 at the same call sites and the kernel attends over them as real keys
 (whisper-medium: 1500 encoder frames, chunk 1024, 548 zero keys).
+
+The entry points take the reference's sharding ``policy`` last
+(``TP_POLICY`` by default); on a mesh the features and token ids are
+placed batch-sharded and the stacks run on ``DTensor``s with the
+reference's ``shard_act`` sites, the cache keeping ``encdec_cache_spec``'s
+layout.
 """
 from __future__ import annotations
 
@@ -33,14 +39,19 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.cache import EncDecCache, KVCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import draw_stacked, layer_params, num_stacked
+from repro_torch.models.transformer import (
+    draw_stacked, layer_params, num_stacked, stacked_specs, token_ids,
+)
+from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
+from repro_torch.sharding.utils import (
+    gather_fsdp, mesh_of, mesh_pad, on_mesh, place_batch, write_rows,
+)
 
 Params = Dict[str, Any]
 
@@ -103,6 +114,31 @@ def init(generator: torch.Generator, cfg: ModelConfig, device: DeviceLike = None
     }
 
 
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
+    enc = {
+        "attn_norm": L.spec_rmsnorm(),
+        "mlp_norm": L.spec_rmsnorm(),
+        "attn": L.spec_attention(policy),
+        "mlp": L.spec_mlp(cfg, policy),
+    }
+    dec = {
+        "self_norm": L.spec_rmsnorm(),
+        "cross_norm": L.spec_rmsnorm(),
+        "mlp_norm": L.spec_rmsnorm(),
+        "self_attn": L.spec_attention(policy),
+        "cross_attn": L.spec_attention(policy),
+        "mlp": L.spec_mlp(cfg, policy),
+    }
+    return {
+        "frontend_proj": P(None, policy.physical("model")),
+        "embed": L.spec_embed(cfg, policy),
+        "enc_layers": stacked_specs(enc),
+        "dec_layers": stacked_specs(dec),
+        "enc_norm": L.spec_rmsnorm(),
+        "final_norm": L.spec_rmsnorm(),
+    }
+
+
 # --------------------------------------------------------------------------
 # Attention without RoPE (Whisper uses absolute positions)
 # --------------------------------------------------------------------------
@@ -122,7 +158,7 @@ def reference_keys(
     if not chunked or causal or t % chunk == 0:
         return k, v
     pad = (0, 0, 0, 0, 0, chunk - t % chunk)
-    return F.pad(k, pad), F.pad(v, pad)
+    return mesh_pad(k, pad), mesh_pad(v, pad)
 
 
 def _attend(
@@ -145,38 +181,48 @@ def _device(params: Params) -> torch.device:
     return params["embed"]["embedding"].device
 
 
-def encode(params: Params, features: Any, cfg: ModelConfig) -> torch.Tensor:
+def encode(params: Params, features: Any, cfg: ModelConfig,
+           policy: ShardingPolicy = TP_POLICY) -> torch.Tensor:
     """Encoder output (B, T_enc, D) from frontend features (B, T_enc,
     enc_inputs)."""
-    features = torch.as_tensor(features, device=_device(params))
-    t = features.shape[1]
-    x = features.to(cfg.activation_dtype()) @ params["frontend_proj"]
-    x = x + sinusoids(t, cfg.d_model, x.device).to(x.dtype)[None]
+    with on_mesh(params):
+        features = torch.as_tensor(features, device=_device(params))
+        mesh = mesh_of(params["frontend_proj"])
+        if mesh is not None:
+            features = place_batch(features, policy, mesh)
+        t = features.shape[1]
+        x = features.to(cfg.activation_dtype()) @ params["frontend_proj"]
+        x = x + sinusoids(t, cfg.d_model, x.device).to(x.dtype)[None]
+        x = shard_act(x, policy, "batch", None, None)
 
-    def body(lp: Params, x: torch.Tensor) -> torch.Tensor:
-        h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-        k, v = L.project_kv(lp["attn"], h)
-        x = x + _attend(lp["attn"], h, k, v, cfg, causal=False, chunked=True)
-        h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        return x + L.mlp_block(lp["mlp"], h, cfg)
+        def body(lp: Params, x: torch.Tensor) -> torch.Tensor:
+            lp = gather_fsdp(lp, policy)
+            h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
+            k, v = L.project_kv(lp["attn"], h)
+            x = x + _attend(lp["attn"], h, k, v, cfg, causal=False, chunked=True)
+            h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+            return shard_act(x + L.mlp_block(lp["mlp"], h, cfg, policy),
+                             policy, "batch", None, None)
 
-    for i in range(num_stacked(params["enc_layers"])):
-        x = L.remat(cfg, body, layer_params(params["enc_layers"], i), x)
-    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+        for i in range(num_stacked(params["enc_layers"])):
+            x = L.remat(cfg, body, layer_params(params["enc_layers"], i), x)
+        return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------
 # Decoder (teacher-forced / prefill / decode)
 # --------------------------------------------------------------------------
 
-def _decoder_input(params: Params, tokens: Any, cfg: ModelConfig) -> torch.Tensor:
-    tokens = torch.as_tensor(tokens, device=_device(params)).long()
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+def _decoder_input(params: Params, tokens: Any, cfg: ModelConfig,
+                   policy: ShardingPolicy) -> torch.Tensor:
+    tokens = token_ids(tokens, params, policy)
+    x = L.embed_tokens(params["embed"], tokens, cfg, policy)
     return x + sinusoids(tokens.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
 
 
 def _decoder(
     params: Params, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig, cached: bool,
+    policy: ShardingPolicy,
 ) -> Tuple[torch.Tensor, Optional[EncDecCache]]:
     """The decoder stack over a full sequence.  ``cached`` (prefill) takes
     the reference's ``_attend_cached`` paths (chunked only where the keys
@@ -186,6 +232,7 @@ def _decoder(
     caches = []
 
     def body(lp: Params, x: torch.Tensor, enc_out: torch.Tensor):
+        lp = gather_fsdp(lp, policy)
         h = L.rmsnorm(lp["self_norm"], x, cfg.norm_eps)
         sk, sv = L.project_kv(lp["self_attn"], h)
         chunked = sk.shape[1] > cfg.attn_chunk or not cached
@@ -195,7 +242,8 @@ def _decoder(
         chunked = ck.shape[1] > cfg.attn_chunk or not cached
         x = x + _attend(lp["cross_attn"], h, ck, cv, cfg, causal=False, chunked=chunked)
         h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        return x + L.mlp_block(lp["mlp"], h, cfg), (sk, sv, ck, cv)
+        x = x + L.mlp_block(lp["mlp"], h, cfg, policy)
+        return shard_act(x, policy, "batch", None, None), (sk, sv, ck, cv)
 
     for i in range(num_stacked(layers)):
         x, kv = L.remat(cfg, body, layer_params(layers, i), x, enc_out)
@@ -208,65 +256,73 @@ def _decoder(
 
 
 def forward(
-    params: Params, features: Any, tokens: Any, cfg: ModelConfig
+    params: Params, features: Any, tokens: Any, cfg: ModelConfig,
+    policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced pass -> (logits (B, S, V), aux = 0)."""
-    enc_out = encode(params, features, cfg)
-    x, _ = _decoder(params, _decoder_input(params, tokens, cfg), enc_out, cfg, cached=False)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.unembed(params["embed"], x, cfg), aux
+    with on_mesh(params):
+        enc_out = encode(params, features, cfg, policy)
+        x, _ = _decoder(params, _decoder_input(params, tokens, cfg, policy), enc_out, cfg,
+                        cached=False, policy=policy)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return L.unembed(params["embed"], x, cfg, policy), aux
 
 
 def prefill(
-    params: Params, features: Any, tokens: Any, cfg: ModelConfig
+    params: Params, features: Any, tokens: Any, cfg: ModelConfig,
+    policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, EncDecCache]:
     """Encode the audio and consume the decoder prompt: last-position logits
     (B, V) and the caches (self K/V of the prompt, cross K/V of the
     encoder output, each (L, B, T, Hk, Dh))."""
-    enc_out = encode(params, features, cfg)
-    x, cache = _decoder(params, _decoder_input(params, tokens, cfg), enc_out, cfg, cached=True)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg)[:, 0], cache
+    with on_mesh(params):
+        enc_out = encode(params, features, cfg, policy)
+        x, cache = _decoder(params, _decoder_input(params, tokens, cfg, policy), enc_out, cfg,
+                            cached=True, policy=policy)
+        x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        return L.unembed(params["embed"], x, cfg, policy)[:, 0], cache
 
 
 def decode_step(
     params: Params, token: Any, cache: EncDecCache, cache_len: int, cfg: ModelConfig,
+    policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, EncDecCache]:
     """One decode step: logits (B, V) for the next position + the cache.
 
     The token's self K/V are written into ``cache.self_kv`` in place at
     slot ``cache_len`` of every layer (no ring: Whisper has no window), and
     ``cache`` itself is returned; the reference returns an updated copy."""
-    token = torch.as_tensor(token, device=_device(params)).long()
-    cache_len = int(cache_len)
-    x = L.embed_tokens(params["embed"], token[:, None], cfg)  # (B, 1, D)
-    pos = torch.full((1,), cache_len, device=x.device)
-    x = x + _sinusoid_rows(pos, cfg.d_model).to(x.dtype)[None]
-    b = x.shape[0]
-    t_self = cache.self_kv.capacity
-    kpos = torch.arange(t_self, device=x.device)
-    valid = (kpos <= cache_len)[None, :].expand(b, t_self)
-    epos = torch.arange(cache.cross_k.shape[2], device=x.device)
-    for i in range(num_stacked(params["dec_layers"])):
-        lp = layer_params(params["dec_layers"], i)
-        h = L.rmsnorm(lp["self_norm"], x, cfg.norm_eps)
-        nk, nv = L.project_kv(lp["self_attn"], h)
-        sk, sv = cache.self_kv.k[i], cache.self_kv.v[i]
-        sk[:, cache_len] = nk[:, 0].to(sk.dtype)
-        sv[:, cache_len] = nv[:, 0].to(sv.dtype)
-        q = torch.einsum("bsd,dhk->bshk", h, lp["self_attn"]["wq"])
-        out = L.attention_decode(q, sk, sv, kpos, cache_len, kv_valid=valid)
-        x = x + torch.einsum("bshk,hkd->bsd", out, lp["self_attn"]["wo"])
+    with on_mesh(params):
+        token = token_ids(token, params, policy)
+        cache_len = int(cache_len)
+        x = L.embed_tokens(params["embed"], token[:, None], cfg, policy)  # (B, 1, D)
+        pos = torch.full((1,), cache_len, device=x.device)
+        x = x + _sinusoid_rows(pos, cfg.d_model).to(x.dtype)[None]
+        b = x.shape[0]
+        t_self = cache.self_kv.capacity
+        kpos = torch.arange(t_self, device=x.device)
+        valid = (kpos <= cache_len)[None, :].expand(b, t_self)
+        epos = torch.arange(cache.cross_k.shape[2], device=x.device)
+        for i in range(num_stacked(params["dec_layers"])):
+            lp = gather_fsdp(layer_params(params["dec_layers"], i), policy)
+            h = L.rmsnorm(lp["self_norm"], x, cfg.norm_eps)
+            nk, nv = L.project_kv(lp["self_attn"], h)
+            sk, sv = cache.self_kv.k[i], cache.self_kv.v[i]
+            write_rows(sk, 1, cache_len, nk.to(sk.dtype))
+            write_rows(sv, 1, cache_len, nv.to(sv.dtype))
+            q = torch.einsum("bsd,dhk->bshk", h, lp["self_attn"]["wq"])
+            out = L.attention_decode(q, sk, sv, kpos, cache_len, kv_valid=valid)
+            x = x + torch.einsum("bshk,hkd->bsd", out, lp["self_attn"]["wo"])
 
-        h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", h, lp["cross_attn"]["wq"])
-        ck, cv = reference_keys(cache.cross_k[i], cache.cross_v[i], cfg.attn_chunk,
-                                chunked=epos.shape[0] > cfg.attn_chunk, causal=False)
-        out = L.attention_dense(q, ck, cv, pos, epos, causal=False)
-        x = x + torch.einsum("bshk,hkd->bsd", out, lp["cross_attn"]["wo"])
+            h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
+            q = torch.einsum("bsd,dhk->bshk", h, lp["cross_attn"]["wq"])
+            ck, cv = reference_keys(cache.cross_k[i], cache.cross_v[i], cfg.attn_chunk,
+                                    chunked=epos.shape[0] > cfg.attn_chunk, causal=False)
+            out = L.attention_dense(q, ck, cv, pos, epos, causal=False)
+            x = x + torch.einsum("bshk,hkd->bsd", out, lp["cross_attn"]["wo"])
 
-        h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
-        x = x + L.mlp_block(lp["mlp"], h, cfg)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg)[:, 0], cache
+            h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
+            x = x + L.mlp_block(lp["mlp"], h, cfg, policy)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return L.unembed(params["embed"], x, cfg, policy)[:, 0], cache

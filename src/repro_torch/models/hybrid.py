@@ -20,7 +20,11 @@ plain versions on the CPU), where the reference calls its jnp oracles.
 Decode uses :class:`~repro_torch.models.cache.HybridCache` — SSM state for
 every Mamba2 layer and a KV cache per shared-attention invocation — and
 updates it in place.  Mamba2 parameters are stacked (n_inv, period, ...),
-as in the reference, and looped where the reference scans.
+as in the reference, and looped where the reference scans.  The entry
+points take the reference's sharding ``policy`` last (``TP_POLICY`` by
+default); on a mesh they run on ``DTensor``s as ``models.ssm`` and
+``models.transformer`` do, the cache keeping ``hybrid_cache_spec``'s
+layout.
 """
 from __future__ import annotations
 
@@ -34,7 +38,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as M
 from repro_torch.models.cache import HybridCache, KVCache, SSMCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import draw_stacked, layer_params
+from repro_torch.models.transformer import draw_stacked, layer_params, stacked_specs, token_ids
+from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
+from repro_torch.sharding.utils import gather_fsdp, on_mesh, write_rows
 
 Params = Dict[str, Any]
 
@@ -83,6 +89,25 @@ def init(generator: torch.Generator, cfg: ModelConfig, device: DeviceLike = None
     return params
 
 
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
+    specs = {
+        "embed": L.spec_embed(cfg, policy),
+        "mamba": stacked_specs(M.spec_mamba_block(cfg, policy), depth=2),
+        "shared_attn": L.spec_attention(policy),
+        "shared_mlp": L.spec_mlp(cfg, policy),
+        "inv_norms": stacked_specs(L.spec_rmsnorm()),
+    }
+    if cfg.hybrid_lora_rank > 0:
+        specs["inv_lora"] = {
+            "aq": P(None, None, None),
+            "bq": P(None, None, policy.physical("model"), None),
+            "akv": P(None, None, None),
+            "bkv": P(None, None, None, None, None),
+        }
+    specs["final_norm"] = L.spec_rmsnorm()
+    return specs
+
+
 def _lora_qkv(params: Params, inv_lora: Optional[Params], h: torch.Tensor):
     """Shared-weight q/k/v projections + per-invocation LoRA deltas."""
     ap = params["shared_attn"]
@@ -115,6 +140,7 @@ def _shared_attn_apply(
     kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_len: Optional[int] = None,
     inv_lora: Optional[Params] = None,
+    policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The shared attention and MLP on one normed ``h``, both added to ``x``.
 
@@ -125,6 +151,7 @@ def _shared_attn_apply(
     ``cache_len % T`` and it attends over slots ``<= cache_len`` (no ring
     handling, as in the reference).
     """
+    params = gather_fsdp({k: params[k] for k in ("shared_attn", "shared_mlp")}, policy)
     h = L.rmsnorm(inv_norm, x, cfg.norm_eps)
     ap = params["shared_attn"]
     q, k_new, v_new = _lora_qkv(params, inv_lora, h)
@@ -134,8 +161,8 @@ def _shared_attn_apply(
         ck, cv = kv
         t = ck.shape[1]
         idx = int(cache_len) % t
-        ck[:, idx] = k_new[:, 0].to(ck.dtype)
-        cv[:, idx] = v_new[:, 0].to(cv.dtype)
+        write_rows(ck, 1, idx, k_new.to(ck.dtype))
+        write_rows(cv, 1, idx, v_new.to(cv.dtype))
         k_pos = torch.arange(t, device=x.device)
         kv_valid = (k_pos <= cache_len)[None, :].expand(x.shape[0], t)
         attn = L.attention_decode(
@@ -146,13 +173,8 @@ def _shared_attn_apply(
         attn = ops.flash_attention_bhsd(q, k_new, v_new, causal=True, window=cfg.sliding_window)
         new_kv = (k_new, v_new)
     x = x + torch.einsum("bshk,hkd->bsd", attn, ap["wo"])
-    x = x + L.mlp_block(params["shared_mlp"], h, cfg)
-    return x, new_kv
-
-
-def _tokens(tokens: Any, params: Params) -> torch.Tensor:
-    device = params["embed"]["embedding"].device
-    return torch.as_tensor(tokens, device=device).long()
+    x = x + L.mlp_block(params["shared_mlp"], h, cfg, policy)
+    return shard_act(x, policy, "batch", None, None), new_kv
 
 
 def _mamba(params: Params, i: int, j: int) -> Params:
@@ -160,55 +182,59 @@ def _mamba(params: Params, i: int, j: int) -> Params:
 
 
 def forward(
-    params: Params, tokens: Any, cfg: ModelConfig
+    params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits (B, S, V) and a zero aux loss."""
     n_inv, period = _n_inv(cfg), cfg.hybrid_attn_period
-    tokens = _tokens(tokens, params)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
-    q_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+    with on_mesh(params):
+        tokens = token_ids(tokens, params, policy)
+        x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+        q_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
 
-    def inner(lp: Params, x: torch.Tensor) -> torch.Tensor:
-        y, _ = M.mamba_block(lp, x, cfg)
-        return x + y
+        def inner(lp: Params, x: torch.Tensor) -> torch.Tensor:
+            y, _ = M.mamba_block(lp, x, cfg, policy=policy)
+            return x + y
 
-    for i in range(n_inv):
-        for j in range(period):
-            x = L.remat(cfg, inner, _mamba(params, i, j), x)
-        inv_norm, inv_lora = _invocation(params, i)
-        x, _ = _shared_attn_apply(params, inv_norm, x, cfg, q_pos, inv_lora=inv_lora)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(n_inv):
+            for j in range(period):
+                x = L.remat(cfg, inner, _mamba(params, i, j), x)
+            inv_norm, inv_lora = _invocation(params, i)
+            x, _ = _shared_attn_apply(params, inv_norm, x, cfg, q_pos, inv_lora=inv_lora,
+                                      policy=policy)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.unembed(params["embed"], x, cfg, policy)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def prefill(
-    params: Params, tokens: Any, cfg: ModelConfig
+    params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, HybridCache]:
     """Prompt pass: last-position logits + the SSM caches of every Mamba2
     layer and the roped K / raw V of every shared-attention invocation."""
     n_inv, period = _n_inv(cfg), cfg.hybrid_attn_period
-    tokens = _tokens(tokens, params)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
-    q_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
-    tails, states, ks, vs = [], [], [], []
-    for i in range(n_inv):
-        for j in range(period):
-            y, tail, final = M.mamba_sequence(_mamba(params, i, j), x, cfg)
-            x = x + y
-            tails.append(tail)
-            states.append(final)
-        inv_norm, inv_lora = _invocation(params, i)
-        x, (k, v) = _shared_attn_apply(params, inv_norm, x, cfg, q_pos, inv_lora=inv_lora)
-        ks.append(k)
-        vs.append(v)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
-    cache = HybridCache(
-        ssm=SSMCache(conv=torch.stack(tails), state=torch.stack(states)),
-        kv=KVCache(k=torch.stack(ks), v=torch.stack(vs)),
-    )
-    return logits[:, 0], cache
+    with on_mesh(params):
+        tokens = token_ids(tokens, params, policy)
+        x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+        q_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+        tails, states, ks, vs = [], [], [], []
+        for i in range(n_inv):
+            for j in range(period):
+                y, tail, final = M.mamba_sequence(_mamba(params, i, j), x, cfg, policy)
+                x = x + y
+                tails.append(tail)
+                states.append(final)
+            inv_norm, inv_lora = _invocation(params, i)
+            x, (k, v) = _shared_attn_apply(params, inv_norm, x, cfg, q_pos,
+                                           inv_lora=inv_lora, policy=policy)
+            ks.append(k)
+            vs.append(v)
+        x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        logits = L.unembed(params["embed"], x, cfg, policy)
+        cache = HybridCache(
+            ssm=SSMCache(conv=torch.stack(tails), state=torch.stack(states)),
+            kv=KVCache(k=torch.stack(ks), v=torch.stack(vs)),
+        )
+        return logits[:, 0], cache
 
 
 def decode_step(
@@ -217,29 +243,32 @@ def decode_step(
     cache: HybridCache,
     cache_len: int,             # number of tokens already cached
     cfg: ModelConfig,
+    policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, HybridCache]:
     """One decode step: logits (B, V) + the cache, updated **in place** (every
     Mamba2 layer's conv window and state, every invocation's K/V slot
     ``cache_len % T``) and returned — the reference returns an updated copy."""
     n_inv, period = _n_inv(cfg), cfg.hybrid_attn_period
-    token = _tokens(token, params)
-    x = L.embed_tokens(params["embed"], token[:, None], cfg)
-    q_pos = torch.full((1,), int(cache_len), dtype=torch.int32, device=x.device)
-    for i in range(n_inv):
-        for j in range(period):
-            layer = i * period + j
-            y, (conv, state) = M.mamba_block(
-                _mamba(params, i, j), x, cfg,
-                cache=(cache.ssm.conv[layer], cache.ssm.state[layer]),
+    with on_mesh(params):
+        token = token_ids(token, params, policy)
+        x = L.embed_tokens(params["embed"], token[:, None], cfg, policy)
+        q_pos = torch.full((1,), int(cache_len), dtype=torch.int32, device=x.device)
+        for i in range(n_inv):
+            for j in range(period):
+                layer = i * period + j
+                y, (conv, state) = M.mamba_block(
+                    _mamba(params, i, j), x, cfg,
+                    cache=(cache.ssm.conv[layer], cache.ssm.state[layer]), policy=policy,
+                )
+                write_rows(cache.ssm.conv, 0, layer, conv[None])
+                write_rows(cache.ssm.state, 0, layer, state[None])
+                x = x + y
+            inv_norm, inv_lora = _invocation(params, i)
+            x, _ = _shared_attn_apply(
+                params, inv_norm, x, cfg, q_pos,
+                kv=(cache.kv.k[i], cache.kv.v[i]), cache_len=cache_len, inv_lora=inv_lora,
+                policy=policy,
             )
-            cache.ssm.conv[layer] = conv
-            cache.ssm.state[layer] = state
-            x = x + y
-        inv_norm, inv_lora = _invocation(params, i)
-        x, _ = _shared_attn_apply(
-            params, inv_norm, x, cfg, q_pos,
-            kv=(cache.kv.k[i], cache.kv.v[i]), cache_len=cache_len, inv_lora=inv_lora,
-        )
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
-    return logits[:, 0], cache
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.unembed(params["embed"], x, cfg, policy)
+        return logits[:, 0], cache

@@ -17,9 +17,16 @@ Conventions, as in the reference:
   reference's online softmax over KV chunks (the reference computes that
   branch in jnp too, outside any Pallas kernel).
 
-The reference's sharding ``policy`` arguments are no-ops on one device and
-are dropped.  Where the reference wraps a layer body in ``jax.checkpoint``
-under ``cfg.remat``, the port calls it through :func:`remat`.
+Every ``init_*`` with weights has a ``spec_*`` returning the reference's
+ideal layout as a tree of the port's :class:`~repro_torch.sharding.policy.P`
+for a :class:`~repro_torch.sharding.policy.ShardingPolicy`; the apply
+functions take the policy as a trailing argument (``TP_POLICY`` by
+default) and constrain activations with ``shard_act`` at the reference's
+sites.  On a mesh (parameters placed as ``DTensor``s by ``fit_specs``)
+those constraints redistribute; off a mesh they return their input, so the
+computation is the one-device one, bit for bit.  Where the reference wraps
+a layer body in ``jax.checkpoint`` under ``cfg.remat``, the port calls it
+through :func:`remat`.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import tree_leaves
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
+from repro_torch.sharding.utils import gather_fsdp, is_dtensor, local_extent, mesh_pad, write_rows
 
 Params = Dict[str, Any]
 
@@ -86,6 +95,10 @@ def embed_init(
 
 def init_rmsnorm(dim: int, dtype: torch.dtype, device: torch.device) -> Params:
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def spec_rmsnorm() -> Params:
+    return {"scale": P(None)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -144,6 +157,17 @@ def project_kv(params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     return kv[:, :, 0], kv[:, :, 1]
 
 
+def spec_attention(policy: ShardingPolicy) -> Params:
+    """Ideal specs; ``fit_specs`` drops axes that do not divide (e.g. MQA's
+    single KV head over a 16-way model axis falls back to replicated)."""
+    m, f = policy.physical("model"), policy.physical("fsdp")
+    return {
+        "wq": P(f, m, None),
+        "w_kv": P(f, None, m, None),
+        "wo": P(m, None, f),
+    }
+
+
 def _causal_window_mask(
     q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int]
 ) -> torch.Tensor:
@@ -152,6 +176,25 @@ def _causal_window_mask(
     if window is not None:
         mask &= (q_pos[..., :, None] - k_pos[..., None, :]) < window
     return mask
+
+
+def _groupable(q: torch.Tensor, hk: int) -> torch.Tensor:
+    """``q`` (B, S, Hq, Dh) ready to view as (.., Hk, G, Dh): on a mesh a
+    head split that the Hk KV heads do not divide (GQA over a wide model
+    axis, whose cache shards the sequence instead) is gathered; q is one
+    token's or one prompt's worth, never a cache."""
+    if not is_dtensor(q):
+        return q
+    from torch.distributed.tensor import Replicate
+
+    mesh, split, pls = q.device_mesh, 1, []
+    for mdim, pl in enumerate(q.placements):
+        if pl.is_shard(2) and hk % (split * mesh.size(mdim)) == 0:
+            split *= mesh.size(mdim)
+        elif pl.is_shard(2):
+            pl = Replicate()
+        pls.append(pl)
+    return q if tuple(pls) == tuple(q.placements) else q.redistribute(mesh, pls)
 
 
 def _masked(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -172,7 +215,7 @@ def attention_dense(
     b, s, hq, dh = q.shape
     hk = k.shape[2]
     g = hq // hk
-    qg = q.reshape(b, s, hk, g, dh)
+    qg = _groupable(q, hk).reshape(b, s, hk, g, dh)
     scores = torch.einsum("bshgd,bthd->bhgst", qg, k).float()
     scores = scores * (1.0 / math.sqrt(dh))
     if causal:
@@ -213,14 +256,14 @@ def attention_chunked(
     g = hq // hk
     if t % chunk != 0:
         pad = chunk - t % chunk
-        k = F.pad(k, (0, 0, 0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k = mesh_pad(k, (0, 0, 0, 0, 0, pad))
+        v = mesh_pad(v, (0, 0, 0, 0, 0, pad))
         k_pos = F.pad(k_pos, (0, pad), value=torch.iinfo(torch.int32).max)
         if kv_valid is not None:
             kv_valid = F.pad(kv_valid, (0, pad), value=False)
         t = k.shape[1]
     n_chunks = t // chunk
-    qg = q.reshape(b, s, hk, g, dh).float() / math.sqrt(dh)
+    qg = _groupable(q, hk).reshape(b, s, hk, g, dh).float() / math.sqrt(dh)
     m = torch.full((b, hk, g, s), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hk, g, s), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, hk, g, s, dh), dtype=torch.float32, device=q.device)
@@ -267,7 +310,7 @@ def attention_decode(
         raise ValueError(f"attention_decode takes one query token, got {s}")
     hk = k.shape[2]
     g = hq // hk
-    qg = q.reshape(b, hk, g, dh)
+    qg = _groupable(q, hk).reshape(b, hk, g, dh)
     scores = torch.einsum("bhgd,bthd->bhgt", qg.float(), k.float())
     scores = scores * (1.0 / math.sqrt(dh))
     mask = k_pos[None, None, None, :] <= q_pos_scalar
@@ -287,6 +330,7 @@ def attention_block(
     q_pos: torch.Tensor,
     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_len: Optional[int] = None,
+    policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Full attention sub-layer: proj -> rope -> attend -> out-proj.
 
@@ -302,11 +346,14 @@ def attention_block(
     several-token write starts at ``min(cache_len % T, T - S)``, where the
     reference's ``dynamic_update_slice`` clamps it, while the keys' validity
     and ring positions are taken from the unclamped slot and ``cache_len``,
-    as there (so only keys up to position ``cache_len`` are valid).
+    as there (so only keys up to position ``cache_len`` are valid).  On a
+    mesh the write lands on each rank's shard of the cache, which keeps its
+    layout (:func:`~repro_torch.sharding.utils.write_rows`).
     Returns (output, cache).
     """
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k, v = project_kv(params, x)
+    q = shard_act(q, policy, "batch", None, "model", None)
     q = apply_rope(q, q_pos, cfg.rope_theta)
     k = apply_rope(k, q_pos, cfg.rope_theta)
 
@@ -317,8 +364,8 @@ def attention_block(
         s = q.shape[1]
         idx = int(cache_len) % t
         start = min(idx, t - s)
-        ck[:, start:start + s] = k.to(ck.dtype)
-        cv[:, start:start + s] = v.to(cv.dtype)
+        write_rows(ck, 1, start, k.to(ck.dtype))
+        write_rows(cv, 1, start, v.to(cv.dtype))
         new_cache = (ck, cv)
         k_pos_full = torch.arange(t, device=x.device)
         if cfg.sliding_window is not None and t <= cfg.sliding_window:
@@ -344,7 +391,7 @@ def attention_block(
             q, k, v, causal=True, window=cfg.sliding_window,
         )
     y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return y, new_cache
+    return shard_act(y, policy, "batch", None, None), new_cache
 
 
 # --------------------------------------------------------------------------
@@ -371,7 +418,15 @@ def init_mlp(
     }
 
 
-def mlp_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def spec_mlp(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
+    m, f = policy.physical("model"), policy.physical("fsdp")
+    if cfg.activation == "swiglu":
+        return {"w_gu": P(f, None, m), "w_down": P(m, f)}
+    return {"w_up": P(f, m), "w_down": P(m, f)}
+
+
+def mlp_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              policy: ShardingPolicy = TP_POLICY) -> torch.Tensor:
     if cfg.activation == "swiglu":
         gu = torch.einsum("bsd,dkf->bskf", x, params["w_gu"])
         g, u = gu[:, :, 0], gu[:, :, 1]
@@ -387,7 +442,8 @@ def mlp_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
             h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
         else:
             raise ValueError(f"unknown activation {cfg.activation}")
-    return h @ params["w_down"]
+    h = shard_act(h, policy, "batch", None, "model")
+    return shard_act(h @ params["w_down"], policy, "batch", None, None)
 
 
 # --------------------------------------------------------------------------
@@ -403,13 +459,65 @@ def init_embed(generator: torch.Generator, cfg: ModelConfig, device: torch.devic
     return p
 
 
-def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The table cast to the activation dtype, then gathered."""
-    return params["embedding"].to(cfg.activation_dtype())[tokens]
+def spec_embed(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
+    m, f = policy.physical("model"), policy.physical("fsdp")
+    p = {"embedding": P(m, f)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = P(f, m)
+    return p
 
 
-def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                 policy: ShardingPolicy = TP_POLICY) -> torch.Tensor:
+    """The table cast to the activation dtype, then gathered (on a mesh per
+    rank, :func:`_embed_on_mesh`)."""
+    table = params["embedding"].to(cfg.activation_dtype())
+    x = _embed_on_mesh(table, tokens) if is_dtensor(table) else table[tokens]
+    return shard_act(x, policy, "batch", None, None)
+
+
+def _embed_on_mesh(table: Any, tokens: Any) -> Any:
+    """The rows of a ``DTensor`` table for ``tokens``, through ``local_map``.
+
+    The vocabulary keeps its split where the tokens are whole (the rest of
+    the table is gathered): each rank looks up the tokens of its own rows
+    and leaves zeros elsewhere, so the result is a partial sum over the
+    vocabulary shards — exactly one nonzero term per token — that the
+    caller's ``shard_act`` reduces.  The table's gradient lands in its
+    vocabulary shards, a partial sum over the batch shards.  (DTensor's
+    own ``embedding`` rule, a masked partial, has no sound backward on a
+    batch-sharded mesh.)
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    tokpl = (tokens.placements if isinstance(tokens, DTensor)
+             else (Replicate(),) * mesh.ndim)
+    # A mesh dim that splits the tokens' batch cannot split the vocabulary.
+    tpl = [pl if pl == Shard(0) and not k.is_shard() else Replicate()
+           for pl, k in zip(table.placements, tokpl)]
+    off, n = local_extent(table.shape, tpl, mesh)[0]
+    out = [Partial() if t.is_shard() else k for t, k in zip(tpl, tokpl)]
+    grad = [t if t.is_shard() else (Partial() if k.is_shard() else Replicate())
+            for t, k in zip(tpl, tokpl)]
+
+    def lookup(tab: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+        local = tok - off
+        hit = ((local >= 0) & (local < n))[..., None]
+        rows = tab[local.clamp(0, n - 1)]
+        return torch.where(hit, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+    return local_map(
+        lookup, out_placements=out, in_placements=(tpl, tokpl),
+        in_grad_placements=(grad, tokpl), device_mesh=mesh, redistribute_inputs=True,
+    )(table, tokens)
+
+
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
+            policy: ShardingPolicy = TP_POLICY) -> torch.Tensor:
+    params = gather_fsdp(params, policy)
     w = (
         params["embedding"].T if cfg.tie_embeddings else params["unembed"]
     ).to(cfg.activation_dtype())
-    return x @ w
+    return shard_act(x @ w, policy, "batch", None, "model")

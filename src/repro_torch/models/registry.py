@@ -5,24 +5,27 @@
 signatures regardless of family, so the server never branches on
 architecture:
 
-  init(generator, device=None)           -> params
-  forward(params, batch)                 -> (logits, aux_loss)
-  prefill(params, batch)                 -> (last_logits, cache)
-  decode_step(params, token, cache, n)   -> (logits, cache)
-  cache_shape(batch, seq_len)            -> cache of meta tensors
-  make_batch(tokens, features=None)      -> batch
+  init(generator, device=None)                   -> params
+  param_specs(policy)                            -> spec tree of params
+  forward(params, batch, policy=TP)              -> (logits, aux_loss)
+  prefill(params, batch, policy=TP)              -> (last_logits, cache)
+  decode_step(params, token, cache, n, policy=TP) -> (logits, cache)
+  cache_shape(batch, seq_len)                    -> cache of meta tensors
+  cache_spec(policy)                             -> cache of specs
+  make_batch(tokens, features=None)              -> batch
 
 ``make_batch`` builds what ``forward`` and ``prefill`` take: for ``encdec``
 a dict with ``features`` and ``tokens``; every other family takes the
-token ids and ignores ``features``.
+token ids and ignores ``features``.  The policy is the reference's, as a
+trailing argument defaulting to ``TP_POLICY``: it matters only on a mesh,
+where the parameters are ``DTensor``s placed by
+``fit_specs(params, param_specs(policy), mesh)``.
 
 Unlike the reference, which returns an updated copy, ``decode_step``
 updates ``cache`` in place (the token's K/V at slot ``n % capacity`` of
-every attention layer, every Mamba2 layer's conv window and SSD state) and
+every attention layer, every Mamba2 layer's conv window and SSD state;
+on a mesh on each rank's shards, the cache keeping its layout) and
 returns that same object.
-
-The reference's sharding members (``param_specs``, ``cache_spec``) come
-with the next slice (ROADMAP item 9b).
 """
 from __future__ import annotations
 
@@ -32,52 +35,55 @@ from typing import Callable
 from repro_torch.models import cache as C
 from repro_torch.models import encdec, hybrid, ssm, transformer
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.policy import TP_POLICY
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     cfg: ModelConfig
     init: Callable
+    param_specs: Callable
     forward: Callable
     prefill: Callable
     decode_step: Callable
     cache_shape: Callable
+    cache_spec: Callable
     make_batch: Callable = lambda tokens, features=None: tokens
 
 
-def _transformer_api(cfg: ModelConfig) -> ModelApi:
+def _api(cfg: ModelConfig, module, cache_shape: Callable, cache_spec: Callable) -> ModelApi:
+    """The API of a family whose ``forward`` and ``prefill`` take the batch
+    as it comes (token ids)."""
     return ModelApi(
         cfg=cfg,
-        init=lambda generator, device=None: transformer.init(generator, cfg, device),
-        forward=lambda p, tokens: transformer.forward(p, tokens, cfg),
-        prefill=lambda p, tokens: transformer.prefill(p, tokens, cfg),
-        decode_step=lambda p, tok, cache, n: transformer.decode_step(
-            p, tok, cache, n, cfg
+        init=lambda generator, device=None: module.init(generator, cfg, device),
+        param_specs=lambda policy: module.param_specs(cfg, policy),
+        forward=lambda p, tokens, policy=TP_POLICY: module.forward(p, tokens, cfg, policy=policy),
+        prefill=lambda p, tokens, policy=TP_POLICY: module.prefill(p, tokens, cfg, policy=policy),
+        decode_step=lambda p, tok, cache, n, policy=TP_POLICY: module.decode_step(
+            p, tok, cache, n, cfg, policy=policy
         ),
-        cache_shape=lambda batch, seq_len: C.kv_cache_shape(cfg, batch, seq_len),
+        cache_shape=cache_shape,
+        cache_spec=cache_spec,
     )
+
+
+def _transformer_api(cfg: ModelConfig) -> ModelApi:
+    return _api(cfg, transformer,
+                lambda batch, seq_len: C.kv_cache_shape(cfg, batch, seq_len),
+                lambda policy: C.kv_cache_spec(cfg, policy))
 
 
 def _ssm_api(cfg: ModelConfig) -> ModelApi:
-    return ModelApi(
-        cfg=cfg,
-        init=lambda generator, device=None: ssm.init(generator, cfg, device),
-        forward=lambda p, tokens: ssm.forward(p, tokens, cfg),
-        prefill=lambda p, tokens: ssm.prefill(p, tokens, cfg),
-        decode_step=lambda p, tok, cache, n: ssm.decode_step(p, tok, cache, n, cfg),
-        cache_shape=lambda batch, seq_len: C.ssm_cache_shape(cfg, batch),
-    )
+    return _api(cfg, ssm,
+                lambda batch, seq_len: C.ssm_cache_shape(cfg, batch),
+                lambda policy: C.ssm_cache_spec(cfg, policy))
 
 
 def _hybrid_api(cfg: ModelConfig) -> ModelApi:
-    return ModelApi(
-        cfg=cfg,
-        init=lambda generator, device=None: hybrid.init(generator, cfg, device),
-        forward=lambda p, tokens: hybrid.forward(p, tokens, cfg),
-        prefill=lambda p, tokens: hybrid.prefill(p, tokens, cfg),
-        decode_step=lambda p, tok, cache, n: hybrid.decode_step(p, tok, cache, n, cfg),
-        cache_shape=lambda batch, seq_len: C.hybrid_cache_shape(cfg, batch, seq_len),
-    )
+    return _api(cfg, hybrid,
+                lambda batch, seq_len: C.hybrid_cache_shape(cfg, batch, seq_len),
+                lambda policy: C.hybrid_cache_spec(cfg, policy))
 
 
 # Whisper's encoder output length used by decode-shape caches: 30 s of audio
@@ -89,12 +95,17 @@ def _encdec_api(cfg: ModelConfig) -> ModelApi:
     return ModelApi(
         cfg=cfg,
         init=lambda generator, device=None: encdec.init(generator, cfg, device),
-        forward=lambda p, batch: encdec.forward(p, batch["features"], batch["tokens"], cfg),
-        prefill=lambda p, batch: encdec.prefill(p, batch["features"], batch["tokens"], cfg),
-        decode_step=lambda p, tok, cache, n: encdec.decode_step(p, tok, cache, n, cfg),
+        param_specs=lambda policy: encdec.param_specs(cfg, policy),
+        forward=lambda p, batch, policy=TP_POLICY: encdec.forward(
+            p, batch["features"], batch["tokens"], cfg, policy=policy),
+        prefill=lambda p, batch, policy=TP_POLICY: encdec.prefill(
+            p, batch["features"], batch["tokens"], cfg, policy=policy),
+        decode_step=lambda p, tok, cache, n, policy=TP_POLICY: encdec.decode_step(
+            p, tok, cache, n, cfg, policy=policy),
         cache_shape=lambda batch, seq_len: C.encdec_cache_shape(
             cfg, batch, seq_len, WHISPER_ENC_LEN
         ),
+        cache_spec=lambda policy: C.encdec_cache_spec(cfg, policy),
         make_batch=lambda tokens, features=None: {"features": features, "tokens": tokens},
     )
 

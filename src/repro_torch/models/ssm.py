@@ -15,8 +15,12 @@ recurrence :func:`ssd_decode_step` against an
 
 Layer parameters stay stacked with a leading L axis, as in the reference,
 so its trees carry over unchanged; the port loops over the layers where the
-reference scans.  The reference's sharding ``policy`` arguments are no-ops
-on one device and are dropped.
+reference scans.  The entry points take the reference's sharding ``policy``
+last (``TP_POLICY`` by default).  On a mesh the Mamba2 heads shard over
+``model`` at ``xh`` (the reference's ``shard_act``), the SSD runs on each
+rank's local rows and heads (``ops.ssd_scan``'s ``local_map``), and a
+decode step writes each layer's conv window and state on the local shards
+of the cache, which keeps ``ssm_cache_spec``'s layout.
 """
 from __future__ import annotations
 
@@ -31,7 +35,11 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.cache import SSMCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import draw_stacked, layer_params, num_stacked
+from repro_torch.models.transformer import (
+    draw_stacked, layer_params, num_stacked, stacked_specs, token_ids,
+)
+from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
+from repro_torch.sharding.utils import gather_fsdp, mesh_pad, on_mesh, write_rows
 
 Params = Dict[str, Any]
 
@@ -137,7 +145,7 @@ def ssd_decode_step(state, x, dt, a, b_in, c_in):
 def causal_conv(u: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """u: (B, S, C); kernel: (W, C).  y[t] = sum_w k[w] u[t - W + 1 + w]."""
     w = kernel.shape[0]
-    pad = F.pad(u, (0, 0, w - 1, 0))
+    pad = mesh_pad(u, (0, 0, w - 1, 0))
     s = u.shape[1]
     out = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
     for i in range(w):
@@ -199,6 +207,23 @@ def init_mamba_block(
     }
 
 
+def spec_mamba_block(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
+    m, f = policy.physical("model"), policy.physical("fsdp")
+    return {
+        "norm": L.spec_rmsnorm(),
+        "w_zx": P(f, None, m),
+        "wb": P(f, None),
+        "wc": P(f, None),
+        "wdt": P(f, m),
+        "dt_bias": P(None),
+        "a_log": P(None),
+        "d_skip": P(None),
+        "conv": P(None, None),
+        "gated_norm": L.spec_rmsnorm(),
+        "wo": P(m, f),
+    }
+
+
 def _ssd_inputs(lp: Params, conv_out: torch.Tensor, dt_raw: torch.Tensor, cfg: ModelConfig):
     """Split the conv output into x (B, S, H, P), B, C — views, no copy — and
     form dt (fp32, softplus) and a = -exp(a_log)."""
@@ -222,7 +247,7 @@ def _gate_out(lp: Params, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
 
 
 def mamba_sequence(
-    lp: Params, x: torch.Tensor, cfg: ModelConfig
+    lp: Params, x: torch.Tensor, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One Mamba2 block over a full sequence (residual outside).
 
@@ -231,14 +256,17 @@ def mamba_sequence(
     cache derivation of its ``prefill`` bodies, in one pass.  The SSD goes
     through :func:`repro_torch.kernels.ops.ssd_scan`.
     """
+    lp = gather_fsdp(lp, policy)
     u = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
     z, xin, b_in, c_in, dt_raw = _in_proj(lp, u)
     conv_in = torch.cat([xin, b_in, c_in], dim=-1)  # (B,S,di+2N)
     tail = conv_in[:, -(cfg.ssm_conv_width - 1):, :]
     conv_out = F.silu(causal_conv(conv_in, lp["conv"]).float()).to(conv_in.dtype)
     xh, dt, a, b_ssd, c_ssd = _ssd_inputs(lp, conv_out, dt_raw, cfg)
+    xh = shard_act(xh, policy, "batch", None, "model", None)
     y, final = ops.ssd_scan(xh, dt, a, b_ssd, c_ssd, cfg.ssm_chunk)
-    return _gate_out(lp, y, xh, z, cfg), tail, final
+    out = _gate_out(lp, y, xh, z, cfg)
+    return shard_act(out, policy, "batch", None, None), tail, final
 
 
 def mamba_block(
@@ -246,6 +274,7 @@ def mamba_block(
     x: torch.Tensor,             # (B, S, D)
     cfg: ModelConfig,
     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (conv, state)
+    policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Apply one Mamba2 block (pre-norm, residual outside).
 
@@ -254,10 +283,11 @@ def mamba_block(
     (conv_cache, ssd_state).
     """
     if cache is None:
-        out, _tail, _final = mamba_sequence(params, x, cfg)
+        out, _tail, _final = mamba_sequence(params, x, cfg, policy)
         return out, None
     if x.shape[1] != 1:
         raise ValueError(f"a Mamba2 decode step takes one token, got {x.shape[1]}")
+    params = gather_fsdp(params, policy)
     u = L.rmsnorm(params["norm"], x, cfg.norm_eps)
     z, xin, b_in, c_in, dt_raw = _in_proj(params, u)
     conv_in = torch.cat([xin, b_in, c_in], dim=-1)
@@ -266,7 +296,8 @@ def mamba_block(
     conv_t = F.silu(conv_t.float()).to(conv_in.dtype)
     xh, dt, a, b1, c1 = _ssd_inputs(params, conv_t[:, None], dt_raw, cfg)
     y1, ssd_state = ssd_decode_step(ssd_state, xh[:, 0], dt[:, 0], a, b1[:, 0], c1[:, 0])
-    return _gate_out(params, y1[:, None], xh, z, cfg), (conv_cache, ssd_state)
+    out = _gate_out(params, y1[:, None], xh, z, cfg)
+    return shard_act(out, policy, "batch", None, None), (conv_cache, ssd_state)
 
 
 # --------------------------------------------------------------------------
@@ -290,42 +321,49 @@ def init(generator: torch.Generator, cfg: ModelConfig, device: DeviceLike = None
     }
 
 
-def _tokens(tokens: Any, params: Params) -> torch.Tensor:
-    device = params["embed"]["embedding"].device
-    return torch.as_tensor(tokens, device=device).long()
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
+    return {
+        "embed": L.spec_embed(cfg, policy),
+        "layers": stacked_specs(spec_mamba_block(cfg, policy)),
+        "final_norm": L.spec_rmsnorm(),
+    }
 
 
 def forward(
-    params: Params, tokens: Any, cfg: ModelConfig
+    params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits (B, S, V) and a zero aux loss."""
-    tokens = _tokens(tokens, params)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
+    with on_mesh(params):
+        tokens = token_ids(tokens, params, policy)
+        x = L.embed_tokens(params["embed"], tokens, cfg, policy)
 
-    def body(lp: Params, x: torch.Tensor) -> torch.Tensor:
-        y, _ = mamba_block(lp, x, cfg)
-        return x + y
+        def body(lp: Params, x: torch.Tensor) -> torch.Tensor:
+            y, _ = mamba_block(lp, x, cfg, policy=policy)
+            return x + y
 
-    for i in range(num_stacked(params["layers"])):
-        x = L.remat(cfg, body, layer_params(params["layers"], i), x)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(num_stacked(params["layers"])):
+            x = L.remat(cfg, body, layer_params(params["layers"], i), x)
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.unembed(params["embed"], x, cfg, policy)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def prefill(params: Params, tokens: Any, cfg: ModelConfig) -> Tuple[torch.Tensor, SSMCache]:
+def prefill(
+    params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
+) -> Tuple[torch.Tensor, SSMCache]:
     """Prompt pass returning final logits + SSM state caches per layer."""
-    tokens = _tokens(tokens, params)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
-    tails, states = [], []
-    for i in range(num_stacked(params["layers"])):
-        y, tail, final = mamba_sequence(layer_params(params["layers"], i), x, cfg)
-        x = x + y
-        tails.append(tail)
-        states.append(final)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
-    return logits[:, 0], SSMCache(conv=torch.stack(tails), state=torch.stack(states))
+    with on_mesh(params):
+        tokens = token_ids(tokens, params, policy)
+        x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+        tails, states = [], []
+        for i in range(num_stacked(params["layers"])):
+            y, tail, final = mamba_sequence(layer_params(params["layers"], i), x, cfg, policy)
+            x = x + y
+            tails.append(tail)
+            states.append(final)
+        x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        logits = L.unembed(params["embed"], x, cfg, policy)
+        return logits[:, 0], SSMCache(conv=torch.stack(tails), state=torch.stack(states))
 
 
 def decode_step(
@@ -334,19 +372,22 @@ def decode_step(
     cache: SSMCache,
     cache_len: int,             # unused (the state is a summary); interface parity
     cfg: ModelConfig,
+    policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, SSMCache]:
     """One decode step: logits (B, V) + the cache, updated **in place**
     (every layer's conv window and SSD state) and returned — the reference
     returns an updated copy."""
-    token = _tokens(token, params)
-    x = L.embed_tokens(params["embed"], token[:, None], cfg)
-    for i in range(num_stacked(params["layers"])):
-        y, (conv, state) = mamba_block(
-            layer_params(params["layers"], i), x, cfg, cache=(cache.conv[i], cache.state[i])
-        )
-        cache.conv[i] = conv
-        cache.state[i] = state
-        x = x + y
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
-    return logits[:, 0], cache
+    with on_mesh(params):
+        token = token_ids(token, params, policy)
+        x = L.embed_tokens(params["embed"], token[:, None], cfg, policy)
+        for i in range(num_stacked(params["layers"])):
+            y, (conv, state) = mamba_block(
+                layer_params(params["layers"], i), x, cfg,
+                cache=(cache.conv[i], cache.state[i]), policy=policy,
+            )
+            write_rows(cache.conv, 0, i, conv[None])
+            write_rows(cache.state, 0, i, state[None])
+            x = x + y
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.unembed(params["embed"], x, cfg, policy)
+        return logits[:, 0], cache

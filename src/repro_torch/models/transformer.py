@@ -14,12 +14,20 @@ so its trees carry over unchanged; the port loops over the layers where the
 reference scans.  Every full-sequence attention (``forward``,
 ``hidden_states``, ``prefill``) goes through the flash kernel on CUDA.
 
-Entry points (plain functions; the device is the parameters'):
-  ``init`` — parameters from a ``torch.Generator``.
+Entry points (plain functions; the device is the parameters'; each takes
+the sharding ``policy`` last, ``TP_POLICY`` by default):
+  ``init`` / ``param_specs`` — parameters from a ``torch.Generator`` and
+  their spec tree (the stacked layer axis replicated).
   ``forward`` — full-sequence logits.
   ``hidden_states`` — hidden states after some layers (affinity profiling).
   ``prefill`` — forward + populated KV cache + last-position logits.
   ``decode_step`` — one token against a KV cache.
+
+On a mesh (parameters placed by ``fit_specs(params, param_specs(policy),
+mesh)``) the token ids are placed batch-sharded, the body runs on
+``DTensor``s under ``implicit_replication`` with the reference's
+``shard_act`` constraints, and a decode step writes each layer's K/V on
+the local shards of the cache, which keeps ``cache_specs``' layout.
 """
 from __future__ import annotations
 
@@ -30,9 +38,11 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.cache import KVCache
+from repro_torch.models.cache import KVCache, kv_cache_spec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.moe import init_moe_mlp, moe_mlp
+from repro_torch.models.moe import init_moe_mlp, moe_mlp, spec_moe_mlp
+from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
+from repro_torch.sharding.utils import gather_fsdp, mesh_of, on_mesh, place_batch
 
 Params = Dict[str, Any]
 
@@ -126,6 +136,38 @@ def init(
     }
 
 
+def stacked_specs(tree: Params, depth: int = 1) -> Params:
+    """A spec tree with ``depth`` replicated leading axes (stacked layers)."""
+    if isinstance(tree, dict):
+        return {k: stacked_specs(v, depth) for k, v in tree.items()}
+    return P(*([None] * depth), *tuple(tree))
+
+
+def _spec_layer(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
+    p: Params = {
+        "attn_norm": L.spec_rmsnorm(),
+        "mlp_norm": L.spec_rmsnorm(),
+        "attn": L.spec_attention(policy),
+    }
+    if cfg.family == "moe":
+        p["moe"] = spec_moe_mlp(cfg, policy)
+    else:
+        p["mlp"] = L.spec_mlp(cfg, policy)
+    return p
+
+
+def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
+    return {
+        "embed": L.spec_embed(cfg, policy),
+        "layers": stacked_specs(_spec_layer(cfg, policy)),
+        "final_norm": L.spec_rmsnorm(),
+    }
+
+
+def cache_specs(cfg: ModelConfig, policy: ShardingPolicy) -> KVCache:
+    return kv_cache_spec(cfg, policy)
+
+
 # --------------------------------------------------------------------------
 # Layer body
 # --------------------------------------------------------------------------
@@ -138,11 +180,13 @@ def _layer_apply(
     kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     cache_len: Optional[int] = None,
     return_kv: bool = False,
+    policy: ShardingPolicy = TP_POLICY,
 ):
     """One pre-norm decoder layer.  Returns (x, new_kv, aux): with
     ``return_kv`` (prefill) the fresh K/V for the cache, with ``kv`` the
     cache written in place by the decode token."""
     _check_family(cfg)
+    lp = gather_fsdp(lp, policy)
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     if return_kv:
         # Prefill: compute fresh K/V and also hand them back for the cache.
@@ -157,26 +201,29 @@ def _layer_apply(
         new_kv = (k, v)
     else:
         attn_out, new_kv = L.attention_block(
-            lp["attn"], h, cfg, q_pos, kv_cache=kv, cache_len=cache_len,
+            lp["attn"], h, cfg, q_pos, kv_cache=kv, cache_len=cache_len, policy=policy,
         )
     x = x + attn_out
     h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
     if cfg.family == "moe":
-        mlp_out, aux = moe_mlp(lp["moe"], h, cfg)
+        mlp_out, aux = moe_mlp(lp["moe"], h, cfg, policy)
     else:
-        mlp_out = L.mlp_block(lp["mlp"], h, cfg)
+        mlp_out = L.mlp_block(lp["mlp"], h, cfg, policy)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + mlp_out, new_kv, aux
+    return shard_act(x + mlp_out, policy, "batch", None, None), new_kv, aux
 
 
 def _positions(s: int, device: torch.device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)
 
 
-def _tokens(tokens: Any, params: Params) -> torch.Tensor:
-    """Token ids as a long tensor on the parameters' device."""
-    device = params["embed"]["embedding"].device
-    return torch.as_tensor(tokens, device=device).long()
+def token_ids(tokens: Any, params: Params, policy: ShardingPolicy = TP_POLICY) -> torch.Tensor:
+    """Token ids as a long tensor on the parameters' device; on a mesh
+    placed batch-sharded (:func:`~repro_torch.sharding.utils.place_batch`)."""
+    table = params["embed"]["embedding"]
+    ids = torch.as_tensor(tokens, device=table.device).long()
+    mesh = mesh_of(table)
+    return ids if mesh is None else place_batch(ids, policy, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -184,67 +231,72 @@ def _tokens(tokens: Any, params: Params) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def forward(
-    params: Params, tokens: Any, cfg: ModelConfig
+    params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits (B, S, V) and the summed MoE aux loss (0
     outside the MoE family)."""
-    tokens = _tokens(tokens, params)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
-    q_pos = _positions(tokens.shape[1], x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    with on_mesh(params):
+        tokens = token_ids(tokens, params, policy)
+        x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+        q_pos = _positions(tokens.shape[1], x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def body(lp: Params, x: torch.Tensor):
-        x, _, a = _layer_apply(lp, x, cfg, q_pos)
-        return x, a
+        def body(lp: Params, x: torch.Tensor):
+            x, _, a = _layer_apply(lp, x, cfg, q_pos, policy=policy)
+            return x, a
 
-    for i in range(num_stacked(params["layers"])):
-        x, a = L.remat(cfg, body, layer_params(params["layers"], i), x)
-        aux = aux + a
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg), aux
+        for i in range(num_stacked(params["layers"])):
+            x, a = L.remat(cfg, body, layer_params(params["layers"], i), x)
+            aux = aux + a
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return L.unembed(params["embed"], x, cfg, policy), aux
 
 
 def hidden_states(
     params: Params, tokens: Any, cfg: ModelConfig, upto_layer: Optional[int] = None,
+    policy: ShardingPolicy = TP_POLICY,
 ) -> torch.Tensor:
     """Hidden states after ``upto_layer`` layers (for affinity profiling)."""
-    tokens = _tokens(tokens, params)
-    x = L.embed_tokens(params["embed"], tokens, cfg)
-    q_pos = _positions(tokens.shape[1], x.device)
-    n = upto_layer if upto_layer is not None else cfg.num_layers
-    for i in range(n):
-        x, _, _ = _layer_apply(layer_params(params["layers"], i), x, cfg, q_pos)
-    return x
+    with on_mesh(params):
+        tokens = token_ids(tokens, params, policy)
+        x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+        q_pos = _positions(tokens.shape[1], x.device)
+        n = upto_layer if upto_layer is not None else cfg.num_layers
+        for i in range(n):
+            x, _, _ = _layer_apply(layer_params(params["layers"], i), x, cfg, q_pos,
+                                   policy=policy)
+        return x
 
 
 def prefill(
-    params: Params, tokens: Any, cfg: ModelConfig
+    params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Process a full prompt; return last-position logits + KV cache."""
-    tokens = _tokens(tokens, params)
-    s = tokens.shape[1]
-    x = L.embed_tokens(params["embed"], tokens, cfg)
-    q_pos = _positions(s, x.device)
-    ks, vs = [], []
+    with on_mesh(params):
+        tokens = token_ids(tokens, params, policy)
+        s = tokens.shape[1]
+        x = L.embed_tokens(params["embed"], tokens, cfg, policy)
+        q_pos = _positions(s, x.device)
+        ks, vs = [], []
 
-    def body(lp: Params, x: torch.Tensor):
-        x, kv, _ = _layer_apply(lp, x, cfg, q_pos, return_kv=True)
-        return x, kv
+        def body(lp: Params, x: torch.Tensor):
+            x, kv, _ = _layer_apply(lp, x, cfg, q_pos, return_kv=True, policy=policy)
+            return x, kv
 
-    for i in range(num_stacked(params["layers"])):
-        x, (k, v) = L.remat(cfg, body, layer_params(params["layers"], i), x)
-        ks.append(k)
-        vs.append(v)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
-    k_all, v_all = torch.stack(ks), torch.stack(vs)
-    # Sliding-window configs keep only the trailing window slots, laid out
-    # as a ring buffer (slot = position % window) to match decode_step.
-    if cfg.sliding_window is not None and s > cfg.sliding_window:
-        w = cfg.sliding_window
-        k_all = torch.roll(k_all[:, :, -w:], shifts=s % w, dims=2)
-        v_all = torch.roll(v_all[:, :, -w:], shifts=s % w, dims=2)
-    return logits[:, 0], KVCache(k=k_all, v=v_all)
+        for i in range(num_stacked(params["layers"])):
+            x, (k, v) = L.remat(cfg, body, layer_params(params["layers"], i), x)
+            ks.append(k)
+            vs.append(v)
+        x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+        logits = L.unembed(params["embed"], x, cfg, policy)
+        k_all, v_all = torch.stack(ks), torch.stack(vs)
+        # Sliding-window configs keep only the trailing window slots, laid out
+        # as a ring buffer (slot = position % window) to match decode_step.
+        if cfg.sliding_window is not None and s > cfg.sliding_window:
+            w = cfg.sliding_window
+            k_all = torch.roll(k_all[:, :, -w:], shifts=s % w, dims=2)
+            v_all = torch.roll(v_all[:, :, -w:], shifts=s % w, dims=2)
+        return logits[:, 0], KVCache(k=k_all, v=v_all)
 
 
 def decode_step(
@@ -253,6 +305,7 @@ def decode_step(
     cache: KVCache,
     cache_len: int,             # number of tokens already cached
     cfg: ModelConfig,
+    policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: logits (B, V) for the next position + the cache.
 
@@ -260,14 +313,15 @@ def decode_step(
     ``cache_len % capacity`` of every layer, and ``cache`` itself is
     returned: the reference returns an updated copy instead, which for a
     full-size cache would be a second cache-sized buffer per step."""
-    token = _tokens(token, params)
-    x = L.embed_tokens(params["embed"], token[:, None], cfg)  # (B,1,D)
-    q_pos = torch.full((1,), int(cache_len), dtype=torch.int32, device=x.device)
-    for i in range(num_stacked(params["layers"])):
-        x, _, _ = _layer_apply(
-            layer_params(params["layers"], i), x, cfg, q_pos,
-            kv=(cache.k[i], cache.v[i]), cache_len=int(cache_len),
-        )
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = L.unembed(params["embed"], x, cfg)
-    return logits[:, 0], cache
+    with on_mesh(params):
+        token = token_ids(token, params, policy)
+        x = L.embed_tokens(params["embed"], token[:, None], cfg, policy)  # (B,1,D)
+        q_pos = torch.full((1,), int(cache_len), dtype=torch.int32, device=x.device)
+        for i in range(num_stacked(params["layers"])):
+            x, _, _ = _layer_apply(
+                layer_params(params["layers"], i), x, cfg, q_pos,
+                kv=(cache.k[i], cache.v[i]), cache_len=int(cache_len), policy=policy,
+            )
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = L.unembed(params["embed"], x, cfg, policy)
+        return logits[:, 0], cache

@@ -30,6 +30,7 @@ from repro_torch.core.cost_model import GraphCostModel
 from repro_torch.core.ordering import greedy_2opt_order, optimal_order
 from repro_torch.core.types import Residency
 from repro_torch.models.registry import ModelApi
+from repro_torch.sharding.policy import TP_POLICY, ShardingPolicy
 
 if TYPE_CHECKING:  # avoid a module cycle with repro_torch.serving.engine
     from repro_torch.serving.engine import MultitaskRequest
@@ -275,7 +276,10 @@ class ContinuousBatcher:
     position ``s0 - 1``; the left padding repeats each prompt's first token,
     as the reference does.  The prefill goes through the model's own path
     (on CUDA, the flash kernel once per attention layer) and the cache is
-    grown with the LM server's ``_grow_cache``.
+    grown with the LM server's ``_grow_cache``.  ``policy`` is the
+    reference's sharding policy (``TP_POLICY`` by default), passed to
+    prefill and decode: with ``params`` on a mesh the waves run there, as
+    :class:`~repro_torch.serving.engine.LMServer`'s batches do.
     """
 
     def __init__(
@@ -285,9 +289,12 @@ class ContinuousBatcher:
         slots: int = 4,
         max_len: int = 256,
         eos_token: Optional[int] = None,
+        *,
+        policy: ShardingPolicy = TP_POLICY,
     ):
         self.model = model
         self.params = params
+        self.policy = policy
         self.slots = slots
         self.max_len = max_len
         self.eos = eos_token
@@ -321,18 +328,18 @@ class ContinuousBatcher:
 
     def _serve_wave(self, active: List[GenRequest]) -> None:
         """Prefill a wave of requests together, decode until all finish."""
-        from repro_torch.serving.engine import _grow_cache
+        from repro_torch.serving.engine import _grow_cache, greedy
 
         b = len(active)
         toks = self.wave_tokens(active)
         s0 = toks.shape[1]
-        logits, cache = self.model.prefill(self.params, toks)
+        logits, cache = self.model.prefill(self.params, toks, self.policy)
         steps = max(r.max_new_tokens for r in active)
-        cache = _grow_cache(self.model, cache, s0 + steps, s0)
+        cache = _grow_cache(self.model, cache, s0 + steps, s0, self.policy)
 
         out: Dict[int, List[int]] = {r.uid: [] for r in active}
         done = [False] * b
-        tok = torch.argmax(logits, dim=-1)
+        tok = greedy(logits)
         cache_len = s0
         for _step in range(steps):
             ids = tok.cpu().numpy()
@@ -347,8 +354,9 @@ class ContinuousBatcher:
                     done[i] = True
             if all(done):
                 break
-            logits, cache = self.model.decode_step(self.params, tok, cache, cache_len)
-            tok = torch.argmax(logits, dim=-1)
+            logits, cache = self.model.decode_step(
+                self.params, tok, cache, cache_len, self.policy)
+            tok = greedy(logits)
             cache_len += 1
         for r in active:
             self.results.append(GenResult(

@@ -30,7 +30,8 @@ terms by the weight-shard count and adds each dispatch's measured
 collective bytes, and a group that fails on the mesh can be served off it
 (:meth:`MultitaskEngine.execute_group_fallback`, the session ladder's
 ``"single_device"`` rung).  :class:`LMServer` runs batched prefill and
-greedy decode; its mesh comes with the next slice (ROADMAP item 9b).
+greedy decode, on a mesh under a ``ShardingPolicy`` where its params lie
+on one (the cache grown in ``cache_spec(policy)``'s layout).
 """
 from __future__ import annotations
 
@@ -54,13 +55,16 @@ from repro_torch.core.ordering import optimal_order, solve_suborder
 from repro_torch.core.types import (
     ExecutionStats, HardwareModel, TPU_V5E, TaskGateRecord,
 )
-from repro_torch.models.cache import EncDecCache, HybridCache, KVCache, SSMCache
+from repro_torch.models.cache import (
+    EncDecCache, HybridCache, KVCache, SSMCache, cache_leaves, place_cache, zeros_like_spec,
+)
 from repro_torch.models.registry import ModelApi
 from repro_torch.serving.batching import (
     RequestGroup, RequestGroupScheduler, effective_order, normalize_subset,
 )
 from repro_torch.serving.policies import EnginePolicy
 from repro_torch.sharding.policy import ShardingPolicy, TP_POLICY
+from repro_torch.sharding.utils import is_dtensor, write_rows
 
 if TYPE_CHECKING:  # session imports engine; keep the runtime import lazy
     from repro_torch.serving.journal import Journal
@@ -961,11 +965,18 @@ class LMServer:
     the flash kernel (the enc-dec's encoder and cross-attention included)
     and runs each Mamba2 SSD through the SSD kernel; each decode token
     attends over the KV cache and steps the SSM recurrence.
+
+    ``policy`` is the reference's sharding policy (``TP_POLICY`` by
+    default).  With ``params`` placed on a mesh (``DTensor``s, under the
+    ambient mesh of ``set_mesh``) the prefill's cache is grown in the layout
+    of ``model.cache_spec(policy)``, which the decode steps keep, and each
+    step's tokens are read back whole (``full_tensor``).
     """
 
-    def __init__(self, model: ModelApi, params: Any):
+    def __init__(self, model: ModelApi, params: Any, policy: ShardingPolicy = TP_POLICY):
         self.model = model
         self.params = params
+        self.policy = policy
 
     def generate(self, prompts: Any, steps: int, features: Any = None) -> np.ndarray:
         """Greedy generation.  prompts: (B, S0) token ids; ``features``
@@ -974,47 +985,78 @@ class LMServer:
         _b, s0 = prompts.shape
         total = s0 + steps
         batch = self.model.make_batch(prompts, features)
-        logits, cache = self.model.prefill(self.params, batch)
+        logits, cache = self.model.prefill(self.params, batch, self.policy)
         # Grow the prefill cache to full capacity (KV families only).
-        cache = _grow_cache(self.model, cache, total, s0)
+        cache = _grow_cache(self.model, cache, total, s0, self.policy)
         out = []
-        tok = torch.argmax(logits, dim=-1)
+        tok = greedy(logits)
         cache_len = s0
         for _ in range(steps):
             out.append(tok.cpu().numpy().astype(np.int32))
-            logits, cache = self.model.decode_step(self.params, tok, cache, cache_len)
-            tok = torch.argmax(logits, dim=-1)
+            logits, cache = self.model.decode_step(
+                self.params, tok, cache, cache_len, self.policy)
+            tok = greedy(logits)
             cache_len += 1
         return np.stack(out, axis=1)
 
 
-def _grow_kv(kv: KVCache, total: int) -> KVCache:
-    """Pad a KV cache's T axis out to ``total`` slots (zeros)."""
+def greedy(logits: Any) -> torch.Tensor:
+    """The argmax token of each row of ``logits`` (B, V), as a plain tensor:
+    a ``DTensor``'s rows are gathered whole first."""
+    if is_dtensor(logits):
+        logits = logits.full_tensor()
+    return torch.argmax(logits, dim=-1)
+
+
+def _grow_kv(kv: KVCache, total: int, spec: Optional[KVCache] = None,
+             mesh: Any = None) -> KVCache:
+    """Pad a KV cache's T axis out to ``total`` slots (zeros).  On a mesh
+    the grown cache is allocated shard by shard in ``spec``'s layout and
+    the prefill's slots are written into it on each rank's shards."""
     t = kv.k.shape[2]
-    if t >= total:
-        return kv
-    pad = (0, 0, 0, 0, 0, total - t)  # (L, B, T, Hk, Dh): grow T only
-    return KVCache(
-        k=torch.nn.functional.pad(kv.k, pad), v=torch.nn.functional.pad(kv.v, pad)
-    )
+    if mesh is None:
+        if t >= total:
+            return kv
+        pad = (0, 0, 0, 0, 0, total - t)  # (L, B, T, Hk, Dh): grow T only
+        return KVCache(
+            k=torch.nn.functional.pad(kv.k, pad), v=torch.nn.functional.pad(kv.v, pad)
+        )
+    n_layers, b, _, hk, dh = kv.k.shape
+    shape = (n_layers, b, max(t, total), hk, dh)
+    grown = zeros_like_spec(
+        KVCache(k=torch.empty(shape, dtype=kv.k.dtype, device="meta"),
+                v=torch.empty(shape, dtype=kv.v.dtype, device="meta")), spec, mesh)
+    write_rows(grown.k, 2, 0, kv.k)
+    write_rows(grown.v, 2, 0, kv.v)
+    return grown
 
 
-def _grow_cache(model: ModelApi, cache: Any, total: int, filled: int) -> Any:
+def _grow_cache(model: ModelApi, cache: Any, total: int, filled: int,
+                policy: ShardingPolicy = TP_POLICY) -> Any:
     """Grow a prefill-sized cache to ``total`` positions: a KV cache (or the
     KV part of a hybrid cache, or the self K/V of an enc-dec cache) gets
     zero slots; an SSM cache, a fixed-size summary, and the enc-dec's cross
-    K/V stay as they are."""
+    K/V stay as they are.  On a mesh every part is laid out by
+    ``model.cache_spec(policy)``."""
+    mesh = next((t.device_mesh for t in cache_leaves(cache) if is_dtensor(t)), None)
+    spec = model.cache_spec(policy) if mesh is not None else None
     if isinstance(cache, KVCache):
         if model.cfg.sliding_window is not None:
             # An SWA ring never needs more than ``window`` slots; prefill's
             # linear layout (positions < window) is already ring-consistent.
             total = min(total, model.cfg.sliding_window)
-        return _grow_kv(cache, total)
+        return _grow_kv(cache, total, spec, mesh)
     if isinstance(cache, SSMCache):
-        return cache
+        return cache if mesh is None else place_cache(cache, spec, mesh)
     if isinstance(cache, HybridCache):
-        return HybridCache(ssm=cache.ssm, kv=_grow_kv(cache.kv, total))
+        ssm = cache.ssm if mesh is None else place_cache(cache.ssm, spec.ssm, mesh)
+        return HybridCache(ssm=ssm, kv=_grow_kv(cache.kv, total, spec and spec.kv, mesh))
     if isinstance(cache, EncDecCache):
-        return EncDecCache(self_kv=_grow_kv(cache.self_kv, total),
-                           cross_k=cache.cross_k, cross_v=cache.cross_v)
+        if mesh is None:
+            cross_k, cross_v = cache.cross_k, cache.cross_v
+        else:
+            cross_k = place_cache(cache.cross_k, spec.cross_k, mesh)
+            cross_v = place_cache(cache.cross_v, spec.cross_v, mesh)
+        return EncDecCache(self_kv=_grow_kv(cache.self_kv, total, spec and spec.self_kv, mesh),
+                           cross_k=cross_k, cross_v=cross_v)
     raise TypeError(f"unknown cache type {type(cache).__name__}")

@@ -174,10 +174,17 @@ POLICIES = {
 
 def shard_act(x: Any, policy: ShardingPolicy, *logical_axes: Logical) -> Any:
     """Redistribute an activation ``DTensor`` to the policy's layout for
-    ``logical_axes``; without a mesh, or for a plain tensor, ``x`` itself."""
+    ``logical_axes``; without a mesh, or for a plain tensor, ``x`` itself.
+
+    The spec is fitted to ``x``'s shape first (``fit_spec``): an axis that
+    does not divide its dimension (a decode step's one routing group over
+    four data ranks) leaves that dimension replicated where XLA would pad
+    it; the values are the same.  The local shards come back contiguous:
+    a split along a minor dimension is a strided view, which DTensor's
+    matmul and einsum rules then fail to view."""
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.sharding.utils import placements
+    from repro_torch.sharding.utils import fit_spec, placements
 
     mesh = _ambient_mesh()
     if mesh is None or not isinstance(x, DTensor):
@@ -185,4 +192,11 @@ def shard_act(x: Any, policy: ShardingPolicy, *logical_axes: Logical) -> Any:
     spec = policy.spec(*logical_axes)
     if all(s is None for s in spec):
         return x
-    return x.redistribute(mesh, placements(spec, mesh))
+    spec = fit_spec(tuple(x.shape), spec, mesh)
+    y = x.redistribute(mesh, placements(spec, mesh))
+    local = y.to_local()
+    if local.is_contiguous():
+        return y
+    # ``DTensor.contiguous`` reads the global strides and keeps the view.
+    return DTensor.from_local(local.contiguous(), mesh, y.placements, run_check=False,
+                              shape=y.shape, stride=y.stride())

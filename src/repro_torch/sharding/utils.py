@@ -103,36 +103,23 @@ def placements(spec: Sequence[Any], mesh: Any) -> Tuple[Any, ...]:
                  for a in names)
 
 
-def _local_slice(tensor: torch.Tensor, spec: Sequence[Any], mesh: Any) -> torch.Tensor:
-    """This rank's slice of ``tensor`` under ``spec`` (which must divide
-    evenly: pass it through :func:`fit_spec` first)."""
-    coord = mesh.get_coordinate()
-    out = tensor
-    for mdim, pl in enumerate(placements(spec, mesh)):
-        if pl.is_replicate():
-            continue
-        n = mesh.size(mdim)
-        size = out.shape[pl.dim]
-        if size % n:
-            raise ValueError(
-                f"dim {pl.dim} of size {size} does not split {n} ways; fit the spec"
-            )
-        step = size // n
-        out = out.narrow(pl.dim, coord[mdim] * step, step)
-    return out
+def _from_full(tensor: torch.Tensor, pls: Sequence[Any], mesh: Any) -> Any:
+    """``DTensor.from_local`` of this rank's slice of ``tensor`` under
+    placements ``pls`` (which must split evenly: fit the spec first),
+    unchecked, so no collective runs."""
+    from torch.distributed.tensor import DTensor
+
+    local = tensor
+    for dim, (off, n) in enumerate(local_extent(tensor.shape, pls, mesh)):
+        local = local.narrow(dim, off, n)
+    return DTensor.from_local(local.contiguous(), mesh, pls, run_check=False,
+                              shape=tensor.shape, stride=_contiguous_strides(tensor.shape))
 
 
 def place(tensor: torch.Tensor, spec: Sequence[Any], mesh: Any) -> Any:
     """``tensor`` (held in full by every rank) as a ``DTensor`` laid out by
-    ``spec``: ``DTensor.from_local`` of this rank's own slice, unchecked, so
-    no collective runs."""
-    from torch.distributed.tensor import DTensor
-
-    return DTensor.from_local(
-        _local_slice(tensor, spec, mesh).contiguous(), mesh,
-        placements(spec, mesh), run_check=False,
-        shape=tensor.shape, stride=_contiguous_strides(tensor.shape),
-    )
+    ``spec``, built from this rank's own slice: no collective runs."""
+    return _from_full(tensor, placements(spec, mesh), mesh)
 
 
 def _contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
@@ -141,3 +128,159 @@ def _contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
         strides.append(step)
         step *= max(int(size), 1)
     return tuple(reversed(strides))
+
+
+def is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def mesh_of(tree: Any) -> Any:
+    """The ``DeviceMesh`` of the first ``DTensor`` leaf of ``tree`` (a params
+    tree placed on a mesh), or ``None`` off a mesh."""
+    for leaf in tree_leaves(tree):
+        if is_dtensor(leaf):
+            return leaf.device_mesh
+    return None
+
+
+def on_mesh(tree: Any):
+    """The context a computation over ``tree`` runs in: on a mesh, DTensor's
+    ``implicit_replication``, so plain tensors that every rank makes alike
+    (positions, masks, a clip scale) count as replicated; off a mesh, or
+    inside an enclosing one, a no-op (``implicit_replication`` clears its
+    flag on exit, so it must not nest)."""
+    import contextlib
+
+    from torch.distributed.tensor import DTensor
+
+    if mesh_of(tree) is None or DTensor._op_dispatcher._allow_implicit_replication:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def place_tree(tree: Any, specs: Any, mesh: Any) -> Any:
+    """Every leaf of ``tree`` placed on ``mesh`` by its spec in ``specs`` (a
+    matching tree of :class:`P`), fitted first (:func:`fit_spec`); the
+    result keeps ``tree``'s key order."""
+    if isinstance(specs, P):
+        return place(tree, fit_spec(tuple(tree.shape), specs, mesh), mesh)
+    if isinstance(specs, dict):
+        if set(tree) != set(specs):
+            raise ValueError(f"tree keys {sorted(tree)} differ from spec keys {sorted(specs)}")
+        return {k: place_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(specs, (list, tuple)):
+        return type(specs)(place_tree(t, v, mesh) for t, v in zip(tree, specs))
+    raise TypeError(f"not a spec tree: {type(specs).__name__}")
+
+
+def local_extent(shape: Sequence[int], pls: Sequence[Any], mesh: Any) -> List[Tuple[int, int]]:
+    """(offset, length) per tensor dimension of this rank's shard of a
+    tensor of ``shape`` with placements ``pls`` on ``mesh``: each
+    ``Shard(d)`` splits the current extent of dimension d evenly, in mesh
+    order (the layout :func:`place` builds)."""
+    coord = mesh.get_coordinate()
+    ext = [(0, int(s)) for s in shape]
+    for mdim, pl in enumerate(pls):
+        if not pl.is_shard():
+            continue
+        off, size = ext[pl.dim]
+        n = mesh.size(mdim)
+        if size % n:
+            raise ValueError(
+                f"dim {pl.dim} of size {size} does not split {n} ways; fit the spec")
+        step = size // n
+        ext[pl.dim] = (off + coord[mdim] * step, step)
+    return ext
+
+
+def write_rows(buf: Any, dim: int, start: int, values: Any) -> None:
+    """``buf.narrow(dim, start, n).copy_(values)``, in place, for a plain
+    tensor or a ``DTensor`` ``buf``.
+
+    On a mesh the write is made on the local shards and ``buf`` keeps its
+    layout: ``values`` is first brought to ``buf``'s placements with
+    dimension ``dim`` whole, then each rank writes the rows of
+    ``[start, start + n)`` that fall in its own slice of ``dim`` — where
+    ``dim`` is sharded (a sequence-sharded cache) only the rank holding a
+    slot writes it.
+    """
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(buf, DTensor):
+        buf.narrow(dim, start, values.shape[dim]).copy_(values)
+        return
+    mesh, pls = buf.device_mesh, buf.placements
+    whole = [Replicate() if pl.is_shard(dim) else pl for pl in pls]
+    if not isinstance(values, DTensor):
+        values = DTensor.from_local(values, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    vals = values.redistribute(mesh, whole).to_local()
+    n = values.shape[dim]
+    off, size = local_extent(buf.shape, pls, mesh)[dim]
+    lo, hi = max(start, off), min(start + n, off + size)
+    if lo < hi:
+        buf.to_local().narrow(dim, lo - off, hi - lo).copy_(vals.narrow(dim, lo - start, hi - lo))
+
+
+def place_batch(x: Any, policy: Any, mesh: Any) -> Any:
+    """A batch-leading input (token ids, features) on ``mesh``: its leading
+    axis over the policy's batch axes where they divide it, the rest
+    replicated; a ``DTensor`` passes through."""
+    if is_dtensor(x):
+        return x
+    spec = fit_spec(tuple(x.shape), P(policy.physical("batch")), mesh)
+    return place(x, spec, mesh)
+
+
+def place_like(tensor: torch.Tensor, ref: Any) -> Any:
+    """``tensor`` (held in full by every rank) in ``ref``'s layout: a
+    ``DTensor`` of ``ref``'s mesh and placements built from this rank's own
+    slice (no collective); ``tensor`` itself where ``ref`` is a plain
+    tensor."""
+    if not is_dtensor(ref):
+        return tensor
+    return _from_full(tensor, ref.placements, ref.device_mesh)
+
+
+def gather_fsdp(tree: Any, policy: Any) -> Any:
+    """``tree``'s ``DTensor`` leaves with their ``policy.fsdp`` shards
+    gathered (ZeRO-3's all-gather before a layer computes; its backward is
+    the gradient's reduce-scatter); every other leaf, and every leaf off a
+    mesh or under a policy without ``fsdp``, as it is."""
+    from repro_torch._device import tree_map
+
+    if policy.fsdp is None or mesh_of(tree) is None:
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    def one(t: Any) -> Any:
+        if not is_dtensor(t):
+            return t
+        names = t.device_mesh.mesh_dim_names
+        pls = [Replicate() if names[i] == policy.fsdp else pl for i, pl in enumerate(t.placements)]
+        return t if tuple(pls) == tuple(t.placements) else t.redistribute(t.device_mesh, pls)
+
+    return tree_map(one, tree)
+
+
+def mesh_pad(x: Any, widths: Sequence[int], value: float = 0.0) -> Any:
+    """``F.pad(x, widths, value=value)``; a ``DTensor`` is padded per rank
+    through ``local_map``, each padded dimension whole on every rank and the
+    rest as laid out.  (DTensor's own rule for the pad's backward yields a
+    malformed gradient layout on torch 2.11.)"""
+    import torch.nn.functional as F
+
+    if not is_dtensor(x):
+        return F.pad(x, widths, value=value)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    padded = {x.ndim - 1 - i for i in range(len(widths) // 2)
+              if widths[2 * i] or widths[2 * i + 1]}
+    pls = [Replicate() if pl.is_shard() and pl.dim in padded else pl for pl in x.placements]
+    return local_map(lambda t: F.pad(t, widths, value=value), out_placements=pls,
+                     in_placements=(pls,), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)

@@ -10,6 +10,13 @@ other.  A bf16 leaf is written as the reference's numpy writes it without
 knowing the type: its raw 2-byte values (numpy's ``V2``), which this module
 reads back bit-exactly without ``ml_dtypes``.  Writes are atomic: a
 temporary file in the same directory, then ``os.replace``.
+
+A tree on a mesh saves each ``DTensor`` leaf whole (``full_tensor``, a
+collective every rank joins), so one checkpoint restores off the mesh, in
+the reference and on any mesh; restoring into a reference tree of
+``DTensor``s lays each leaf out in its reference leaf's placements.
+Every rank then writes the same bytes, and the atomic write leaves one
+whole file where ranks share a path.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.utils import is_dtensor, place_like
 
 
 def _is_namedtuple(x: Any) -> bool:
@@ -53,7 +62,7 @@ def _rebuild(tree: Any, leaf: Callable[[str, Any], Any], prefix: Tuple[str, ...]
 def _to_numpy(leaf: Any) -> np.ndarray:
     """A leaf as the array the reference would save: bf16 as raw ``V2``."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = (leaf.full_tensor() if is_dtensor(leaf) else leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.dtype("V2"))
         return t.numpy()
@@ -69,7 +78,7 @@ def _to_tensor(arr: np.ndarray, ref: torch.Tensor) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
-    return t.to(device=ref.device, dtype=ref.dtype)
+    return place_like(t.to(device=ref.device, dtype=ref.dtype), ref)
 
 
 def save_checkpoint(path: str, tree: Any, step: int = 0) -> None:
@@ -91,7 +100,8 @@ def save_checkpoint(path: str, tree: Any, step: int = 0) -> None:
 
 def restore_checkpoint(path: str, reference: Any) -> Tuple[Any, int]:
     """Load into the structure of ``reference``, each leaf on the device and
-    in the dtype of ``reference``'s.  Returns (tree, step)."""
+    in the dtype (on a mesh, in the placements) of ``reference``'s.
+    Returns (tree, step)."""
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
     step = int(arrays.pop("__step__", np.asarray(0)))

@@ -12,6 +12,12 @@ new state: at full width the moments are 4x the bf16 params (29 GB for an
 8-layer mistral-nemo-12b), and a second copy would not fit beside them.
 The params come back as new tensors, leaf by leaf, so that no fp32 copy of
 the whole tree is ever materialised; the caller's params stay as they were.
+
+On a mesh the leaves are ``DTensor``s of mixed placements: each leaf's sum
+of squares is reduced to the scalar every rank holds before the global
+norm sums them, so the norm and the clip scale are the same on every
+rank; the moments are allocated in their parameter's placements and every
+update keeps them.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import tree_leaves, tree_map
+from repro_torch.sharding.utils import is_dtensor, on_mesh
 
 
 class AdamWState(NamedTuple):
@@ -58,9 +65,16 @@ def lr_at(cfg: AdamWConfig, step: Any) -> float:
     return float(f32(cfg.lr) * warm * (ratio + (f32(1.0) - ratio) * cos))
 
 
+def _sum_sq(leaf: torch.Tensor) -> torch.Tensor:
+    """A leaf's fp32 sum of squares as a plain 0-d tensor (on a mesh,
+    reduced over the ranks)."""
+    s = leaf.float().square().sum()
+    return s.full_tensor() if is_dtensor(s) else s
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    """The fp32 L2 norm of every leaf together (a 0-d tensor)."""
-    return torch.stack([l.float().square().sum() for l in tree_leaves(tree)]).sum().sqrt()
+    """The fp32 L2 norm of every leaf together (a plain 0-d tensor)."""
+    return torch.stack([_sum_sq(l) for l in tree_leaves(tree)]).sum().sqrt()
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -72,15 +86,23 @@ def clip_by_global_norm(tree: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
     leaf scaled in fp32, cast back to its dtype), and the norm before."""
     norm = global_norm(tree)
     scale = _clip_scale(norm, max_norm)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+    with on_mesh(tree):
+        return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
+
+
+def zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
 
 def adamw_init(params: Any) -> AdamWState:
-    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    """Zero fp32 moments in the params' layout (on a mesh, each in its
+    parameter's placements) and step 0."""
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32),
-        mu=tree_map(zeros32, params),
-        nu=tree_map(zeros32, params),
+        mu=tree_map(zeros_f32, params),
+        nu=tree_map(zeros_f32, params),
     )
 
 
@@ -121,9 +143,10 @@ def adamw_update(
     grad_leaves = iter(tree_leaves(grads))
     mu_leaves = iter(tree_leaves(state.mu))
     nu_leaves = iter(tree_leaves(state.nu))
-    new_params = tree_map(
-        lambda p: upd(p, next(grad_leaves), next(mu_leaves), next(nu_leaves)), params
-    )
+    with on_mesh(params):
+        new_params = tree_map(
+            lambda p: upd(p, next(grad_leaves), next(mu_leaves), next(nu_leaves)), params
+        )
     new_state = AdamWState(step=torch.tensor(step, dtype=torch.int32), mu=state.mu, nu=state.nu)
     return new_params, new_state, {"lr": lr, "grad_norm": gnorm}
 

@@ -1048,3 +1048,87 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         on_card, adamw_init(on_card), tokens)
     assert int(opt.step) == 1 and np.isfinite(float(m["loss"]))
     assert all(p.device.type == "cuda" for p in tree_leaves(new))
+
+
+# --------------------------------------------------------------------------
+# The kernels on a (1, 1) NCCL mesh: DTensor inputs through local_map
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def mesh11(cuda):
+    """A (1, 1) ("data", "model") mesh over a world of one NCCL rank, made
+    and ended around the test."""
+    from repro_torch.launch.mesh import launcher_world, make_host_mesh, set_mesh
+
+    with launcher_world("cuda"):
+        mesh = make_host_mesh(device="cuda")
+        with set_mesh(mesh):
+            yield mesh
+
+
+def _on_mesh(t, mesh, grad=False):
+    """``t`` as a batch-sharded ``DTensor`` (one rank: every axis replicated)."""
+    from repro_torch.sharding.policy import P
+    from repro_torch.sharding.utils import fit_spec, place
+
+    d = place(t.detach(), fit_spec(tuple(t.shape), P("data"), mesh), mesh)
+    return d.requires_grad_(grad)
+
+
+def _ssd_case(cuda, dtype):
+    b, s, h, p, n = 2, 256, 8, 64, 128
+    g = torch.Generator(device="cpu").manual_seed(7)
+    conv = torch.randn(b, s, h * p + 2 * n, generator=g).to(cuda, dtype)
+    x = conv[..., :h * p].reshape(b, s, h, p)
+    bc = conv[..., h * p:]
+    dt = torch.rand(b, s, h, generator=g).to(cuda) * 0.1 + 0.01
+    a = -torch.rand(h, generator=g).to(cuda) - 0.5
+    return [x.contiguous(), dt, a, bc[..., :n].contiguous(), bc[..., n:].contiguous()]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_on_a_mesh_gives_the_direct_calls_bits(mesh11, cuda, dtype):
+    """``ops.ssd_scan`` of ``DTensor`` inputs (``local_map`` over the local
+    rows and heads) launches the kernel once and returns the direct call's
+    y and final state bit for bit; under autograd its backward kernel runs
+    once and every gradient equals the direct call's."""
+    args = _ssd_case(cuda, dtype)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    y, final = ops.ssd_scan(*leaves, 64)
+    dy = torch.randn(y.shape, generator=torch.Generator(device="cpu").manual_seed(1)).to(
+        cuda, y.dtype)
+    grads = torch.autograd.grad(y, leaves, dy)
+    fwd, bwd = ssd_scan.launches, ssd_scan.backward_launches
+    on = [_on_mesh(t, mesh11, grad=True) for t in args]
+    y_m, final_m = ops.ssd_scan(*on, 64)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == fwd + 1
+    assert torch.equal(y_m.to_local(), y) and torch.equal(final_m.to_local(), final)
+    grads_m = torch.autograd.grad(y_m, on, _on_mesh(dy, mesh11))
+    torch.cuda.synchronize()
+    assert ssd_scan.backward_launches == bwd + 1
+    for got, want in zip(grads_m, grads):
+        assert torch.equal(got.full_tensor(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_on_a_mesh_gives_the_direct_calls_bits(mesh11, cuda, dtype):
+    """``ops.flash_attention_bhsd`` of ``DTensor`` q, k, v under autograd:
+    one forward and one backward launch, and the direct call's output and
+    gradients bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q, k, v, do = (torch.randn(2, 128, h, 128, generator=g).to(cuda, dtype)
+                   for h in (8, 2, 2, 8))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ops.flash_attention_bhsd(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    fwd, bwd = flash_attention.launches, flash_attention.backward_launches
+    on = [_on_mesh(t, mesh11, grad=True) for t in (q, k, v)]
+    out_m = ops.flash_attention_bhsd(*on, causal=True)
+    grads_m = torch.autograd.grad(out_m, on, _on_mesh(do, mesh11))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == fwd + 1
+    assert flash_attention.backward_launches == bwd + 1
+    assert torch.equal(out_m.to_local(), out)
+    for got, want in zip(grads_m, grads):
+        assert torch.equal(got.full_tensor(), want)

@@ -23,8 +23,15 @@ def _modules():
 
 def test_every_package_is_covered():
     """The checks below walk every module of the port, the input-adaptive
-    package's, the training slice's, the two examples and the mesh's
-    included."""
+    package's, the training slice's, the two examples, the mesh's and the
+    modules the LM, MoE and training mesh changed included."""
+    assert {"repro_torch.models.layers", "repro_torch.models.cache",
+            "repro_torch.models.moe", "repro_torch.models.transformer",
+            "repro_torch.models.ssm", "repro_torch.models.hybrid",
+            "repro_torch.models.encdec", "repro_torch.models.registry",
+            "repro_torch.kernels.ops", "repro_torch.serving.engine",
+            "repro_torch.serving.batching", "repro_torch.launch.serve",
+            "repro_torch.training.checkpoint"} <= set(_modules())
     assert {"repro_torch.adaptive", "repro_torch.adaptive.gating",
             "repro_torch.sharding", "repro_torch.sharding.policy",
             "repro_torch.sharding.utils", "repro_torch.sharding.collectives",
@@ -116,4 +123,40 @@ def test_make_mesh_raises_without_cuda():
         make_mesh((1, 1), ("data", "model"))
     with pytest.raises(RuntimeError, match="CUDA"):
         make_host_mesh()
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("launcher", ["serve", "train"])
+def test_launchers_raise_without_cuda_and_leave_no_process_group(launcher):
+    """The launchers run under a mesh on the card by default: without one
+    they raise before any world is made, and leave no process group."""
+    import importlib
+
+    import torch.distributed as dist
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    module = importlib.import_module(f"repro_torch.launch.{launcher}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(["--arch", "mistral-nemo-12b", "--smoke", "--steps", "1"])
+    assert not dist.is_initialized()
+
+
+def test_launcher_world_of_one_is_ended():
+    """``launcher_world`` on the CPU makes a gloo world of one for its body
+    (a mesh can be made in it) and ends it on exit, also when the body
+    raises."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import launcher_world, make_host_mesh
+
+    with launcher_world("cpu") as made:
+        assert made and dist.get_world_size() == 1
+        assert tuple(make_host_mesh(device="cpu").shape) == (1, 1)
+    assert not dist.is_initialized()
+    with pytest.raises(ValueError, match="256 ranks"):
+        with launcher_world("cpu"):
+            from repro_torch.launch.mesh import make_production_mesh
+
+            make_production_mesh(device="cpu")
     assert not dist.is_initialized()

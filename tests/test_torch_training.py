@@ -439,6 +439,12 @@ def test_train_launcher_matches_reference_losses(arch, capsys, tmp_path):
 
 
 def test_train_launcher_refuses_the_production_mesh():
-    with pytest.raises(NotImplementedError):
+    """``--production-mesh`` in a world of one rank raises ``make_mesh``'s
+    error, which names the 256 ranks the 16 x 16 mesh needs, and the world
+    of one the launcher made is gone."""
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError, match="needs a world of 256 ranks; this world has 1"):
         p_train_launcher.main(["--arch", "mistral-nemo-12b", "--smoke", "--device", "cpu",
                                "--production-mesh"])
+    assert not dist.is_initialized()
