@@ -105,7 +105,19 @@
    nodes, 40 AdamW steps of 16 x 128: the loss falls; step ms, tokens/s)
    and ``repro_torch.examples.serve_multitask`` whole (Antler beats
    Vanilla, counters equal the prediction, the LM generates its tokens);
-   and Pearson's guard: under grad on the card it raises.
+   and Pearson's guard: under grad on the card it raises.  Then the launch
+   analysis (``dryrun_phase``): ``python -m repro_torch.launch.dryrun`` on
+   mistral-nemo-12b ``train_4k``, mixtral-8x22b ``prefill_32k`` and
+   mamba2-780m ``train_4k`` at full width and depth, on meta tensors in a
+   fake world of 256 ranks (a 16 x 16 mesh), one subprocess each (status
+   ok, FLOPs, bytes and collective bytes positive, model FLOPs the
+   estimate's, each kernel counted as often as the step launches it); and
+   one more step of the mistral (8 layers) and mamba2 training above counted
+   by ``analyze_step`` on the card and on meta (equal FLOPs, bytes within
+   2 %, each launch counted once by its formula, ``roofline_share`` of the
+   steady step at most 1.05; ``mfu``, the counted FLOPs' share and the peak
+   bytes beside ``max_memory_allocated``), printed on the ``dryrun`` line
+   with the card's name and power limit.
 11. Serves the LeNet-5 and mistral-nemo-12b traces of steps 3 and 4 again,
    from programs rebuilt from the same seeds, through sessions on
    mesh-sharded engines (``EnginePolicy(mesh=..., sharding=...)``): a world
@@ -235,13 +247,17 @@ from repro_torch.kernels.ref import (  # noqa: E402
     pearson_dissimilarity_ref, ssd_scan_bwd_ref, ssd_scan_ref,
 )
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
-    SOURCE as SSD_SOURCE, backward_scratch_bytes as ssd_backward_scratch_bytes,
-    kernel_bytes as ssd_kernel_bytes, scratch_bytes as ssd_scratch_bytes, ssd_scan,
-    ssd_scan_backward,
+    SOURCE as SSD_SOURCE, PlainSSDFunction,
+    backward_scratch_bytes as ssd_backward_scratch_bytes, kernel_bytes as ssd_kernel_bytes,
+    scratch_bytes as ssd_scratch_bytes, ssd_scan, ssd_scan_backward,
 )
 from repro_torch.data import lm_batches  # noqa: E402
+from repro_torch.launch import roofline  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch.op_cost import analyze_step  # noqa: E402
+from repro_torch.launch.specs import opt_shapes, param_shapes  # noqa: E402
+from repro_torch.models.config import InputShape, get_shape  # noqa: E402
 from repro_torch.models.cnn import build_lenet5_blocks  # noqa: E402
 from repro_torch.models.multitask import (  # noqa: E402
     _split_layers, build_cnn_program, build_transformer_program, multitask_loss,
@@ -281,10 +297,6 @@ FLASH_FP32_TOL, FLASH_BF16_TOL = 2e-5, 2e-2
 # (|out| ~ 1 / sqrt(T / e) for unit normals), so the absolute bound alone
 # would not see a wrong window or a wrong share of the padded keys.
 FLASH_BF16_ROW_TOL = 2e-2
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores,
-# dense bf16 on the tensor cores, HBM3.
-FP32_PEAK_FLOPS, BF16_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 989e12, 3.35e12
-
 # The transformer paths: mistral-nemo-12b at full width, depth 40 -> 8.
 ARCH, TF_LAYERS, TF_SEQ, TF_PROBES = "mistral-nemo-12b", 8, 128, 256
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 512, 16
@@ -433,6 +445,18 @@ SSM_FP32_GRAD_TOL = 1e-3
 TRAIN_SSM_LAUNCHER = ("mamba2-780m", 3, 4, 512)  # arch, steps, batch, seq
 # The multitask training example at its reference size: steps, batch, seq.
 TRAIN_MULTITASK = (40, 16, 128)
+# The launch analysis (dryrun_phase): the dry run of three full configs on
+# the 16 x 16 production mesh of a fake 256-rank world, one subprocess each,
+# started together; and the train steps counted on the card and on meta.
+# (arch, shape, policy): mixtral's prefill under FSDP, which the 80 GB
+# budget's automatic choice (tp) would not exercise.
+DRYRUN_CASES = (("mistral-nemo-12b", "train_4k", "auto"),
+                ("mixtral-8x22b", "prefill_32k", "fsdp_tp"),
+                ("mamba2-780m", "train_4k", "auto"))
+DRYRUN_SECONDS = 240
+DRYRUN_COUNTED_SSM = "mamba2-780m"  # train_ssm_phase counts this arch's step
+COUNT_BYTES_TOL = 0.02     # a step's counted bytes, card vs meta, relative
+ROOFLINE_SHARE_MAX = 1.05  # no count may make the card look faster than its peak
 
 
 def check(ok: bool, what: str) -> None:
@@ -495,16 +519,13 @@ class Laps:
 
 
 def pearson_bound(k: int, f: int) -> dict:
-    """Least time on the card: K*(K+1)*F fp32 FLOPs (the upper triangle of
-    the symmetric Z Z^T, diagonal included) vs K*F + K*K fp32 bytes.  Also
-    the bound of the full product, 2*K*K*F FLOPs, which earlier runs used."""
-    ops_ms = 1.0 * k * (k + 1) * f / FP32_PEAK_FLOPS * 1e3
-    bytes_ms = 4.0 * (k * f + k * k) / HBM_BYTES_PER_S * 1e3
-    return {
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bound_ms_full_product": max(2.0 * k * k * f / FP32_PEAK_FLOPS * 1e3, bytes_ms),
-    }
+    """Least time on the card of ``roofline.pearson_work``: K*(K+1)*F fp32
+    FLOPs (the upper triangle of the symmetric Z Z^T, diagonal included) vs
+    K*F + K*K fp32 bytes.  Also the bound of the full product, 2*K*K*F
+    FLOPs, which earlier runs used."""
+    work = roofline.pearson_work(k, f)
+    full = roofline.bound({"flops": 2.0 * k * k * f, "bytes": work["bytes"]}, torch.float32)
+    return {**roofline.bound(work, torch.float32), "bound_ms_full_product": full["bound_ms"]}
 
 
 def launch_counts() -> dict:
@@ -1857,31 +1878,14 @@ def device_breakdown(fn, timed_ms: float, top: int = 6, warm: bool = True,
 # Flash attention
 # --------------------------------------------------------------------------
 
-def allowed_pairs(s: int, t: int, causal: bool, window) -> int:
-    """Query-key pairs the mask keeps (positions are indices)."""
-    qp = torch.arange(s)[:, None]
-    kp = torch.arange(t)[None, :]
-    mask = torch.ones(s, t, dtype=torch.bool)
-    if causal:
-        mask &= qp >= kp
-    if window is not None:
-        mask &= (qp - kp) < window
-    return int(mask.sum())
-
-
 def flash_bound(q: torch.Tensor, k: torch.Tensor, causal: bool, window) -> dict:
-    """Least time on the card for model-layout ``q`` (B, S, Hq, d) over
-    ``k``/``v`` (B, T, Hk, d): 4 * B * Hq * pairs * d operations at the peak
-    of the input type vs q, k, v and o moved once (K/V not repeated)."""
+    """Least time on the card of ``roofline.flash_work`` for model-layout
+    ``q`` (B, S, Hq, d) over ``k``/``v`` (B, T, Hk, d): 4 * B * Hq * pairs *
+    d operations at the peak of the input type vs q, k, v and o moved once
+    (K/V not repeated)."""
     b, s, hq, d = q.shape
-    peak = BF16_PEAK_FLOPS if q.dtype == torch.bfloat16 else FP32_PEAK_FLOPS
-    ops_ms = 4.0 * b * hq * allowed_pairs(s, k.shape[1], causal, window) * d / peak * 1e3
-    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-    }
+    return roofline.bound(roofline.flash_work(b, s, k.shape[1], hq, k.shape[2], d, q.dtype,
+                                              causal, window), q.dtype)
 
 
 def _randn(rng, shape, dtype, device):
@@ -1980,21 +1984,14 @@ def flash_phase(device: torch.device) -> dict:
 
 
 def flash_bwd_bound(q: torch.Tensor, k: torch.Tensor, causal: bool, window) -> dict:
-    """Least time on the card for the backward of model-layout ``q`` (B, S,
-    Hq, d) over ``k``/``v`` (B, T, Hk, d): 10 * B * Hq * pairs * d
-    operations (S = Q K^T again, dP = dO V^T, dV, dQ, dK: five products) at
-    the peak of the input type, vs q, k, v, o, dO and the fp32 logsumexp
-    read once and dQ, dK, dV written once."""
+    """Least time on the card of ``roofline.flash_bwd_work`` for the
+    backward of model-layout ``q`` (B, S, Hq, d) over ``k``/``v`` (B, T, Hk,
+    d): 10 * B * Hq * pairs * d operations (S = Q K^T again, dP = dO V^T,
+    dV, dQ, dK: five products) at the peak of the input type, vs q, k, v, o,
+    dO and the fp32 logsumexp read once and dQ, dK, dV written once."""
     b, s, hq, d = q.shape
-    peak = BF16_PEAK_FLOPS if q.dtype == torch.bfloat16 else FP32_PEAK_FLOPS
-    ops_ms = 10.0 * b * hq * allowed_pairs(s, k.shape[1], causal, window) * d / peak * 1e3
-    nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel()) + 4 * b * hq * s
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "bytes": nbytes,
-    }
+    work = roofline.flash_bwd_work(b, s, k.shape[1], hq, k.shape[2], d, q.dtype, causal, window)
+    return {**roofline.bound(work, q.dtype), "bytes": work["bytes"]}
 
 
 def sdpa_backward_ms(q, k, v, d_o, causal: bool, window) -> float:
@@ -2106,20 +2103,12 @@ def flash_bwd_phase(device: torch.device) -> dict:
 # --------------------------------------------------------------------------
 
 def ssd_bound(b: int, s: int, h: int, p: int, n: int, q: int, dtype: torch.dtype) -> dict:
-    """Least time on the card for one chunked SSD: B nc [2 Qc N + H (2 Qc P
-    + 4 Q N P)] operations (causal pairs only, Qc = Q (Q + 1) / 2) at the
-    peak of the input type, against x, dt, a, B, C read once and y and the
-    final state (fp32) written once."""
-    nc, qc = -(-s // q), q * (q + 1) // 2
-    ops_count = b * nc * (2 * qc * n + h * (2 * qc * p + 4 * q * n * p))
-    peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else FP32_PEAK_FLOPS
-    es = torch.tensor([], dtype=dtype).element_size()
-    nbytes = es * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + h + b * h * p * n)
-    ops_ms = ops_count / peak * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "operations": ops_count, "bytes": nbytes}
+    """Least time on the card of ``roofline.ssd_work``: B nc [2 Qc N + H (2
+    Qc P + 4 Q N P)] operations (causal pairs only, Qc = Q (Q + 1) / 2) at
+    the peak of the input type, against x, dt, a, B, C read once and y and
+    the final state (fp32) written once."""
+    work = roofline.ssd_work(b, s, h, p, n, q, dtype)
+    return {**roofline.bound(work, dtype), "operations": work["flops"], "bytes": work["bytes"]}
 
 
 def ssd_inputs(rng, b, s, h, p, n, dtype, device):
@@ -2195,23 +2184,12 @@ def ssd_phase(device: torch.device) -> dict:
 
 def ssd_bwd_bound(b: int, s: int, h: int, p: int, n: int, q: int, dtype: torch.dtype,
                   with_final: bool) -> dict:
-    """Least time on the card for one SSD backward: B nc [2 Qc N + H (4 Qc P
-    + 4 Qc N + 10 Q N P)] operations at the peak of the input type (C.B and
-    dy.x over the causal pairs, dx from the pairs, dB and dC from the pairs;
-    the chunk's state, U_c, G_c B, G_c^T x and h_c^T dy), against x, dy, dt,
-    a, B, C (and the final state's cotangent) read once and dx, ddt, da, dB,
-    dC written once."""
-    nc, qc = -(-s // q), q * (q + 1) // 2
-    ops_count = b * nc * (2 * qc * n + h * (4 * qc * p + 4 * qc * n + 10 * q * n * p))
-    peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else FP32_PEAK_FLOPS
-    es = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (es * (3 * b * s * h * p + 4 * b * s * n) + 4 * (2 * b * s * h + 2 * h)
-              + (4 * b * h * p * n if with_final else 0))
-    ops_ms = ops_count / peak * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "operations": ops_count, "bytes": nbytes}
+    """Least time on the card of ``roofline.ssd_bwd_work``: B nc [2 Qc N +
+    H (4 Qc P + 4 Qc N + 10 Q N P)] operations at the peak of the input type
+    against x, dy, dt, a, B, C (and the final state's cotangent) read once
+    and dx, ddt, da, dB, dC written once."""
+    work = roofline.ssd_bwd_work(b, s, h, p, n, q, dtype, with_final)
+    return {**roofline.bound(work, dtype), "operations": work["flops"], "bytes": work["bytes"]}
 
 
 def ssd_bwd_phase(device: torch.device) -> dict:
@@ -2691,27 +2669,6 @@ def plain_attention():
         ops.flash_attention_bhsd = kernel
 
 
-class PlainSSDFunction(torch.autograd.Function):
-    """The SSD's plain versions under autograd: ``ssd_scan_ref`` forward,
-    ``ssd_scan_bwd_ref`` backward (the plain route of the SSM training
-    gates; autograd through ``ssd_chunked`` itself gives NaN for dt and a
-    where a masked exp overflows, ``tests/test_torch_ssd_backward.py``)."""
-
-    @staticmethod
-    def forward(ctx, x, dt, a, b_in, c_in, chunk):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, dt, a, b_in, c_in)
-        ctx.chunk = chunk
-        return ssd_scan_ref(x, dt, a, b_in, c_in, chunk)
-
-    @staticmethod
-    def backward(ctx, dy, d_final):
-        x, dt, a, b_in, c_in = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(x)
-        return (*ssd_scan_bwd_ref(x, dt, a, b_in, c_in, dy, d_final, ctx.chunk), None)
-
-
 @contextlib.contextmanager
 def plain_ssd():
     """The models' SSD through its plain versions on the card: the SSD
@@ -2723,20 +2680,6 @@ def plain_ssd():
         yield
     finally:
         ops.ssd_scan = kernel
-
-
-def train_model_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one dense-transformer training step, remat's recompute
-    not counted: 6 per weight of every matrix product per token (Q, K, V and
-    O projections, the SwiGLU MLP, the unembedding; the embedding is a
-    gather) and 12 * d per kept query-key pair per query head and layer
-    (Q K^T and P V, forward and twice in the backward)."""
-    d, hd = cfg.d_model, cfg.head_dim
-    per_layer = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + 3 * d * cfg.d_ff
-    weights = cfg.num_layers * per_layer + d * cfg.vocab_size
-    pairs = allowed_pairs(seq, seq, True, cfg.sliding_window)
-    return (6.0 * weights * batch * seq
-            + 12.0 * cfg.num_layers * batch * cfg.n_heads * pairs * hd)
 
 
 def rel(a: float, b: float) -> float:
@@ -2884,7 +2827,7 @@ def train_phase(device: torch.device, cfg=None, batch: int = TRAIN_BATCH,
           "the checkpoint did not round-trip bit-exactly")
     laps.lap("checkpoint")
 
-    flops = train_model_flops(cfg, batch, seq)
+    flops = roofline.train_model_flops(cfg, batch, seq)
     row = {
         "arch": cfg.name, "layers": layers, "batch": batch, "seq": seq,
         "remat": cfg.remat, "steps": steps,
@@ -2895,17 +2838,167 @@ def train_phase(device: torch.device, cfg=None, batch: int = TRAIN_BATCH,
         "step_ms": run["step_ms"], "steady_step_ms": steady_ms,
         "tokens_per_s": batch * seq / (steady_ms / 1e3),
         "model_flops_per_step": flops,
-        "model_flops_share_of_bf16_peak": flops / (steady_ms / 1e3) / BF16_PEAK_FLOPS,
+        "mfu_weights_and_pairs": roofline.step_mfu(flops, steady_ms / 1e3),
         "peak_memory_gb": {"gradients": grads_peak, "steps": run["peak_gb"]},
         "launches": {"gradients": grad_launches, "grad_accum_2": accum_launches,
                      "steps": step_launches},
         "busy": breakdown["busy"], "device_breakdown": breakdown,
         "checkpoint_bit_exact": True, "seconds": laps.seconds,
     }
+    del tree, restored, pairs, run
+    row["counted"] = count_step(device, model, params, opt, batches[-1], steady_ms, cfg.name)
+    del params, opt
     print(json.dumps({"train": row}), flush=True)
-    del params, opt, run, tree, restored, pairs
     free_memory()
     return row
+
+
+def param_count(cfg, params) -> int:
+    """The reference's parameter count: the tree's bytes over the params
+    dtype's size (an fp32 leaf, a MoE router, counts twice in bf16)."""
+    return int(sum(t.numel() * t.element_size() for t in tree_leaves(params))
+               / cfg.params_dtype().itemsize)
+
+
+def count_step(device: torch.device, model, params, opt, batch, steady_ms: float,
+               label: str) -> dict:
+    """One more train step of ``model`` (AdamW, the timed steps' settings)
+    counted by ``analyze_step`` on ``device``, and the same step on meta
+    tensors: parameters from ``param_shapes``, moments from ``opt_shapes``, a
+    meta batch.  Gates: equal FLOPs, to the FLOP; bytes within
+    :data:`COUNT_BYTES_TOL`; the same kernels counted, each launch once by
+    its formula, and on the card as often as the wrappers launched them.
+    Returns the counts, the aten ops whose counts differ between the two
+    runs, ``mfu`` (the reference's model FLOPs, 6 N D over active params,
+    per steady second over the bf16 peak), the counted FLOPs' share,
+    ``roofline_share`` (the counted work's least time over the steady step;
+    at most :data:`ROOFLINE_SHARE_MAX` on the card) and the meta step's
+    peak live bytes beside ``max_memory_allocated`` of the card's step.
+    The step's results are dropped."""
+    cfg = model.cfg
+    on_card = device.type == "cuda"
+    step_fn = make_train_step(model, AdamWConfig(lr=3e-4, warmup_steps=1,
+                                                 total_steps=TRAIN_STEPS))
+    t0 = time.perf_counter()
+    free_memory()
+    reset_peak(device)
+    reset_launch_counts()
+    card = analyze_step(step_fn, params, opt, batch)
+    sync(device)
+    launched = launch_counts()
+    card_peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    card_args = sum(t.numel() * t.element_size() for t in tree_leaves([params, opt]))
+    t_card = time.perf_counter() - t0
+    meta_params = param_shapes(model)
+    meta = analyze_step(step_fn, meta_params, opt_shapes(meta_params),
+                        torch.empty(np.shape(batch), dtype=torch.int32, device="meta"))
+    t_meta = time.perf_counter() - t0 - t_card
+    check(card["flops"] == meta["flops"],
+          f"{label}: the step counts {card['flops']} FLOPs on {device.type}, "
+          f"{meta['flops']} on meta")
+    bytes_rel = rel(meta["bytes"], card["bytes"])
+    differ = {op: {device.type: card["ops"].get(op), "meta": meta["ops"].get(op)}
+              for op in sorted(set(card["ops"]) | set(meta["ops"]))
+              if card["ops"].get(op) != meta["ops"].get(op)}
+    check(bytes_rel <= COUNT_BYTES_TOL,
+          f"{label}: counted bytes {card['bytes']} on {device.type}, {meta['bytes']} on meta "
+          f"({bytes_rel:.4f} > {COUNT_BYTES_TOL}); ops that differ: {differ}")
+    check(card["kernels"] == meta["kernels"],
+          f"{label}: kernels counted {card['kernels']} vs on meta {meta['kernels']}")
+    check(not on_card or all(launched[k] == v["launches"] for k, v in card["kernels"].items()),
+          f"{label}: kernels counted {card['kernels']} but launched {launched}")
+    n = param_count(cfg, params)
+    model_flops = roofline.model_flops_estimate(
+        cfg, InputShape("train", np.shape(batch)[1], np.shape(batch)[0], "train"), n,
+        roofline.active_params(cfg, n))
+    step_s = steady_ms / 1e3
+    share = roofline.roofline_share(card["flops"], card["bytes"], step_s)
+    check(not on_card or share <= ROOFLINE_SHARE_MAX,
+          f"{label}: roofline_share {share} > {ROOFLINE_SHARE_MAX}: a count makes the card "
+          "look faster than its peak")
+    out = {
+        "flops": card["flops"], "bytes": {device.type: card["bytes"], "meta": meta["bytes"]},
+        "bytes_rel": bytes_rel, "ops_that_differ": differ, "kernels": card["kernels"],
+        "model_flops": model_flops, "steady_step_ms": steady_ms,
+        "mfu": roofline.step_mfu(model_flops, step_s),
+        "counted_flops_share": card["flops"] / step_s / roofline.PEAK_FLOPS,
+        "t_compute_ms": card["flops"] / roofline.PEAK_FLOPS * 1e3,
+        "t_memory_ms": card["bytes"] / roofline.HBM_BW * 1e3,
+        "roofline_share": share,
+        "peak_bytes": {"meta_dry_run": meta["peak_bytes"] + card_args,
+                       "card_counted": card["peak_bytes"] + card_args,
+                       "card_max_memory_allocated": card_peak},
+        "seconds": {"card": t_card, "meta": t_meta},
+    }
+    del card, meta, meta_params
+    free_memory()
+    return out
+
+
+def dryrun_phase(smi: str, counted: dict) -> dict:
+    """The launch analysis.  (a) ``python -m repro_torch.launch.dryrun`` in
+    one subprocess per :data:`DRYRUN_CASES` (a fake world cannot share a
+    process with this one's NCCL worlds), all started together, at full width
+    and depth on the 16 x 16 mesh.  Gates: ``status`` ok; FLOPs, bytes and
+    collective bytes positive; ``model_flops`` equal to
+    ``model_flops_estimate`` of the config's own parameter count; each
+    kernel's counted launches those the step makes (a train step with remat:
+    the forward twice and the backward once per layer; a prefill: once).
+    (b) ``counted``, the steps :func:`count_step` counted in the training
+    phases.  Prints the ``dryrun`` line with the card's name and power
+    limit."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+               OMP_NUM_THREADS="1")
+    with tempfile.TemporaryDirectory() as out:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", "single", "--policy", policy, "--out", out], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for arch, shape, policy in DRYRUN_CASES]
+        try:
+            logs = [p.communicate(timeout=DRYRUN_SECONDS) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        results = {}
+        for (arch, shape, _policy), p, (stdout, stderr) in zip(DRYRUN_CASES, procs, logs):
+            check(p.returncode == 0, f"dry run {arch} {shape}: rc {p.returncode}: {stderr[-2000:]}")
+            with open(os.path.join(out, f"{arch}__{shape}__single.json")) as fh:
+                results[f"{arch}/{shape}"] = json.load(fh)
+    rows = {}
+    for (arch, shape, policy), r in zip(DRYRUN_CASES, results.values()):
+        label = f"dry run {arch} {shape}"
+        check(r["status"] == "ok", f"{label}: {r.get('error')}\n{r.get('traceback', '')[-3000:]}")
+        check(policy == "auto" or r["policy"] == policy, f"{label}: policy {r['policy']}")
+        check(r["hlo_flops"] > 0 and r["hlo_bytes"] > 0 and r["coll_bytes"] > 0,
+              f"{label}: FLOPs {r['hlo_flops']}, bytes {r['hlo_bytes']}, collective bytes "
+              f"{r['coll_bytes']}")
+        cfg = get_config(arch)
+        n = param_count(cfg, param_shapes(get_model(cfg)))
+        kind = r["kind"]
+        want_mf = roofline.model_flops_estimate(cfg, get_shape(shape), n,
+                                                roofline.active_params(cfg, n))
+        check(r["n_params"] == n and r["model_flops"] == want_mf,
+              f"{label}: n_params {r['n_params']} vs {n}, model_flops {r['model_flops']} vs "
+              f"{want_mf}")
+        once = prefill_launches(cfg)
+        fwd = 2 if kind == "train" and cfg.remat else 1
+        want = {k: fwd * v for k, v in once.items() if v}
+        if kind == "train":
+            want.update({f"{k}_bwd": v for k, v in once.items() if v})
+        got = {k: v["launches"] for k, v in r["kernels"].items()}
+        check(got == want, f"{label}: kernels counted {got}, the step launches {want}")
+        rows[f"{arch}/{shape}"] = {k: r[k] for k in (
+            "policy", "n_params", "trace_s", "memory", "kernels", "hlo_flops", "hlo_bytes",
+            "coll_bytes", "coll_breakdown", "model_flops", "t_compute", "t_memory",
+            "t_collective", "dominant", "useful_flops_ratio")}
+    line = {"device": smi, "mesh": "16x16 (fake world of 256)", "cases": rows,
+            "counted_steps": counted, "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"dryrun": line}), flush=True)
+    return line
 
 
 def train_launcher_phase(arch: str, steps: int, batch: int, seq: int, extra_args=()) -> dict:
@@ -2954,7 +3047,8 @@ def ssm_leaves(cfg, tree) -> dict:
 SSM_SSD_LEAVES = ("w_zx", "wb", "wc", "wdt", "dt_bias", "a_log", "conv")
 
 
-def train_ssm_phase(device: torch.device, cfg, batch: int, seq: int, steps: int) -> dict:
+def train_ssm_phase(device: torch.device, cfg, batch: int, seq: int, steps: int,
+                    count: bool = False) -> dict:
     """SSM or hybrid training at ``cfg``'s width and depth, remat on, B x S
     tokens of ``lm_batches(seed=0)``.  Gates: the first batch's loss and
     grad norm through the kernels within 2e-2 of the plain route's (the
@@ -2968,7 +3062,8 @@ def train_ssm_phase(device: torch.device, cfg, batch: int, seq: int, steps: int)
     leaf's gradient within :data:`SSM_FP32_GRAD_TOL` of the plain route's.
     Prints step ms, tokens/s, peak memory, the device's busy share and the
     top kernels of one more step (on the CPU, for a rehearsal with a smoke
-    ``cfg``, the launch counts are 0 and not gated)."""
+    ``cfg``, the launch counts are 0 and not gated).  With ``count``, one
+    more step is counted on the card and on meta (:func:`count_step`)."""
     on_card = device.type == "cuda"
     model = get_model(cfg)
     ssd_layers = cfg.num_layers
@@ -3067,8 +3162,12 @@ def train_ssm_phase(device: torch.device, cfg, batch: int, seq: int, steps: int)
         "busy": run["breakdown"]["busy"], "device_breakdown": run["breakdown"],
         "seconds": laps.seconds,
     }
+    params, opt = run["params"], run["opt"]
+    del run
+    if count:
+        row["counted"] = count_step(device, model, params, opt, batches[-1], steady_ms, cfg.name)
     print(json.dumps({"train_ssm": row}), flush=True)
-    del params, run
+    del params, opt
     free_memory()
     return row
 
@@ -3772,7 +3871,8 @@ def main() -> int:
     train_ssm = {}
     for arch, batch, seq, steps in TRAIN_SSMS:
         t1 = time.perf_counter()
-        train_ssm[arch] = train_ssm_phase(device, get_config(arch), batch, seq, steps)
+        train_ssm[arch] = train_ssm_phase(device, get_config(arch), batch, seq, steps,
+                                          count=arch == DRYRUN_COUNTED_SSM)
         print(json.dumps({"train_ssm_phase_seconds": {arch: time.perf_counter() - t1}}),
               flush=True)
     ssm_launch = train_launcher_phase(*TRAIN_SSM_LAUNCHER)
@@ -3784,6 +3884,11 @@ def main() -> int:
     print(json.dumps({"example_phases_seconds": time.perf_counter() - t1}), flush=True)
     pearson_guard_phase(device)
     print(json.dumps({"training_phases_seconds": time.perf_counter() - t0}), flush=True)
+
+    # The launch analysis: the dry run on three full configs, and the train
+    # steps counted on the card and on meta.
+    dryrun_phase(smi, {f"{ARCH} ({TRAIN_LAYERS} layers)": train["counted"],
+                       DRYRUN_COUNTED_SSM: train_ssm[DRYRUN_COUNTED_SSM]["counted"]})
 
     # Mesh-sharded serving of the LeNet-5 and mistral-nemo-12b traces on a
     # (1, 1) mesh under both policies.

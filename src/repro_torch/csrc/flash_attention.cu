@@ -77,6 +77,9 @@
 // train shapes the bytes bound it.
 //   * fp32 (bwd::): the CUDA cores, 4 x 4 register micro-tiles, tiles
 //     staged transposed in fp32 (held to 1e-5, which TF32 cannot meet).
+//     Head dims up to 160: at 192 (nemotron-4-340b, which trains in bf16)
+//     the dK/dV kernel's four staged (192, 65) fp32 tiles pass the 227 KB
+//     of shared memory a block may take.
 //   * bf16 (bwd16::): the tensor cores.  Every product is a pattern of the
 //     forward's: S^T = K Q^T and dP^T = V dO^T (dK/dV kernel), S = Q K^T and
 //     dP = dO V^T (dQ kernel) by wgmma with both operands K-major; P and dS
@@ -618,6 +621,7 @@ int dispatch_dim(const Args& a, int batch, int d, cudaStream_t stream) {
     case 80: return launch<T, 80>(a, batch, stream);
     case 128: return launch<T, 128>(a, batch, stream);
     case 160: return launch<T, 160>(a, batch, stream);
+    case 192: return launch<T, 192>(a, batch, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1360,6 +1364,7 @@ int dispatch_dim(const Args& a, int d, cudaStream_t stream) {
     case 80: return launch<80>(a, stream);
     case 128: return launch<128>(a, stream);
     case 160: return launch<160>(a, stream);
+    case 192: return launch<192>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -41,10 +41,17 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (
+    flash_attention_bhsd_bwd_ref, flash_attention_bhsd_ref, flash_attention_bwd_ref,
+    flash_attention_lse_ref, flash_attention_ref,
+)
+from repro_torch.launch import op_cost, roofline
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (16, 32, 64, 80, 128, 160)
+HEAD_DIMS = (16, 32, 64, 80, 128, 160, 192)
+# The fp32 backward's dK/dV kernel stages four (d, 65) fp32 tiles in shared
+# memory: past head dim 160 they pass the 227 KB a block may take.
+FP32_BACKWARD_MAX_HEAD_DIM = 160
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -67,10 +74,11 @@ def _library() -> ctypes.CDLL:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int]) -> None:
-    """What the kernel takes: fp32 or bf16 on one CUDA device, equal dtypes,
-    a head_dim of :data:`HEAD_DIMS`, contiguous head dims."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    """What the kernel takes: fp32 or bf16 on one CUDA device (or ``meta``,
+    a shape run), equal dtypes, a head_dim of :data:`HEAD_DIMS`, contiguous
+    head dims."""
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention takes fp32 or bf16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -138,6 +146,13 @@ def _geometry(q: torch.Tensor, k: torch.Tensor, causal: bool, window: Optional[i
     return _Geometry(b, hq, k.shape[2], s, k.shape[1], None, causal, window)
 
 
+def _work(q: torch.Tensor, g: _Geometry, formula) -> roofline.Work:
+    """The roofline formula (:func:`~repro_torch.launch.roofline.flash_work`
+    or :func:`~repro_torch.launch.roofline.flash_bwd_work`) of one call in
+    the kernels' geometry."""
+    return formula(g.batch, g.s, g.t, g.hq, g.hk, q.shape[-1], q.dtype, g.causal, g.window)
+
+
 def _strides(x: torch.Tensor, g: _Geometry, kv: bool) -> Tuple[int, int, int]:
     """(batch, seq, head) element strides of ``x`` as the kernels index it:
     the model layout as it lies; a flat query-side tensor (q, o and their
@@ -155,23 +170,27 @@ def _launch(
     lse: Optional[torch.Tensor], g: _Geometry,
 ) -> None:
     """One forward launch, writing ``o`` and, when given, the fp32
-    logsumexp ``lse`` ((batch, hq, s) in the kernels' geometry)."""
+    logsumexp ``lse`` ((batch, hq, s) in the kernels' geometry).  On
+    ``meta`` nothing launches: ``o`` and ``lse`` keep their shapes only."""
     if g.batch * g.hq == 0 or g.s == 0:
         return
     _check_rows(g.s, g.t, g.window)
-    lib = _library()
-    d = q.shape[-1]
-    flat = [int(x) for t, kv in ((q, False), (k, True), (v, True), (o, False))
-            for x in _strides(t, g, kv)]
-    with _build.on_device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            _DTYPE_CODES[q.dtype], g.batch, g.hq, g.hk, g.s, g.t, d, *flat,
-            int(g.causal), 0 if g.window is None else int(g.window),
-            1.0 / math.sqrt(d), stream,
-        )
+    with op_cost.kernel("flash_attention", lambda: _work(q, g, roofline.flash_work)):
+        if q.device.type == "meta":
+            return
+        lib = _library()
+        d = q.shape[-1]
+        flat = [int(x) for t, kv in ((q, False), (k, True), (v, True), (o, False))
+                for x in _strides(t, g, kv)]
+        with _build.on_device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                _DTYPE_CODES[q.dtype], g.batch, g.hq, g.hk, g.s, g.t, d, *flat,
+                int(g.causal), 0 if g.window is None else int(g.window),
+                1.0 / math.sqrt(d), stream,
+            )
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
@@ -185,7 +204,11 @@ def _launch_bwd(
     stream: dq, dk and dv, contiguous, in the inputs' dtype and shapes.
     bf16 runs on the tensor cores and reads q, k, v and dO by TMA, so each
     goes through :func:`_aligned` first, as the forward's inputs do.
-    :attr:`flash_attention.backward_launches` counts the call once."""
+    :attr:`flash_attention.backward_launches` counts the call once.  On
+    ``meta`` nothing launches: the gradients keep their shapes only."""
+    if q.dtype == torch.float32 and q.shape[-1] > FP32_BACKWARD_MAX_HEAD_DIM:
+        raise ValueError(f"the fp32 flash backward takes head_dim up to "
+                         f"{FP32_BACKWARD_MAX_HEAD_DIM}, got {q.shape[-1]}")
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))
     if g.batch * g.hq == 0 or g.s == 0:
         return dq, dk.zero_(), dv.zero_()
@@ -196,17 +219,20 @@ def _launch_bwd(
     roles = ((q, False), (k, True), (v, True), (o, False), (d_o, False),
              (dq, False), (dk, True), (dv, True))
     strides = (ctypes.c_longlong * 24)(*(int(x) for t, kv in roles for x in _strides(t, g, kv)))
-    lib = _library()
-    d = q.shape[-1]
-    with _build.on_device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), d_o.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            _DTYPE_CODES[q.dtype], g.batch, g.hq, g.hk, g.s, g.t, d, strides,
-            int(g.causal), 0 if g.window is None else int(g.window),
-            1.0 / math.sqrt(d), stream,
-        )
+    with op_cost.kernel("flash_attention_bwd", lambda: _work(q, g, roofline.flash_bwd_work)):
+        if q.device.type == "meta":
+            return dq, dk, dv
+        lib = _library()
+        d = q.shape[-1]
+        with _build.on_device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), d_o.data_ptr(),
+                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                _DTYPE_CODES[q.dtype], g.batch, g.hq, g.hk, g.s, g.t, d, strides,
+                int(g.causal), 0 if g.window is None else int(g.window),
+                1.0 / math.sqrt(d), stream,
+            )
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA error {err}")
     flash_attention.backward_launches += 1
@@ -254,6 +280,70 @@ def _attend(
     return _forward(q, k, v, g, with_lse=False)[0]
 
 
+def _lse_ref(q: torch.Tensor, k: torch.Tensor, g: _Geometry) -> torch.Tensor:
+    """The plain logsumexp in the kernels' (batch, hq, s) geometry, for the
+    flat layout or the model layout."""
+    if g.rep is not None:
+        return flash_attention_lse_ref(q, k, g.causal, g.window).reshape(g.batch, g.hq, g.s)
+    b, s, hq, d = q.shape
+    flat = lambda x, h: x.transpose(1, 2).reshape(b * h, -1, d)  # noqa: E731
+    return flash_attention_lse_ref(flat(q, hq), flat(k, g.hk), g.causal,
+                                   g.window).reshape(b, hq, s)
+
+
+class PlainFlashFunction(torch.autograd.Function):
+    """The plain versions under autograd, each call counted as the kernel's
+    launch by an active :class:`~repro_torch.launch.op_cost.OpCounter`: the
+    forward :func:`~repro_torch.kernels.ref.flash_attention_ref` (and its
+    logsumexp), the backward
+    :func:`~repro_torch.kernels.ref.flash_attention_bwd_ref`, as the flash
+    kernels' forward and backward launches."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, geometry: _Geometry):
+        g = geometry
+        with op_cost.kernel("flash_attention", lambda: _work(q, g, roofline.flash_work)):
+            ref = flash_attention_ref if g.rep is not None else flash_attention_bhsd_ref
+            o = ref(q, k, v, causal=g.causal, window=g.window)
+            lse = _lse_ref(q, k, g)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.geometry = g
+        return o
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        q, k, v, o, lse = ctx.saved_tensors
+        g = ctx.geometry
+        with op_cost.kernel("flash_attention_bwd", lambda: _work(q, g, roofline.flash_bwd_work)):
+            if g.rep is not None:
+                dq, dk, dv = flash_attention_bwd_ref(q, k, v, o, grad_o, lse.reshape(-1, g.s),
+                                                     g.causal, g.window)
+            else:
+                dq, dk, dv = flash_attention_bhsd_bwd_ref(q, k, v, o, grad_o, lse,
+                                                          g.causal, g.window)
+        return dq, dk, dv, None
+
+
+def flash_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool = True, window: Optional[int] = None,
+) -> torch.Tensor:
+    """The CPU route of both layouts (flat (BH, S, d) or model (B, S, H,
+    d)): the plain version.  Under an active
+    :class:`~repro_torch.launch.op_cost.OpCounter` the call counts as one
+    kernel launch and the plain version's own ops not on top; with grad it
+    then runs through :class:`PlainFlashFunction`, so that its backward
+    counts as the backward kernel's launch."""
+    g = _geometry(q, k, causal, window)
+    ref = flash_attention_ref if g.rep is not None else flash_attention_bhsd_ref
+    if op_cost.active_counter() is None:
+        return ref(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return PlainFlashFunction.apply(q, k, v, g)
+    with op_cost.kernel("flash_attention", lambda: _work(q, g, roofline.flash_work)):
+        return ref(q, k, v, causal=causal, window=window)
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal: bool = True, window: Optional[int] = None,
@@ -264,10 +354,12 @@ def flash_attention(
     of BHk (query slice ``i`` reads KV slice ``i // (BH / BHk)``).  Returns
     (BH, S, d) in ``q``'s dtype.  On CUDA the kernel launches on the current
     stream and :attr:`flash_attention.launches` counts it; under autograd
-    the backward kernels give the inputs' gradients.
+    the backward kernels give the inputs' gradients.  On ``meta`` (a shape
+    run) the same checks hold and the outputs and gradients come back with
+    their shapes and dtypes, nothing launched.
     """
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
     _check(q, k, v, window)
     if q.dim() != 3 or k.dim() != 3:
         raise ValueError(f"flash_attention takes (BH, S, d) tensors, got {tuple(q.shape)}")

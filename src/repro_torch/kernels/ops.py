@@ -5,10 +5,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_bhsd_kernel
+from repro_torch.kernels.flash_attention import flash_attention_bhsd_kernel, flash_attention_plain
 from repro_torch.kernels.pearson_affinity import pearson_dissimilarity
 from repro_torch.kernels.ref import flash_attention_bhsd_ref
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
+from repro_torch.launch import op_cost
 
 
 def standardize_rows(feats: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -37,16 +38,20 @@ def flash_attention_bhsd(
     ``q`` (B, S, Hq, d), ``k``/``v`` (B, T, Hk, d) with Hq a multiple of
     Hk; returns (B, S, Hq, d) in ``q``'s dtype.  A CUDA input launches the
     flash-attention kernel, which reads the KV head of each query head in
-    place; a CPU input runs the plain version.  ``DTensor`` inputs (a mesh
-    engine's activations) run per rank on the local batch rows and heads
-    (:func:`_flash_on_mesh`).
+    place; a CPU input runs the plain version (counted as the kernel's
+    launches under an active ``OpCounter``); a ``meta`` input returns
+    the output's shape and dtype, launching nothing.  ``DTensor`` inputs (a
+    mesh engine's activations) run per rank on the local batch rows and
+    heads (:func:`_flash_on_mesh`).
     """
     from torch.distributed.tensor import DTensor
 
     if isinstance(q, DTensor):
         return _flash_on_mesh(q, k, v, causal, window)
     if q.device.type == "cpu":
-        return flash_attention_bhsd_ref(q, k, v, causal=causal, window=window)
+        if op_cost.active_counter() is None:
+            return flash_attention_bhsd_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
     return flash_attention_bhsd_kernel(q, k, v, causal=causal, window=window)
 
 

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import pearson_dissimilarity_ref
+from repro_torch.launch import op_cost, roofline
 
 SOURCE = "pearson_gram.cu"
 TILE = 64      # output rows/columns per tile
@@ -86,10 +87,14 @@ def pearson_dissimilarity(z: torch.Tensor) -> torch.Tensor:
     the current stream and :attr:`pearson_dissimilarity.launches` counts
     the call once.  The kernel has no backward: on CUDA, with grad enabled
     and ``z`` requiring grad, it raises ``NotImplementedError`` rather than
-    return an output cut off from autograd.
+    return an output cut off from autograd.  On ``meta`` (a shape run) the
+    same checks hold and the output has its shape only, nothing launched.
+    Under an active :class:`~repro_torch.launch.op_cost.OpCounter` every
+    route counts one launch of :func:`~repro_torch.launch.roofline.pearson_work`.
     """
     if z.device.type == "cpu":
-        return pearson_dissimilarity_ref(z)
+        with op_cost.kernel("pearson_gram", lambda: roofline.pearson_work(*z.shape)):
+            return pearson_dissimilarity_ref(z)
     if torch.is_grad_enabled() and z.requires_grad:
         raise NotImplementedError(
             "pearson_dissimilarity has no backward kernel: the affinity analysis needs no "
@@ -101,19 +106,22 @@ def pearson_dissimilarity(z: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pearson_dissimilarity takes a 2-D (K, F) tensor, got {tuple(z.shape)}")
     if not z.is_contiguous():
         raise ValueError("pearson_dissimilarity takes a contiguous tensor")
-    if z.device.type != "cuda":
-        raise ValueError(f"pearson_dissimilarity runs on cuda or cpu, not {z.device}")
+    if z.device.type not in ("cuda", "meta"):
+        raise ValueError(f"pearson_dissimilarity runs on cuda, cpu or meta, not {z.device}")
     k, f = z.shape
     out = torch.empty((k, k), dtype=torch.float32, device=z.device)
     if k == 0:
         return out
     plan = split_plan(k, f)
     partial = torch.empty(plan.blocks * TILE * TILE, dtype=torch.float32, device=z.device)
-    lib = _library()
-    with _build.on_device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = lib.pearson_gram(z.data_ptr(), partial.data_ptr(), out.data_ptr(), k, f,
-                               plan.splits, plan.span, stream)
+    with op_cost.kernel("pearson_gram", lambda: roofline.pearson_work(k, f)):
+        if z.device.type == "meta":
+            return out
+        lib = _library()
+        with _build.on_device(z.device):
+            stream = torch.cuda.current_stream(z.device).cuda_stream
+            err = lib.pearson_gram(z.data_ptr(), partial.data_ptr(), out.data_ptr(), k, f,
+                                   plan.splits, plan.span, stream)
     if err != 0:
         raise RuntimeError(f"pearson_gram launch failed: CUDA error {err}")
     pearson_dissimilarity.launches += 1

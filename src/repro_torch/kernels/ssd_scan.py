@@ -52,7 +52,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ssd_scan_ref
+from repro_torch.kernels.ref import ssd_scan_bwd_ref, ssd_scan_ref
+from repro_torch.launch import op_cost, roofline
 
 SOURCE = "ssd_scan.cu"
 # (P, N) pairs with a template instance: the model shapes (mamba2-780m,
@@ -268,8 +269,8 @@ def _check(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
 ) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_scan runs on cuda, cpu or meta, not {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"ssd_scan takes x in fp32 or bf16, got {x.dtype}")
     if b_in.dtype != x.dtype or c_in.dtype != x.dtype:
@@ -295,7 +296,8 @@ def _forward(
     x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     b_in: torch.Tensor, c_in: torch.Tensor, chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One forward launch on the current stream: y and the final state."""
+    """One forward launch on the current stream: y and the final state
+    (on ``meta`` their shapes only, nothing launched)."""
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]
     y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
@@ -308,16 +310,19 @@ def _forward(
         scratch = [torch.empty(shape, dtype=dtype, device=x.device)
                    for shape, dtype in scratch_shapes(bsz, s, h, p, n, chunk).values()]
         g1, g3 = head_groups(bsz, s, h, chunk)
-    lib = _library()
-    with _build.on_device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
-            y.data_ptr(), fin.data_ptr(), _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk,
-            x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
-            b_in.stride(0), b_in.stride(1), c_in.stride(0), c_in.stride(1),
-            *([t.data_ptr() for t in scratch] or [0] * 5), g1, g3, stream,
-        )
+    with op_cost.kernel("ssd_scan", lambda: roofline.ssd_work(bsz, s, h, p, n, chunk, x.dtype)):
+        if x.device.type == "meta":
+            return y, fin
+        lib = _library()
+        with _build.on_device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.ssd_scan_fwd(
+                x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
+                y.data_ptr(), fin.data_ptr(), _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk,
+                x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1), dt.stride(2),
+                b_in.stride(0), b_in.stride(1), c_in.stride(0), c_in.stride(1),
+                *([t.data_ptr() for t in scratch] or [0] * 5), g1, g3, stream,
+            )
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     ssd_scan.launches += 1
@@ -336,7 +341,8 @@ def ssd_scan_backward(
     inputs are the forward's, read through their strides; the outputs are
     contiguous.  :attr:`ssd_scan.backward_launches` counts the call once,
     and :attr:`ssd_scan.backward_scratch_allocated` holds the bytes of the
-    scratch it allocated.  CUDA only."""
+    scratch it allocated.  CUDA only, or ``meta``: the gradients' shapes
+    and dtypes, nothing launched."""
     _check(x, dt, a, b_in, c_in, chunk)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must match x: {tuple(dy.shape)} {dy.dtype} vs "
@@ -360,6 +366,23 @@ def ssd_scan_backward(
     if bsz * h == 0 or s == 0:
         ssd_scan.backward_scratch_allocated = 0
         return dx, ddt, da, db.zero_(), dc.zero_()
+    with op_cost.kernel("ssd_scan_bwd", lambda: roofline.ssd_bwd_work(
+            bsz, s, h, p, n, chunk, x.dtype, d_final is not None)):
+        if x.device.type == "meta":
+            return dx, ddt, da, db, dc
+        err = _launch_bwd(x, dt, a, b_in, c_in, dy, d_final, dx, ddt, da, db, dc, chunk, g1, g3)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan backward launch failed: CUDA error {err}")
+    ssd_scan.backward_launches += 1
+    return dx, ddt, da, db, dc
+
+
+def _launch_bwd(x, dt, a, b_in, c_in, dy, d_final, dx, ddt, da, db, dc, chunk: int,
+                g1: int, g3: int) -> int:
+    """The backward kernels' one C call, its scratch allocated here: the
+    C entry point's error code."""
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
     offsets, total = _backward_layout(
         tuple(backward_scratch_shapes(bsz, s, h, p, n, chunk, x.dtype).values()))
     scratch = torch.empty((total,), dtype=torch.uint8, device=x.device)
@@ -379,10 +402,7 @@ def ssd_scan_backward(
             dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
             _DTYPE_CODES[x.dtype], bsz, s, h, p, n, chunk, g1, g3, strides, pointers, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"ssd_scan backward launch failed: CUDA error {err}")
-    ssd_scan.backward_launches += 1
-    return dx, ddt, da, db, dc
+    return err
 
 
 class SSDScanFunction(torch.autograd.Function):
@@ -407,6 +427,51 @@ class SSDScanFunction(torch.autograd.Function):
         return dx, ddt, da, db, dc, None
 
 
+class PlainSSDFunction(torch.autograd.Function):
+    """The SSD's plain versions under autograd: :func:`ssd_scan_ref`
+    forward, :func:`~repro_torch.kernels.ref.ssd_scan_bwd_ref` backward,
+    each counted as the kernels' launch by an active
+    :class:`~repro_torch.launch.op_cost.OpCounter` (autograd through
+    ``ssd_chunked`` itself gives NaN for dt and a where a masked exp
+    overflows, ``tests/test_torch_ssd_backward.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b_in, c_in, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b_in, c_in)
+        ctx.chunk = chunk
+        with op_cost.kernel("ssd_scan", lambda: roofline.ssd_work(
+                *x.shape, b_in.shape[-1], chunk, x.dtype)):
+            return ssd_scan_ref(x, dt, a, b_in, c_in, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, a, b_in, c_in = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        with op_cost.kernel("ssd_scan_bwd", lambda: roofline.ssd_bwd_work(
+                *x.shape, b_in.shape[-1], ctx.chunk, x.dtype, d_final is not None)):
+            return (*ssd_scan_bwd_ref(x, dt, a, b_in, c_in, dy, d_final, ctx.chunk), None)
+
+
+def ssd_scan_plain(
+    x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+    b_in: torch.Tensor, c_in: torch.Tensor, chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CPU route: the plain version, differentiable by autograd.  Under
+    an active :class:`~repro_torch.launch.op_cost.OpCounter` the call
+    counts as one kernel launch and the plain version's own ops not on top;
+    with grad it then runs through :class:`PlainSSDFunction`, so that its
+    backward counts as the backward kernels' launch."""
+    if op_cost.active_counter() is None:
+        return ssd_scan_ref(x, dt, a, b_in, c_in, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_in, c_in)):
+        return PlainSSDFunction.apply(x, dt, a, b_in, c_in, chunk)
+    with op_cost.kernel("ssd_scan", lambda: roofline.ssd_work(
+            *x.shape, b_in.shape[-1], chunk, x.dtype)):
+        return ssd_scan_ref(x, dt, a, b_in, c_in, chunk)
+
+
 def ssd_scan(
     x: torch.Tensor,      # (B, S, H, P) activation dtype
     dt: torch.Tensor,     # (B, S, H) fp32, positive step sizes
@@ -422,11 +487,14 @@ def ssd_scan(
     :attr:`ssd_scan.launches` counts it; with grad enabled and an input
     that requires grad it runs through :class:`SSDScanFunction`, whose
     backward launches the backward kernels (:attr:`ssd_scan.backward_launches`).
-    On the CPU the plain version runs, differentiable by autograd.
+    On the CPU the plain version runs, differentiable by autograd
+    (:func:`ssd_scan_plain`).  On ``meta`` (a shape run) the same checks
+    hold and the outputs and gradients come back with their shapes and
+    dtypes, nothing launched.
     """
     check_devices(x, dt, a, b_in, c_in)
     if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, a, b_in, c_in, chunk)
+        return ssd_scan_plain(x, dt, a, b_in, c_in, chunk)
     _check(x, dt, a, b_in, c_in, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b_in, c_in)):
         return SSDScanFunction.apply(x, dt, a, b_in, c_in, chunk)

@@ -40,7 +40,7 @@ from repro_torch.models.cache import HybridCache, KVCache, SSMCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import draw_stacked, layer_params, stacked_specs, token_ids
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
-from repro_torch.sharding.utils import gather_fsdp, on_mesh, write_rows
+from repro_torch.sharding.utils import column_einsum, gather_fsdp, on_mesh, write_rows
 
 Params = Dict[str, Any]
 
@@ -117,7 +117,7 @@ def _lora_qkv(params: Params, inv_lora: Optional[Params], h: torch.Tensor):
         zq = h @ inv_lora["aq"]                                  # (B,S,r)
         q = q + torch.einsum("bsr,rhk->bshk", zq, inv_lora["bq"])
         zkv = h @ inv_lora["akv"]
-        dkv = torch.einsum("bsr,rthk->bsthk", zkv, inv_lora["bkv"])
+        dkv = column_einsum("bsr,rthk->bsthk", zkv, inv_lora["bkv"], 2, 3)
         k = k + dkv[:, :, 0]
         v = v + dkv[:, :, 1]
     return q, k, v

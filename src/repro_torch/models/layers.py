@@ -41,7 +41,9 @@ from repro_torch._device import tree_leaves
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
-from repro_torch.sharding.utils import gather_fsdp, is_dtensor, local_extent, mesh_pad, write_rows
+from repro_torch.sharding.utils import (
+    column_einsum, gather_fsdp, is_dtensor, local_extent, mesh_pad, write_rows,
+)
 
 Params = Dict[str, Any]
 
@@ -73,8 +75,11 @@ def dense_init(
 
     Drawn in fp32 on the generator's device, then moved and cast: a CUDA
     generator draws on the card, so full-width weights never cross the host.
+    On ``meta`` nothing is drawn: the tensor has the shape and dtype only.
     """
     shape = (in_dim, *out_shape)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.empty(shape, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * (1.0 / math.sqrt(in_dim))).to(device=device, dtype=dtype)
@@ -84,6 +89,10 @@ def embed_init(
     generator: torch.Generator, vocab: int, dim: int, dtype: torch.dtype,
     device: torch.device,
 ) -> torch.Tensor:
+    """Normal (std 0.02) embedding, drawn as :func:`dense_init` draws (on
+    ``meta`` not at all)."""
+    if device.type == "meta":
+        return torch.empty((vocab, dim), dtype=dtype, device=device)
     t = torch.empty((vocab, dim), device=generator.device)
     t.normal_(0.0, 1.0, generator=generator)
     return (t * 0.02).to(device=device, dtype=dtype)
@@ -153,7 +162,7 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, device: torch.d
 
 
 def project_kv(params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    kv = torch.einsum("bsd,dthk->bsthk", x, params["w_kv"])
+    kv = column_einsum("bsd,dthk->bsthk", x, params["w_kv"], 2, 3)
     return kv[:, :, 0], kv[:, :, 1]
 
 
@@ -211,7 +220,13 @@ def attention_dense(
     causal: bool = True,
     kv_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Reference attention: full score matrix.  q: (B,S,Hq,Dh); k/v: (B,T,Hk,Dh)."""
+    """Reference attention: full score matrix.  q: (B,S,Hq,Dh); k/v: (B,T,Hk,Dh).
+    ``DTensor`` inputs with positions shared by the batch and the keys'
+    sequence whole run per rank (:func:`_attend_on_mesh`)."""
+    if _splits_rows_or_heads(q, k) and q_pos.dim() == 1 and k_pos.dim() == 1:
+        return _attend_on_mesh(
+            lambda a, b_, c, valid: attention_dense(a, b_, c, q_pos, k_pos, window, causal, valid),
+            q, k, v, kv_valid)
     b, s, hq, dh = q.shape
     hk = k.shape[2]
     g = hq // hk
@@ -303,8 +318,14 @@ def attention_decode(
     The score tensor is only (B, Hk, G, T), so nothing needs the online
     softmax.  Scores and the weighted sum of V are taken in fp32 over the
     stored values (the reference's ``preferred_element_type=float32``); the
-    softmax weights are rounded to V's dtype first, as there.
+    softmax weights are rounded to V's dtype first, as there.  ``DTensor``
+    inputs whose cache keeps its sequence whole run per rank on the local
+    batch rows and heads (:func:`_attend_on_mesh`).
     """
+    if _splits_rows_or_heads(q, k):
+        return _attend_on_mesh(
+            lambda a, b, c, valid: attention_decode(a, b, c, k_pos, q_pos_scalar, window, valid),
+            q, k, v, kv_valid)
     b, s, hq, dh = q.shape
     if s != 1:
         raise ValueError(f"attention_decode takes one query token, got {s}")
@@ -321,6 +342,47 @@ def attention_decode(
     w = torch.softmax(_masked(scores, mask), dim=-1)
     out = torch.einsum("bhgt,bthd->bhgd", w.to(v.dtype).float(), v.float())
     return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
+def _splits_rows_or_heads(q: Any, k: Any) -> bool:
+    """Whether attention of ``q`` over ``k`` runs per rank: both on a mesh,
+    the keys' sequence whole."""
+    return is_dtensor(q) and is_dtensor(k) and not any(pl.is_shard(1) for pl in k.placements)
+
+
+def _attend_on_mesh(fn, q, k, v, kv_valid: Optional[Any]):
+    """``fn(q, k, v, kv_valid)`` (an attention over plain tensors, its
+    positions and scalars bound) on ``DTensor`` q, k and v through
+    ``local_map``: every mesh dimension that splits q's batch keeps it
+    split (k, v and ``kv_valid`` alike), each other dimension splits the
+    query and KV heads where both divide, as
+    :func:`repro_torch.kernels.ops.flash_attention_bhsd` lays them out, and
+    replicates them otherwise.  Each rank attends its own rows and heads
+    over the whole key sequence.  (DTensor's own einsum views (B, Hk) as one
+    dimension, which torch 2.11 refuses with the heads split.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    hq, hk = q.shape[2], k.shape[2]
+    layout, split = [], 1
+    for mdim, pl in enumerate(q.placements):
+        n = mesh.size(mdim)
+        if pl == Shard(0):
+            layout.append(Shard(0))
+        elif hq % (split * n) == 0 and hk % (split * n) == 0:
+            split *= n
+            layout.append(Shard(2))
+        else:
+            layout.append(Replicate())
+    rows = [pl if pl == Shard(0) else Replicate() for pl in layout]
+    if kv_valid is not None and not is_dtensor(kv_valid):
+        kv_valid = DTensor.from_local(kv_valid, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return local_map(
+        fn, out_placements=layout,
+        in_placements=(layout, layout, layout, None if kv_valid is None else rows),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(q, k, v, kv_valid)
 
 
 def attention_block(
@@ -428,7 +490,7 @@ def spec_mlp(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
 def mlp_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
               policy: ShardingPolicy = TP_POLICY) -> torch.Tensor:
     if cfg.activation == "swiglu":
-        gu = torch.einsum("bsd,dkf->bskf", x, params["w_gu"])
+        gu = column_einsum("bsd,dkf->bskf", x, params["w_gu"], 2, 3)
         g, u = gu[:, :, 0], gu[:, :, 1]
         h = F.silu(g.float()).to(u.dtype) * u
     else:

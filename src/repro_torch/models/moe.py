@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import NEG_INF, dense_init
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
-from repro_torch.sharding.utils import is_dtensor
+from repro_torch.sharding.utils import column_einsum, is_dtensor
 
 Params = Dict[str, Any]
 
@@ -48,7 +48,9 @@ def _trunc_normal(
     device: torch.device,
 ) -> torch.Tensor:
     """``std`` times a normal truncated at 2, drawn in fp32 on the
-    generator's device, then moved and cast."""
+    generator's device, then moved and cast; on ``meta`` nothing is drawn."""
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.empty(shape, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t.mul_(std).to(device=device, dtype=dtype)
@@ -309,6 +311,6 @@ def _moe_groups(params: Params, xg: torch.Tensor, cfg: ModelConfig,
 
 def _shared_experts(sh: Params, xg: torch.Tensor) -> torch.Tensor:
     """Qwen2-MoE's always-on shared experts of the groups xg (G, Sg, D)."""
-    hgu_s = torch.einsum("gsd,dkf->gskf", xg, sh["w_gu"])
+    hgu_s = column_einsum("gsd,dkf->gskf", xg, sh["w_gu"], 2, 3)
     hs = F.silu(hgu_s[:, :, 0].float()).to(xg.dtype) * hgu_s[:, :, 1]
     return hs @ sh["w_down"]

@@ -39,7 +39,7 @@ from repro_torch.models.transformer import (
     draw_stacked, layer_params, num_stacked, stacked_specs, token_ids,
 )
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
-from repro_torch.sharding.utils import gather_fsdp, mesh_pad, on_mesh, write_rows
+from repro_torch.sharding.utils import column_einsum, gather_fsdp, mesh_pad, on_mesh, write_rows
 
 Params = Dict[str, Any]
 
@@ -168,12 +168,17 @@ def causal_conv_step(
 
 def _in_proj(params: Params, u: torch.Tensor):
     """Input projections, wz/wx fused on a stack axis (D, 2, di)."""
-    zx = torch.einsum("bsd,dkm->bskm", u, params["w_zx"])
+    zx = column_einsum("bsd,dkm->bskm", u, params["w_zx"], 2, 3)
     z, xin = zx[:, :, 0], zx[:, :, 1]
     return z, xin, u @ params["wb"], u @ params["wc"], u @ params["wdt"]
 
 
-def _uniform(generator: torch.Generator, n: int, lo: float, hi: float) -> torch.Tensor:
+def _uniform(generator: torch.Generator, n: int, lo: float, hi: float,
+             device: torch.device) -> torch.Tensor:
+    """``n`` fp32 uniforms drawn on the generator's device; on ``meta`` the
+    shape alone, nothing drawn."""
+    if device.type == "meta":
+        return torch.empty((n,), device=device)
     return torch.empty((n,), device=generator.device).uniform_(lo, hi, generator=generator)
 
 
@@ -187,11 +192,14 @@ def init_mamba_block(
     wb = L.dense_init(generator, d, (n,), dtype, device)
     wc = L.dense_init(generator, d, (n,), dtype, device)
     wdt = L.dense_init(generator, d, (h,), dtype, device)
-    dt0 = torch.exp(_uniform(generator, h, math.log(1e-3), math.log(1e-1)))
-    a_log = torch.log(_uniform(generator, h, 1.0, 16.0))
+    dt0 = torch.exp(_uniform(generator, h, math.log(1e-3), math.log(1e-1), device))
+    a_log = torch.log(_uniform(generator, h, 1.0, 16.0, device))
     conv_dim = di + 2 * n
-    conv = torch.empty((cfg.ssm_conv_width, conv_dim), device=generator.device)
-    conv.normal_(0.0, 1.0, generator=generator)
+    if device.type == "meta":
+        conv = torch.empty((cfg.ssm_conv_width, conv_dim), device=device)
+    else:
+        conv = torch.empty((cfg.ssm_conv_width, conv_dim), device=generator.device)
+        conv.normal_(0.0, 1.0, generator=generator)
     return {
         "norm": L.init_rmsnorm(d, dtype, device),
         "w_zx": torch.stack([wz, wx], dim=1),  # (D, 2, di): z and x fused

@@ -268,6 +268,13 @@ def hidden_states(
         return x
 
 
+def _ring(t: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(t, shift, dims=2)`` as a concatenation of two slices,
+    which DTensor takes on torch 2.11 (it has no rule for ``roll``)."""
+    w = t.shape[2]
+    return torch.cat([t[:, :, w - shift:], t[:, :, :w - shift]], dim=2)
+
+
 def prefill(
     params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, KVCache]:
@@ -294,8 +301,7 @@ def prefill(
         # as a ring buffer (slot = position % window) to match decode_step.
         if cfg.sliding_window is not None and s > cfg.sliding_window:
             w = cfg.sliding_window
-            k_all = torch.roll(k_all[:, :, -w:], shifts=s % w, dims=2)
-            v_all = torch.roll(v_all[:, :, -w:], shifts=s % w, dims=2)
+            k_all, v_all = (_ring(t[:, :, -w:], s % w) for t in (k_all, v_all))
         return logits[:, 0], KVCache(k=k_all, v=v_all)
 
 

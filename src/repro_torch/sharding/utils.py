@@ -284,3 +284,44 @@ def mesh_pad(x: Any, widths: Sequence[int], value: float = 0.0) -> Any:
     return local_map(lambda t: F.pad(t, widths, value=value), out_placements=pls,
                      in_placements=(pls,), device_mesh=x.device_mesh,
                      redistribute_inputs=True)(x)
+
+
+def column_einsum(eq: str, x: Any, w: Any, w_dim: int, out_dim: int) -> Any:
+    """``torch.einsum(eq, x, w)`` of a batch-leading activation ``x`` and a
+    weight ``w`` whose dimension ``w_dim`` — a column the output keeps, at
+    ``out_dim`` — may be split over the mesh: a fused projection such as
+    ``bsd,dkf->bskf`` with the stacked gate and up columns split.
+
+    Off a mesh the plain einsum.  On a mesh each rank multiplies its own
+    batch rows by its own weight columns through ``local_map`` (every other
+    weight dimension gathered whole, as FSDP does): the reference's
+    column-parallel product.  DTensor's own einsum views a fused weight as
+    one flat column dimension, which torch 2.11 refuses when the split
+    dimension is not the first of the flattened ones.  Gradients come back
+    as partial sums where a rank read only part of the other operand: the
+    weight's over the batch shards, ``x``'s over the column shards.
+    """
+    if not is_dtensor(w):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    # Per mesh dim, the placements of (x, w, the output, x's grad, w's grad):
+    # column-split, batch-split or replicated.
+    rows = []
+    for wp, xp in zip(w.placements, x.placements):
+        if wp == Shard(w_dim):
+            rows.append((Replicate(), wp, Shard(out_dim), Partial(), wp))
+        elif xp == Shard(0):
+            rows.append((xp, Replicate(), xp, xp, Partial()))
+        else:
+            rows.append((Replicate(),) * 5)
+    xs, ws, out, xg, wg = (list(c) for c in zip(*rows))
+    return local_map(
+        lambda a, b: torch.einsum(eq, a, b), out_placements=out, in_placements=(xs, ws),
+        in_grad_placements=(xg, wg), device_mesh=mesh, redistribute_inputs=True,
+    )(x, w)
+

@@ -172,8 +172,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(z, z, z)
     with pytest.raises(ValueError):
         flash_attention(q, torch.zeros(3, 8, 32, device=cuda), torch.zeros(3, 8, 32, device=cuda))
-    with pytest.raises(ValueError):
-        m = torch.empty(2, 8, 32, device="meta")
+    with pytest.raises(ValueError):  # meta keeps the kernel's checks
+        m = torch.empty(2, 8, 48, device="meta")
         flash_attention(m, m, m)
     with pytest.raises(ValueError):
         flash_attention(q, q, q, window=0)
@@ -1132,3 +1132,122 @@ def test_flash_backward_on_a_mesh_gives_the_direct_calls_bits(mesh11, cuda, dtyp
     assert torch.equal(out_m.to_local(), out)
     for got, want in zip(grads_m, grads):
         assert torch.equal(got.full_tensor(), want)
+
+
+# --------------------------------------------------------------------------
+# Head dim 192 (nemotron-4-340b) and the launch analysis's counts
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 48), (False, None)])
+def test_flash_head_dim_192(cuda, dtype, causal, window):
+    """nemotron-4-340b's head_dim on the model layout, GQA 8/2: the forward
+    in fp32 and bf16 to the reference sweep's tolerances, the bf16 backward
+    against autograd of the plain version; the fp32 backward refuses it
+    (its dK/dV kernel's staged tiles pass the shared memory a block may
+    take)."""
+    from repro_torch.kernels.flash_attention import FP32_BACKWARD_MAX_HEAD_DIM
+
+    q = _randn((2, 150, 8, 192), dtype, cuda, 81)
+    kv = _randn((2, 150, 2, 2, 192), dtype, cuda, 82)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    out = ops.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), flash_attention_bhsd_ref(q, k, v, causal, window)
+                               .float(), rtol=0, atol=tol)
+    d_o = _randn((2, 150, 8, 192), dtype, cuda, 83)
+    if dtype == torch.float32:
+        assert FP32_BACKWARD_MAX_HEAD_DIM < 192
+        with pytest.raises(ValueError, match="head_dim up to"):
+            _flash_grads(q, k, v, d_o, causal, window)
+        return
+    _o, dq, dk, dv = _flash_grads(q, k, v, d_o, causal, window)
+    torch.cuda.synchronize()
+    for got, want in zip((dq, dk, dv), _plain_grads(q, k, v, d_o, causal, window)):
+        assert _rel_err(got, want) <= FLASH_BWD_TOL[dtype]
+
+
+def _kernel_calls(device, dtype):
+    """Each kernel entry point under autograd where it has a backward, its
+    inputs drawn on the CPU from one seed and moved to ``device``: (name,
+    call) pairs, each call returning its outputs and gradients."""
+    from repro_torch.kernels.pearson_affinity import pearson_dissimilarity as pearson
+
+    g = torch.Generator().manual_seed(5)
+
+    def leaf(*shape, dt=dtype):
+        return torch.randn(*shape, generator=g).to(device=device, dtype=dt).requires_grad_()
+
+    q, k, v = leaf(2, 130, 8, 128), leaf(2, 130, 2, 128), leaf(2, 130, 2, 128)
+    fq, fk, fv = (leaf(6, 70, 64).detach(), leaf(3, 90, 64).detach(), leaf(3, 90, 64).detach())
+    x, dt_, a = leaf(2, 192, 4, 64), leaf(2, 192, 4, dt=torch.float32), leaf(4, dt=torch.float32)
+    bb, cc = leaf(2, 192, 128), leaf(2, 192, 128)
+    z = torch.randn(40, 300, generator=g).to(device)
+
+    def flash():
+        o = ops.flash_attention_bhsd(q, k, v, causal=True, window=100)
+        return (o, *torch.autograd.grad(o.float().sum(), (q, k, v)))
+
+    def flat():
+        return (flash_attention(fq, fk, fv, causal=False, window=None),)
+
+    def ssd():
+        y, fin = ops.ssd_scan(x, dt_, a, bb, cc, 64)
+        return (y, fin, *torch.autograd.grad(y.float().sum() + fin.sum(), (x, dt_, a, bb, cc)))
+
+    def gram():
+        return (pearson(z),)
+
+    return (("flash", flash), ("flash_flat", flat), ("ssd", ssd), ("pearson", gram))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_each_kernel_counts_the_same_work_on_the_card_on_meta_and_on_the_cpu(cuda, dtype):
+    """``analyze_step`` of each entry point: the same kernels, launches,
+    FLOPs and bytes on a CUDA tensor, on meta and on the CPU, and on the
+    card as many counted launches as the wrappers made."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_module_fn
+    from repro_torch.launch.op_cost import analyze_step
+
+    def launched():
+        return {"pearson_gram": pearson_dissimilarity.launches,
+                "flash_attention": flash_attention.launches,
+                "flash_attention_bwd": flash_attention.backward_launches,
+                "ssd_scan": ssd_module_fn.launches,
+                "ssd_scan_bwd": ssd_module_fn.backward_launches}
+
+    counts = {}
+    for device in ("cuda", "meta", "cpu"):
+        for name, call in _kernel_calls(device, dtype):
+            before = launched()
+            acc = analyze_step(call)
+            torch.cuda.synchronize()
+            counts[(device, name)] = acc["kernels"]
+            assert acc["kernels"] and all(v["launches"] == 1 for v in acc["kernels"].values())
+            if device == "cuda":
+                after = launched()
+                assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == \
+                    {k: v["launches"] for k, v in acc["kernels"].items()}
+    for name, _call in _kernel_calls("meta", dtype):
+        assert counts[("cuda", name)] == counts[("meta", name)] == counts[("cpu", name)], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_meta_paths_give_the_kernels_shapes_and_dtypes(cuda, dtype):
+    """Each entry point on meta, forward and backward, gives the CUDA
+    kernels' output and gradient shapes and dtypes, launching nothing."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_module_fn
+
+    on_card = {name: call() for name, call in _kernel_calls("cuda", dtype)}
+    torch.cuda.synchronize()
+    before = (pearson_dissimilarity.launches, flash_attention.launches,
+              flash_attention.backward_launches, ssd_module_fn.launches,
+              ssd_module_fn.backward_launches)
+    for name, call in _kernel_calls("meta", dtype):
+        got = call()
+        assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype) for t in on_card[name]]
+        assert all(t.device.type == "meta" for t in got)
+    assert before == (pearson_dissimilarity.launches, flash_attention.launches,
+                      flash_attention.backward_launches, ssd_module_fn.launches,
+                      ssd_module_fn.backward_launches)

@@ -117,12 +117,21 @@ def test_cpu_route_is_the_plain_version_and_counts_nothing():
 
 
 def test_meta_tensor_raises_value_error():
-    """The executor's shape probe reads ValueError as "cannot run abstractly"."""
-    q = torch.empty(2, 8, 4, 16, device="meta")
+    """On ``meta`` the kernel's checks hold: a head_dim the kernel does not
+    take raises ValueError, which the executor's shape probe reads as
+    "cannot run abstractly".  A call the kernel takes returns the output's
+    shape and dtype on ``meta`` (a shape run), launching nothing."""
+    q = torch.empty(2, 8, 4, 48, device="meta")
     with pytest.raises(ValueError):
         p_ops.flash_attention_bhsd(q, q, q)
     with pytest.raises(ValueError):
         flash_attention(q[0], q[0], q[0])
+    q = torch.empty(2, 8, 4, 16, device="meta")
+    launches = flash_attention.launches
+    out = p_ops.flash_attention_bhsd(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
+    assert flash_attention(q[0], q[0], q[0]).shape == q[0].shape
+    assert flash_attention.launches == launches
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -43,6 +43,41 @@ def test_every_package_is_covered():
             "repro_torch.launch.train", "repro_torch.data.synthetic",
             "repro_torch.examples.train_multitask",
             "repro_torch.examples.serve_multitask"} <= set(_modules())
+    assert {"repro_torch.launch.roofline", "repro_torch.launch.specs",
+            "repro_torch.launch.op_cost", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline_md"} <= set(_modules())
+
+
+def test_importing_the_launch_analysis_loads_no_jax_and_makes_no_group():
+    """``dryrun`` and ``op_cost`` import without JAX and without a process
+    group: the fake world is made by ``fake_world``, never at import (the
+    reference's ``dryrun`` sets ``XLA_FLAGS`` at import; the port does
+    nothing)."""
+    code = (
+        "import os, sys\n"
+        "env = dict(os.environ)\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.op_cost\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "assert os.environ == env\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "PYTHONDONTWRITEBYTECODE": "1"},
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_only_the_dry_run_touches_the_fake_process_group():
+    """``torch.testing._internal.distributed.fake_pg`` is an internal API:
+    one module of the port uses it."""
+    users = sorted(str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
+                   if "fake_pg" in p.read_text())
+    assert users == ["launch/dryrun.py"]
 
 
 def test_importing_every_module_loads_no_jax():

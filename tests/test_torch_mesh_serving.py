@@ -35,9 +35,9 @@ The contract under test:
 * the ladder's ``"single_device"`` rung serves a group that fails on the
   mesh off it, with exact counters and no collective bytes.
 
-The four HLO tests of ``tests/test_sharding_and_hlo.py`` have no
-counterpart until the FLOP counter that replaces ``hlo_cost.py`` is ported
-(ROADMAP item 11).
+The four HLO tests of ``tests/test_sharding_and_hlo.py`` are re-pointed at
+``hlo_cost.py``'s counterpart, ``repro_torch.launch.op_cost``, in
+``tests/test_torch_op_cost.py``.
 """
 import dataclasses
 import datetime

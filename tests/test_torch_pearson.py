@@ -77,15 +77,25 @@ def test_cpu_tensor_never_takes_the_kernel_branch(monkeypatch):
     (lambda: torch.empty((8, 4), dtype=torch.bfloat16, device="meta"), TypeError),
     (lambda: torch.empty((8, 4, 2), device="meta"), ValueError),
     (lambda: torch.empty((4, 8), device="meta").T, ValueError),
-    (lambda: torch.empty((8, 4), device="meta"), ValueError),
+    (lambda: torch.empty((8,), device="meta"), ValueError),
 ])
 def test_non_cpu_inputs_are_checked_before_any_launch(bad, error, monkeypatch):
-    """A non-CPU tensor must be fp32, 2-D and contiguous, on CUDA; anything
-    else raises before the kernel is built.  Meta tensors stand in for
-    device tensors on a host without a card."""
+    """A non-CPU tensor must be fp32, 2-D and contiguous; anything else
+    raises before the kernel is built.  Meta tensors stand in for device
+    tensors on a host without a card."""
     monkeypatch.setattr(_build, "load", lambda *_a: pytest.fail("kernel built"))
     with pytest.raises(error):
         pearson_dissimilarity(bad())
+
+
+def test_meta_input_returns_the_output_shape_without_a_launch(monkeypatch):
+    """A valid ``meta`` input (a shape run) gives the (K, K) fp32 output on
+    ``meta``: nothing is built or launched or counted as a launch."""
+    monkeypatch.setattr(_build, "load", lambda *_a: pytest.fail("kernel built"))
+    before = pearson_dissimilarity.launches
+    out = pearson_dissimilarity(torch.empty((8, 4), device="meta"))
+    assert out.device.type == "meta" and out.shape == (8, 8) and out.dtype == torch.float32
+    assert pearson_dissimilarity.launches == before
 
 
 PLAN_SHAPES = [(256, 655360), (512, 1568), (512, 784), (512, 64), (37, 100), (130, 7),

@@ -7,8 +7,9 @@ stand-in mesh object with ``axis_names`` and a ``shape`` mapping (the
 reference's ``Mesh`` interface), and a mesh engine is built on one (it
 places nothing until it dispatches).  The tests that need a world are in
 ``tests/test_torch_mesh_serving.py``.  The four HLO tests of
-``test_sharding_and_hlo.py`` have no counterpart until the FLOP counter
-that replaces ``hlo_cost.py`` is ported (ROADMAP item 11).
+``test_sharding_and_hlo.py`` are re-pointed at ``hlo_cost.py``'s
+counterpart, ``repro_torch.launch.op_cost``, in
+``tests/test_torch_op_cost.py``.
 """
 import dataclasses
 import itertools
