@@ -111,7 +111,9 @@
    mamba2-780m ``train_4k`` at full width and depth, on meta tensors in a
    fake world of 256 ranks (a 16 x 16 mesh), one subprocess each (status
    ok, FLOPs, bytes and collective bytes positive, model FLOPs the
-   estimate's, each kernel counted as often as the step launches it); and
+   estimate's, each kernel counted as often as the step launches it, and
+   the FLOPs of the 256 ranks at most 1.10 times the same plan counted in a
+   world of one: each rank does only its share); and
    one more step of the mistral (8 layers) and mamba2 training above counted
    by ``analyze_step`` on the card and on meta (equal FLOPs, bytes within
    2 %, each launch counted once by its formula, ``roofline_share`` of the
@@ -146,6 +148,13 @@
    collective bytes.  Prints an ``lm_mesh`` line a run (prefill and
    decode ms, host ms a decode step, tokens/s, busy share, step ms and
    peak GB, on and off the mesh, beside the card's name and power limit).
+   Then a sharded mesh with values on the host's torch (``gloo_mesh_phase``):
+   8 gloo ranks on the CPU, one subprocess each, on a (2, 4) ("data",
+   "model") mesh, where mistral's and granite-34b's query heads split over
+   ranks that share a KV head: a smoke mistral-nemo-12b and a smoke
+   mamba2-780m train step (loss and every gradient leaf) and a smoke
+   granite-34b prefill (logits) against the same code off the mesh; prints
+   the ``gloo_mesh`` line.
 13. Prints one ``{"kernels": [...]}`` line, then the device line last.
 
 Each path runs with every launch count set to 0 just before it and read
@@ -454,6 +463,9 @@ DRYRUN_CASES = (("mistral-nemo-12b", "train_4k", "auto"),
                 ("mixtral-8x22b", "prefill_32k", "fsdp_tp"),
                 ("mamba2-780m", "train_4k", "auto"))
 DRYRUN_SECONDS = 240
+# Each rank does its share: a dry run's FLOPs over the 256 ranks at most this
+# many times the same plan's counted in a world of one.
+DRYRUN_FLOPS_SLACK = 1.10
 DRYRUN_COUNTED_SSM = "mamba2-780m"  # train_ssm_phase counts this arch's step
 COUNT_BYTES_TOL = 0.02     # a step's counted bytes, card vs meta, relative
 ROOFLINE_SHARE_MAX = 1.05  # no count may make the card look faster than its peak
@@ -2943,7 +2955,10 @@ def dryrun_phase(smi: str, counted: dict) -> dict:
     collective bytes positive; ``model_flops`` equal to
     ``model_flops_estimate`` of the config's own parameter count; each
     kernel's counted launches those the step makes (a train step with remat:
-    the forward twice and the backward once per layer; a prefill: once).
+    the forward twice and the backward once per layer; a prefill: once);
+    ``hlo_flops`` at most :data:`DRYRUN_FLOPS_SLACK` times the same plan's
+    FLOPs counted in a world of one in the same subprocess
+    (``--world-of-one``): each rank does only its share.
     (b) ``counted``, the steps :func:`count_step` counted in the training
     phases.  Prints the ``dryrun`` line with the card's name and power
     limit."""
@@ -2953,7 +2968,7 @@ def dryrun_phase(smi: str, counted: dict) -> dict:
     with tempfile.TemporaryDirectory() as out:
         procs = [subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-             "--mesh", "single", "--policy", policy, "--out", out], env=env,
+             "--mesh", "single", "--policy", policy, "--out", out, "--world-of-one"], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for arch, shape, policy in DRYRUN_CASES]
         try:
@@ -2991,10 +3006,15 @@ def dryrun_phase(smi: str, counted: dict) -> dict:
             want.update({f"{k}_bwd": v for k, v in once.items() if v})
         got = {k: v["launches"] for k, v in r["kernels"].items()}
         check(got == want, f"{label}: kernels counted {got}, the step launches {want}")
+        one = r["world_of_one"]["flops"]
+        check(0 < r["hlo_flops"] <= DRYRUN_FLOPS_SLACK * one,
+              f"{label}: FLOPs over 256 ranks {r['hlo_flops']}, {r['flops_factor']:.3f} times "
+              f"the world of one's {one}")
         rows[f"{arch}/{shape}"] = {k: r[k] for k in (
             "policy", "n_params", "trace_s", "memory", "kernels", "hlo_flops", "hlo_bytes",
             "coll_bytes", "coll_breakdown", "model_flops", "t_compute", "t_memory",
-            "t_collective", "dominant", "useful_flops_ratio")}
+            "t_collective", "dominant", "useful_flops_ratio", "world_of_one", "flops_factor")}
+        rows[f"{arch}/{shape}"]["peak_bytes"] = r["memory"]["peak_bytes"]
     line = {"device": smi, "mesh": "16x16 (fake world of 256)", "cases": rows,
             "counted_steps": counted, "phase_s": time.perf_counter() - t0}
     print(json.dumps({"dryrun": line}), flush=True)
@@ -3647,6 +3667,126 @@ def lm_mesh_phase(device: torch.device, smi: str, serve=LM_MESH_SERVE,
     return {"rows": rows, "launches": launches}
 
 
+# --------------------------------------------------------------------------
+# A sharded mesh with values: 8 gloo ranks on the host's CPU
+# --------------------------------------------------------------------------
+
+# A (2, 4) ``(data, model)`` mesh: mistral's 2 KV heads and granite-34b's one
+# do not divide the 4-way model axis, so ranks that split the query heads
+# share a KV head; mamba2 splits its SSD heads and gathers B and C.
+GLOO_RANKS = 8
+GLOO_MESH = (2, 4)
+GLOO_CASES = (("mistral-nemo-12b", "train"), ("mamba2-780m", "train"),
+              ("granite-34b", "prefill"))
+GLOO_BATCH, GLOO_SEQ = 8, 64
+GLOO_SECONDS = 120        # the hard limit on the world (it takes well under 60 s)
+GLOO_LOSS_TOL = 2e-5      # the loss, relative
+GLOO_GRAD_TOL = 1e-4      # each gradient leaf, of its largest |value|
+GLOO_LOGITS_TOL = 1e-5    # the prefill logits, of max(1, their largest |value|)
+
+
+def gloo_rank(rank: int, workdir: str) -> int:
+    """One rank of :func:`gloo_mesh_phase`'s world (``python chip_smoke.py
+    --gloo-rank RANK DIR``): join the gloo world through a ``FileStore`` in
+    ``DIR``, run every case of :data:`GLOO_CASES` on the mesh and off it
+    from the same smoke weights (one seed on every rank), and write the
+    errors (rank 0) to ``DIR/gloo.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.sharding.policy import TP_POLICY
+    from repro_torch.sharding.utils import place_tree
+    from repro_torch.training import loss_and_grads
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), GLOO_RANKS), rank=rank,
+        world_size=GLOO_RANKS, timeout=datetime.timedelta(seconds=GLOO_SECONDS))
+    try:
+        mesh = make_mesh(GLOO_MESH, ("data", "model"), device="cpu")
+        rows = {}
+        for arch, kind in GLOO_CASES:
+            t0 = time.perf_counter()
+            cfg = get_smoke_config(arch)
+            model = get_model(cfg)
+            params = model.init(torch.Generator().manual_seed(0), torch.device("cpu"))
+            tokens = np.random.default_rng(3).integers(
+                0, cfg.raw_vocab_size, (GLOO_BATCH, GLOO_SEQ)).astype(np.int32)
+            with set_mesh(mesh):
+                placed = place_tree(params, model.param_specs(TP_POLICY), mesh)
+                if kind == "train":
+                    loss, _, grads = loss_and_grads(model, placed, tokens, 1, TP_POLICY)
+                    on = [loss] + [g.full_tensor() for g in tree_leaves(grads)]
+                else:
+                    on = [model.prefill(placed, tokens, TP_POLICY)[0].full_tensor()]
+            if kind == "train":
+                loss, _, grads = loss_and_grads(model, params, tokens)
+                off = [loss] + tree_leaves(grads)
+                row = {"loss": float(off[0]),
+                       "loss_rel_err": abs(float(on[0]) - float(off[0])) / abs(float(off[0])),
+                       "grad_rel_err": max(
+                           float((a - b).abs().max()) / max(float(b.abs().max()), 1e-12)
+                           for a, b in zip(on[1:], off[1:])),
+                       "leaves": len(off) - 1}
+            else:
+                want = model.prefill(params, tokens)[0]
+                row = {"logits_rel_err": float((on[0] - want).abs().max())
+                       / max(1.0, float(want.abs().max()))}
+            row["seconds"] = time.perf_counter() - t0
+            rows[f"{arch}/{kind}"] = row
+        if rank == 0:
+            with open(os.path.join(workdir, "gloo.json"), "w") as fh:
+                json.dump(rows, fh)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def gloo_mesh_phase(smi: str) -> dict:
+    """A sharded mesh with values on the host's torch: 8 gloo ranks on the
+    CPU (one subprocess each, no card, no JAX) on a (2, 4) ``(data, model)``
+    mesh, :func:`gloo_rank`.  Gates: a smoke mistral-nemo-12b and a smoke
+    mamba2-780m train step (loss within ``GLOO_LOSS_TOL``, every gradient
+    leaf within ``GLOO_GRAD_TOL`` of its largest |value|) and a smoke
+    granite-34b prefill (logits within ``GLOO_LOGITS_TOL``) agree with the
+    same code off the mesh.  Prints the ``gloo_mesh`` line."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    with tempfile.TemporaryDirectory() as wd:
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--gloo-rank", str(r), wd],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(GLOO_RANKS)]
+        try:
+            logs = [p.communicate(timeout=GLOO_SECONDS)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"gloo rank {r}: rc {p.returncode}: {log[-3000:]}")
+        with open(os.path.join(wd, "gloo.json")) as fh:
+            rows = json.load(fh)
+    for name, row in rows.items():
+        if "loss_rel_err" in row:
+            check(row["loss_rel_err"] <= GLOO_LOSS_TOL and row["grad_rel_err"] <= GLOO_GRAD_TOL,
+                  f"gloo mesh {name}: loss {row['loss_rel_err']:.3g}, grads "
+                  f"{row['grad_rel_err']:.3g} off the mesh's")
+        else:
+            check(row["logits_rel_err"] <= GLOO_LOGITS_TOL,
+                  f"gloo mesh {name}: logits {row['logits_rel_err']:.3g} off the mesh's")
+    line = {"device": smi, "torch": torch.__version__, "ranks": GLOO_RANKS,
+            "mesh": "x".join(map(str, GLOO_MESH)), "cases": rows,
+            "phase_s": time.perf_counter() - t0}
+    print(json.dumps({"gloo_mesh": line}), flush=True)
+    return line
+
+
 def check_pipeline_launches(tf: dict, cfg, label: str) -> int:
     """A transformer pipeline's launches: flash twice per tapped block of
     each task in the profile (2 layers a block, 3 taps), Pearson once per
@@ -3905,6 +4045,7 @@ def main() -> int:
                   for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
                                "ssd_scan_bwd")}
     print(json.dumps({"lm_mesh_phase_seconds": time.perf_counter() - t0}), flush=True)
+    gloo_mesh_phase(smi)
     print(json.dumps({"smoke_seconds": time.perf_counter() - t_start}), flush=True)
 
     pearson_row = kernels["rows"][0]
@@ -4070,4 +4211,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--gloo-rank":
+        sys.exit(gloo_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -1,7 +1,7 @@
 """Public wrappers around the port's kernels."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,36 +55,90 @@ def flash_attention_bhsd(
     return flash_attention_bhsd_kernel(q, k, v, causal=causal, window=window)
 
 
-def _flash_on_mesh(q, k, v, causal: bool, window: Optional[int]):
-    """Flash attention of ``DTensor`` q, k, v through ``local_map``.
+class MeshHeads(NamedTuple):
+    """How attention of a ``DTensor`` query (B, S, Hq, d) over Hk KV heads
+    runs per rank (:func:`mesh_heads`): one placement per mesh dimension
+    for q and the output, for K and V, and for K's and V's gradients;
+    and ``narrow``, the (offset, count) of the KV heads this rank reads
+    within its local K and V where it reads only some of them (else
+    ``None``)."""
 
-    Every mesh dimension over which ``q`` shards its batch keeps it sharded;
-    each other dimension splits the query and KV heads alike where both
-    divide (so each rank's query heads read its own KV heads), and
-    replicates them otherwise.  The inputs are redistributed to that layout
-    and each rank attends over its local rows and heads: the kernel on CUDA
-    (one launch per rank, counted once in ``flash_attention.launches``),
-    the plain version on the CPU.
+    q: List[Any]
+    kv: List[Any]
+    kv_grad: List[Any]
+    narrow: Optional[Tuple[int, int]]
+
+
+def mesh_heads(q: Any, hk: int) -> MeshHeads:
+    """The per-rank layout of attention of ``DTensor`` ``q`` over ``hk`` KV
+    heads, the reference's: every mesh dimension over which ``q`` shards its
+    batch keeps it sharded (K and V alike), and every other dimension that
+    divides Hq splits the query heads.  The KV heads split with them where
+    Hk divides too; otherwise each rank holds K and V whole on that
+    dimension and reads only the KV head(s) its own query heads read (its
+    gradients come back as partial sums over the ranks sharing a KV head).
+    A split that would hand one rank query heads of two KV groups without
+    the whole of either raises ``ValueError``.
     """
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.sharding.utils import local_extent
 
     mesh = q.device_mesh
-    hq, hk = q.shape[2], k.shape[2]
-    layout, split = [], 1
+    hq = q.shape[2]
+    qpl, kvpl, grad = [], [], []
+    qsplit = ksplit = 1
     for mdim, pl in enumerate(q.placements):
         n = mesh.size(mdim)
         if pl == Shard(0):
-            layout.append(Shard(0))
-        elif hq % (split * n) == 0 and hk % (split * n) == 0:
-            split *= n
-            layout.append(Shard(2))
+            qpl.append(Shard(0))
+            kvpl.append(Shard(0))
+            grad.append(Shard(0))
+        elif n > 1 and hq % (qsplit * n) == 0:
+            qpl.append(Shard(2))
+            if ksplit == qsplit and hk % (ksplit * n) == 0:
+                ksplit *= n
+                kvpl.append(Shard(2))
+                grad.append(Shard(2))
+            else:
+                kvpl.append(Replicate())
+                grad.append(Partial())
+            qsplit *= n
         else:
-            layout.append(Replicate())
+            qpl.append(Replicate())
+            kvpl.append(Replicate())
+            grad.append(Replicate())
+    if qsplit == ksplit:
+        return MeshHeads(qpl, kvpl, grad, None)
+    per, group = hq // qsplit, hq // hk
+    if group % per:
+        raise ValueError(
+            f"{hq} query heads over {hk} KV heads split {qsplit} ways: a rank's "
+            f"{per} query heads straddle two KV heads")
+    q0 = local_extent(q.shape, qpl, mesh)[2][0]
+    k0 = local_extent((*q.shape[:2], hk, q.shape[3]), kvpl, mesh)[2][0]
+    return MeshHeads(qpl, kvpl, grad, (q0 // group - k0, 1))
+
+
+def _flash_on_mesh(q, k, v, causal: bool, window: Optional[int]):
+    """Flash attention of ``DTensor`` q, k, v through ``local_map``, laid out
+    by :func:`mesh_heads`: each rank attends its own batch rows and query
+    heads over the KV heads they read — the kernel on CUDA (one launch per
+    rank, counted once in ``flash_attention.launches``), the plain version
+    on the CPU."""
+    from torch.distributed.tensor.experimental import local_map
+
+    heads = mesh_heads(q, k.shape[2])
+
+    def attend(a, b, c):
+        if heads.narrow is not None:
+            b, c = (t.narrow(2, *heads.narrow).contiguous() for t in (b, c))
+        return flash_attention_bhsd(a, b, c, causal=causal, window=window)
+
     return local_map(
-        lambda a, b, c: flash_attention_bhsd(a, b, c, causal=causal, window=window),
-        out_placements=[*layout], in_placements=(layout, layout, layout),
-        device_mesh=mesh, redistribute_inputs=True,
+        attend, out_placements=heads.q, in_placements=(heads.q, heads.kv, heads.kv),
+        in_grad_placements=(heads.q, heads.kv_grad, heads.kv_grad),
+        device_mesh=q.device_mesh, redistribute_inputs=True,
     )(q, k, v)
 
 

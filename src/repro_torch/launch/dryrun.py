@@ -21,6 +21,11 @@ holds), ``output_bytes`` (its shards of what the step returns) and
 ``peak_bytes`` (the arguments plus the most bytes the step allocated and
 held at once, tracked per local tensor); there is no ``cost_analysis``.
 ``kernels`` gives each hand kernel's counted launches, FLOPs and bytes.
+With ``world_of_one`` (``--world-of-one``) the same plan is counted once
+more in a fake world of one rank on a (1, 1) mesh — the whole step's work,
+which the mesh's ranks should share — and the JSON adds ``world_of_one``
+(its FLOPs and peak bytes) and ``flops_factor``, the mesh's ``hlo_flops``
+over that count.
 
 :func:`fake_world` is this package's only use of
 ``torch.testing._internal.distributed.fake_pg``, an internal API.
@@ -45,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, list_archs
-from repro_torch.launch.mesh import make_production_mesh, set_mesh
+from repro_torch.launch.mesh import make_mesh, make_production_mesh, set_mesh
 from repro_torch.launch.op_cost import analyze_step, local_bytes
 from repro_torch.launch.roofline import (
     RooflineReport, active_params, collective_totals, model_flops_estimate,
@@ -87,10 +92,13 @@ def run_one(
     policy: str = "auto",
     out_dir: Optional[str] = None,
     verbose: bool = True,
+    world_of_one: bool = False,
 ) -> dict:
     """One dry run of ``arch`` at ``shape_name`` on the ``mesh_kind``
     production mesh, in a fake world of its own: the result dict, also
-    written to ``out_dir`` as ``<arch>__<shape>__<mesh>.json``."""
+    written to ``out_dir`` as ``<arch>__<shape>__<mesh>.json``.  With
+    ``world_of_one`` the plan is also counted in a world of one
+    (:func:`count_world_of_one`)."""
     cfg = get_config(arch)
     shape = get_shape(shape_name)
     ok, why = shape_supported(config_for_shape(cfg, shape), shape)
@@ -110,6 +118,7 @@ def run_one(
                 acc = analyze_step(plan.step_fn, *plan.args)
                 t_trace = time.perf_counter() - t_plan
                 arg_bytes = local_bytes(plan.args)
+        one = count_world_of_one(cfg, shape, plan.policy) if world_of_one else None
     except Exception as e:  # a failed run is a bug: surface it
         result = _record(arch, shape_name, mesh_kind, status="error",
                          error=f"{type(e).__name__}: {e}",
@@ -145,6 +154,9 @@ def run_one(
         "kernels": acc["kernels"],
         **report.to_dict(),
     }
+    if one is not None:
+        result["world_of_one"] = one
+        result["flops_factor"] = result["hlo_flops"] / one["flops"]
     _write(result, out_dir, arch, shape_name, mesh_kind)
     if verbose:
         print(json.dumps({
@@ -160,6 +172,19 @@ def run_one(
             "total_s": round(time.perf_counter() - t0, 1),
         }), flush=True)
     return result
+
+
+def count_world_of_one(cfg, shape, policy) -> dict:
+    """The FLOPs and peak bytes (arguments included) of the plan of ``cfg``
+    at ``shape`` under ``policy``, counted in a fake world of one rank on a
+    (1, 1) ``(data, model)`` mesh: the work that a mesh's ranks share."""
+    with fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        with set_mesh(mesh):
+            plan = make_plan(cfg, shape, mesh, policy)
+            acc = analyze_step(plan.step_fn, *plan.args)
+            return {"flops": acc["flops"],
+                    "peak_bytes": float(local_bytes(plan.args) + acc["peak_bytes"])}
 
 
 def _write(result: dict, out_dir: Optional[str], arch: str, shape: str, mesh: str) -> None:
@@ -181,6 +206,8 @@ def main(argv=None) -> None:
                     default="auto")
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--all", action="store_true", help="run every combo serially")
+    ap.add_argument("--world-of-one", action="store_true",
+                    help="also count the plan in a world of one rank")
     args = ap.parse_args(argv)
 
     torch.set_num_threads(1)  # meta tensors compute nothing
@@ -188,11 +215,13 @@ def main(argv=None) -> None:
         for arch in list_archs():
             for shape in INPUT_SHAPES:
                 for mesh in ("single", "multi"):
-                    run_one(arch, shape.name, mesh, args.policy, args.out)
+                    run_one(arch, shape.name, mesh, args.policy, args.out,
+                            world_of_one=args.world_of_one)
         return
     if not args.arch or not args.shape:
         ap.error("--arch and --shape are required (or use --all)")
-    run_one(args.arch, args.shape, args.mesh, args.policy, args.out)
+    run_one(args.arch, args.shape, args.mesh, args.policy, args.out,
+            world_of_one=args.world_of_one)
 
 
 if __name__ == "__main__":

@@ -162,15 +162,21 @@ def reference_keys(
 
 
 def _attend(
-    ap: Params, xq: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    cfg: ModelConfig, causal: bool, chunked: bool,
-) -> torch.Tensor:
-    """Attention of ``xq`` over full K/V through the flash kernel; the
-    reference's chunked path where ``chunked``, its dense one elsewhere."""
-    q = torch.einsum("bsd,dhk->bshk", xq, ap["wq"])
-    k, v = reference_keys(k, v, cfg.attn_chunk, chunked, causal)
-    out = ops.flash_attention_bhsd(q, k, v, causal=causal)
-    return torch.einsum("bshk,hkd->bsd", out, ap["wo"])
+    ap: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: ModelConfig, causal: bool,
+    chunked: bool, policy: ShardingPolicy,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Attention of ``xq`` over the K/V of ``xkv`` through the flash kernel;
+    the reference's chunked path where ``chunked``, its dense one
+    elsewhere.  Returns the projected output and (K, V) as the attention
+    read them (on a mesh, :func:`~repro_torch.models.layers.project_kv`'s
+    layout: :func:`~repro_torch.models.layers.collapse_heads` gives a
+    cache's heads)."""
+    q = shard_act(torch.einsum("bsd,dhk->bshk", xq, ap["wq"]),
+                  policy, "batch", None, "model", None)
+    k, v = L.project_kv(ap, xkv, q)
+    kp, vp = reference_keys(k, v, cfg.attn_chunk, chunked, causal)
+    out = ops.flash_attention_bhsd(q, kp, vp, causal=causal)
+    return L.out_proj(ap, out, policy), (k, v)
 
 
 # --------------------------------------------------------------------------
@@ -198,8 +204,7 @@ def encode(params: Params, features: Any, cfg: ModelConfig,
         def body(lp: Params, x: torch.Tensor) -> torch.Tensor:
             lp = gather_fsdp(lp, policy)
             h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
-            k, v = L.project_kv(lp["attn"], h)
-            x = x + _attend(lp["attn"], h, k, v, cfg, causal=False, chunked=True)
+            x = x + _attend(lp["attn"], h, h, cfg, causal=False, chunked=True, policy=policy)[0]
             h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
             return shard_act(x + L.mlp_block(lp["mlp"], h, cfg, policy),
                              policy, "batch", None, None)
@@ -234,16 +239,20 @@ def _decoder(
     def body(lp: Params, x: torch.Tensor, enc_out: torch.Tensor):
         lp = gather_fsdp(lp, policy)
         h = L.rmsnorm(lp["self_norm"], x, cfg.norm_eps)
-        sk, sv = L.project_kv(lp["self_attn"], h)
-        chunked = sk.shape[1] > cfg.attn_chunk or not cached
-        x = x + _attend(lp["self_attn"], h, sk, sv, cfg, causal=True, chunked=chunked)
+        chunked = h.shape[1] > cfg.attn_chunk or not cached
+        y, self_kv = _attend(lp["self_attn"], h, h, cfg, causal=True, chunked=chunked,
+                             policy=policy)
+        x = x + y
         h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
-        ck, cv = L.project_kv(lp["cross_attn"], enc_out)
-        chunked = ck.shape[1] > cfg.attn_chunk or not cached
-        x = x + _attend(lp["cross_attn"], h, ck, cv, cfg, causal=False, chunked=chunked)
+        chunked = enc_out.shape[1] > cfg.attn_chunk or not cached
+        y, cross_kv = _attend(lp["cross_attn"], h, enc_out, cfg, causal=False,
+                              chunked=chunked, policy=policy)
+        x = x + y
         h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + L.mlp_block(lp["mlp"], h, cfg, policy)
-        return shard_act(x, policy, "batch", None, None), (sk, sv, ck, cv)
+        kv = (*self_kv, *cross_kv) if cached else ()
+        return shard_act(x, policy, "batch", None, None), tuple(
+            L.collapse_heads(t, cfg.n_kv_heads) for t in kv)
 
     for i in range(num_stacked(layers)):
         x, kv = L.remat(cfg, body, layer_params(layers, i), x, enc_out)
@@ -313,14 +322,14 @@ def decode_step(
             write_rows(sv, 1, cache_len, nv.to(sv.dtype))
             q = torch.einsum("bsd,dhk->bshk", h, lp["self_attn"]["wq"])
             out = L.attention_decode(q, sk, sv, kpos, cache_len, kv_valid=valid)
-            x = x + torch.einsum("bshk,hkd->bsd", out, lp["self_attn"]["wo"])
+            x = x + L.out_proj(lp["self_attn"], out, policy)
 
             h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
             q = torch.einsum("bsd,dhk->bshk", h, lp["cross_attn"]["wq"])
             ck, cv = reference_keys(cache.cross_k[i], cache.cross_v[i], cfg.attn_chunk,
                                     chunked=epos.shape[0] > cfg.attn_chunk, causal=False)
             out = L.attention_dense(q, ck, cv, pos, epos, causal=False)
-            x = x + torch.einsum("bshk,hkd->bsd", out, lp["cross_attn"]["wo"])
+            x = x + L.out_proj(lp["cross_attn"], out, policy)
 
             h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
             x = x + L.mlp_block(lp["mlp"], h, cfg, policy)

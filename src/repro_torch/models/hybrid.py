@@ -108,16 +108,23 @@ def param_specs(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
     return specs
 
 
-def _lora_qkv(params: Params, inv_lora: Optional[Params], h: torch.Tensor):
-    """Shared-weight q/k/v projections + per-invocation LoRA deltas."""
+def _lora_qkv(params: Params, inv_lora: Optional[Params], h: torch.Tensor,
+              policy: ShardingPolicy, attend: bool):
+    """Shared-weight q/k/v projections + per-invocation LoRA deltas.  With
+    ``attend`` (a full-sequence attention) K and V come back laid out for
+    it (:func:`~repro_torch.models.layers.project_kv`)."""
     ap = params["shared_attn"]
     q = torch.einsum("bsd,dhk->bshk", h, ap["wq"])
-    k, v = L.project_kv(ap, h)
     if inv_lora is not None:
         zq = h @ inv_lora["aq"]                                  # (B,S,r)
         q = q + torch.einsum("bsr,rhk->bshk", zq, inv_lora["bq"])
+    q = shard_act(q, policy, "batch", None, "model", None)
+    k, v = L.project_kv(ap, h, q if attend else None)
+    if inv_lora is not None:
         zkv = h @ inv_lora["akv"]
         dkv = column_einsum("bsr,rthk->bsthk", zkv, inv_lora["bkv"], 2, 3)
+        if attend:
+            dkv = L.expand_heads(dkv, 3, q)
         k = k + dkv[:, :, 0]
         v = v + dkv[:, :, 1]
     return q, k, v
@@ -154,7 +161,7 @@ def _shared_attn_apply(
     params = gather_fsdp({k: params[k] for k in ("shared_attn", "shared_mlp")}, policy)
     h = L.rmsnorm(inv_norm, x, cfg.norm_eps)
     ap = params["shared_attn"]
-    q, k_new, v_new = _lora_qkv(params, inv_lora, h)
+    q, k_new, v_new = _lora_qkv(params, inv_lora, h, policy, attend=kv is None)
     q = L.apply_rope(q, q_pos, cfg.rope_theta)
     k_new = L.apply_rope(k_new, q_pos, cfg.rope_theta)
     if kv is not None:
@@ -171,8 +178,8 @@ def _shared_attn_apply(
         new_kv = (ck, cv)
     else:
         attn = ops.flash_attention_bhsd(q, k_new, v_new, causal=True, window=cfg.sliding_window)
-        new_kv = (k_new, v_new)
-    x = x + torch.einsum("bshk,hkd->bsd", attn, ap["wo"])
+        new_kv = tuple(L.collapse_heads(t, cfg.n_kv_heads) for t in (k_new, v_new))
+    x = x + L.out_proj(ap, attn, policy)
     x = x + L.mlp_block(params["shared_mlp"], h, cfg, policy)
     return shard_act(x, policy, "batch", None, None), new_kv
 

@@ -42,7 +42,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
 from repro_torch.sharding.utils import (
-    column_einsum, gather_fsdp, is_dtensor, local_extent, mesh_pad, write_rows,
+    column_einsum, gather_fsdp, is_dtensor, local_extent, mesh_pad, row_einsum, write_rows,
 )
 
 Params = Dict[str, Any]
@@ -161,9 +161,65 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, device: torch.d
     }
 
 
-def project_kv(params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    kv = column_einsum("bsd,dthk->bsthk", x, params["w_kv"], 2, 3)
+def project_kv(params: Params, x: torch.Tensor,
+               q: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V (B, S, Hk, Dh) of ``x``.  With ``q``, the query that attends
+    over them on a mesh, they come back laid out for that attention: where
+    ``q``'s heads split over ranks that share a KV head
+    (:func:`~repro_torch.kernels.ops.mesh_heads`), each rank projects only
+    the KV head its query heads read, and K and V have one head per query
+    split (:func:`expand_heads`); :func:`collapse_heads` gives the cache's
+    Hk heads back."""
+    w = params["w_kv"]
+    if q is not None:
+        w = expand_heads(w, 2, q)
+    kv = column_einsum("bsd,dthk->bsthk", x, w, 2, 3)
     return kv[:, :, 0], kv[:, :, 1]
+
+
+def expand_heads(t: Any, dim: int, q: Any) -> Any:
+    """``t`` (a ``DTensor`` whose dimension ``dim`` holds Hk KV heads) with
+    one head for each of the ways ``q``'s query heads split, where ranks
+    share a KV head: each rank keeps, through ``local_map``, the KV head its
+    own query heads read, and its gradient comes back whole, a partial sum
+    over the ranks sharing a head.  Elsewhere (off a mesh, heads split
+    alike or not at all) ``t`` itself.  ``t`` is first gathered whole over
+    the dimensions that split the query heads."""
+    if not (is_dtensor(t) and is_dtensor(q)):
+        return t
+    heads = ops.mesh_heads(q, t.shape[dim])
+    if heads.narrow is None or any(pl.is_shard(2) for pl in heads.kv):
+        return t
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    split = [qp.is_shard(2) for qp in heads.q]
+    whole = [Replicate() if sp else pl for sp, pl in zip(split, t.placements)]
+    out = [Shard(dim) if sp else pl for sp, pl in zip(split, whole)]
+    grad = [Partial() if sp else pl for sp, pl in zip(split, whole)]
+    off, n = heads.narrow
+    return local_map(
+        lambda a: a.narrow(dim, off, n).contiguous(), out_placements=out,
+        in_placements=(whole,), in_grad_placements=(grad,),
+        device_mesh=t.device_mesh, redistribute_inputs=True,
+    )(t)
+
+
+def collapse_heads(t: Any, hk: int) -> Any:
+    """The Hk KV heads of ``t`` (B, S, E, Dh), which :func:`expand_heads`
+    laid out with E heads, as the cache holds them (gathered over the
+    ranks that split the E heads); ``t`` itself where it has Hk heads."""
+    e = t.shape[2]
+    if e == hk:
+        return t
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    pls = [Replicate() if pl.is_shard(2) else pl for pl in t.placements]
+    return local_map(
+        lambda a: a[:, :, ::e // hk].contiguous(), out_placements=pls, in_placements=(pls,),
+        device_mesh=t.device_mesh, redistribute_inputs=True,
+    )(t)
 
 
 def spec_attention(policy: ShardingPolicy) -> Params:
@@ -353,34 +409,32 @@ def _splits_rows_or_heads(q: Any, k: Any) -> bool:
 def _attend_on_mesh(fn, q, k, v, kv_valid: Optional[Any]):
     """``fn(q, k, v, kv_valid)`` (an attention over plain tensors, its
     positions and scalars bound) on ``DTensor`` q, k and v through
-    ``local_map``: every mesh dimension that splits q's batch keeps it
-    split (k, v and ``kv_valid`` alike), each other dimension splits the
-    query and KV heads where both divide, as
-    :func:`repro_torch.kernels.ops.flash_attention_bhsd` lays them out, and
-    replicates them otherwise.  Each rank attends its own rows and heads
-    over the whole key sequence.  (DTensor's own einsum views (B, Hk) as one
-    dimension, which torch 2.11 refuses with the heads split.)"""
+    ``local_map``, laid out as
+    :func:`repro_torch.kernels.ops.flash_attention_bhsd` lays them out
+    (:func:`~repro_torch.kernels.ops.mesh_heads`; ``kv_valid`` by batch
+    rows): each rank attends its own rows and query heads over the whole
+    key sequence of the KV heads they read.  (DTensor's own einsum views
+    (B, Hk) as one dimension, which torch 2.11 refuses with the heads
+    split.)"""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
-    hq, hk = q.shape[2], k.shape[2]
-    layout, split = [], 1
-    for mdim, pl in enumerate(q.placements):
-        n = mesh.size(mdim)
-        if pl == Shard(0):
-            layout.append(Shard(0))
-        elif hq % (split * n) == 0 and hk % (split * n) == 0:
-            split *= n
-            layout.append(Shard(2))
-        else:
-            layout.append(Replicate())
-    rows = [pl if pl == Shard(0) else Replicate() for pl in layout]
+    heads = ops.mesh_heads(q, k.shape[2])
+    rows = [pl if pl == Shard(0) else Replicate() for pl in heads.q]
     if kv_valid is not None and not is_dtensor(kv_valid):
         kv_valid = DTensor.from_local(kv_valid, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    def attend(a, b, c, valid):
+        if heads.narrow is not None:
+            b, c = (t.narrow(2, *heads.narrow) for t in (b, c))
+        return fn(a, b, c, valid)
+
+    vrows = None if kv_valid is None else rows
     return local_map(
-        fn, out_placements=layout,
-        in_placements=(layout, layout, layout, None if kv_valid is None else rows),
+        attend, out_placements=heads.q,
+        in_placements=(heads.q, heads.kv, heads.kv, vrows),
+        in_grad_placements=(heads.q, heads.kv_grad, heads.kv_grad, vrows),
         device_mesh=mesh, redistribute_inputs=True,
     )(q, k, v, kv_valid)
 
@@ -413,9 +467,9 @@ def attention_block(
     layout (:func:`~repro_torch.sharding.utils.write_rows`).
     Returns (output, cache).
     """
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k, v = project_kv(params, x)
-    q = shard_act(q, policy, "batch", None, "model", None)
+    q = shard_act(torch.einsum("bsd,dhk->bshk", x, params["wq"]),
+                  policy, "batch", None, "model", None)
+    k, v = project_kv(params, x, q if kv_cache is None else None)
     q = apply_rope(q, q_pos, cfg.rope_theta)
     k = apply_rope(k, q_pos, cfg.rope_theta)
 
@@ -452,8 +506,15 @@ def attention_block(
         out = ops.flash_attention_bhsd(
             q, k, v, causal=True, window=cfg.sliding_window,
         )
-    y = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return shard_act(y, policy, "batch", None, None), new_cache
+    return out_proj(params, out, policy), new_cache
+
+
+def out_proj(params: Params, out: torch.Tensor, policy: ShardingPolicy = TP_POLICY) -> torch.Tensor:
+    """The attention's output projection ``bshk,hkd->bsd``, row-parallel on
+    a mesh (:func:`~repro_torch.sharding.utils.row_einsum`), its partial
+    sum reduced to the residual stream's layout."""
+    y = row_einsum("bshk,hkd->bsd", out, params["wo"], 2, 0)
+    return shard_act(y, policy, "batch", None, None)
 
 
 # --------------------------------------------------------------------------

@@ -287,9 +287,12 @@ def moe_mlp(params: Params, x: torch.Tensor, cfg: ModelConfig,
     xg = x if s >= 64 else x.reshape(1, b * s, d)
     route = _moe_on_mesh if is_dtensor(x) else _moe_groups
     out, aux = route(params, xg, cfg, policy)
+    out = out.reshape(b, s, d)
     if "shared" in params:
-        out = out + _shared_experts(params["shared"], xg)
-    return shard_act(out.reshape(b, s, d), policy, "batch", None, None), aux
+        # Per token, so over x's own rows (a decode step's pooled group would
+        # hand every batch rank the whole batch).
+        out = out + _shared_experts(params["shared"], x)
+    return shard_act(out, policy, "batch", None, None), aux
 
 
 def _moe_groups(params: Params, xg: torch.Tensor, cfg: ModelConfig,
@@ -309,8 +312,8 @@ def _moe_groups(params: Params, xg: torch.Tensor, cfg: ModelConfig,
     return _combine(ye, expert_ids, gates, slot), aux
 
 
-def _shared_experts(sh: Params, xg: torch.Tensor) -> torch.Tensor:
-    """Qwen2-MoE's always-on shared experts of the groups xg (G, Sg, D)."""
-    hgu_s = column_einsum("gsd,dkf->gskf", xg, sh["w_gu"], 2, 3)
-    hs = F.silu(hgu_s[:, :, 0].float()).to(xg.dtype) * hgu_s[:, :, 1]
+def _shared_experts(sh: Params, x: torch.Tensor) -> torch.Tensor:
+    """Qwen2-MoE's always-on shared experts of the tokens x (B, S, D)."""
+    hgu_s = column_einsum("bsd,dkf->bskf", x, sh["w_gu"], 2, 3)
+    hs = F.silu(hgu_s[:, :, 0].float()).to(x.dtype) * hgu_s[:, :, 1]
     return hs @ sh["w_down"]

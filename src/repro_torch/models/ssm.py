@@ -39,7 +39,9 @@ from repro_torch.models.transformer import (
     draw_stacked, layer_params, num_stacked, stacked_specs, token_ids,
 )
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
-from repro_torch.sharding.utils import column_einsum, gather_fsdp, mesh_pad, on_mesh, write_rows
+from repro_torch.sharding.utils import (
+    column_einsum, gather_fsdp, gathered_einsum, mesh_pad, on_mesh, row_einsum, write_rows,
+)
 
 Params = Dict[str, Any]
 
@@ -167,10 +169,13 @@ def causal_conv_step(
 # --------------------------------------------------------------------------
 
 def _in_proj(params: Params, u: torch.Tensor):
-    """Input projections, wz/wx fused on a stack axis (D, 2, di)."""
+    """Input projections, wz/wx fused on a stack axis (D, 2, di); on a mesh
+    B and C, which every head reads, are computed a column slice per rank
+    and gathered (:func:`~repro_torch.sharding.utils.gathered_einsum`)."""
     zx = column_einsum("bsd,dkm->bskm", u, params["w_zx"], 2, 3)
     z, xin = zx[:, :, 0], zx[:, :, 1]
-    return z, xin, u @ params["wb"], u @ params["wc"], u @ params["wdt"]
+    b_in, c_in = (gathered_einsum("bsd,dn->bsn", u, params[k], 1, 2) for k in ("wb", "wc"))
+    return z, xin, b_in, c_in, u @ params["wdt"]
 
 
 def _uniform(generator: torch.Generator, n: int, lo: float, hi: float,
@@ -251,7 +256,7 @@ def _gate_out(lp: Params, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
     y = y.reshape(bsz, s, cfg.ssm_d_inner)
     gated = y * F.silu(z.float()).to(y.dtype)
     gated = L.rmsnorm(lp["gated_norm"], gated, cfg.norm_eps)
-    return gated @ lp["wo"]
+    return row_einsum("bsm,md->bsd", gated, lp["wo"], 2, 0)
 
 
 def mamba_sequence(

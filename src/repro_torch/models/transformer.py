@@ -190,15 +190,16 @@ def _layer_apply(
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     if return_kv:
         # Prefill: compute fresh K/V and also hand them back for the cache.
-        q = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wq"])
-        k, v = L.project_kv(lp["attn"], h)
+        q = shard_act(torch.einsum("bsd,dhk->bshk", h, lp["attn"]["wq"]),
+                      policy, "batch", None, "model", None)
+        k, v = L.project_kv(lp["attn"], h, q)
         q = L.apply_rope(q, q_pos, cfg.rope_theta)
         k = L.apply_rope(k, q_pos, cfg.rope_theta)
         attn_out = ops.flash_attention_bhsd(
             q, k, v, causal=True, window=cfg.sliding_window
         )
-        attn_out = torch.einsum("bshk,hkd->bsd", attn_out, lp["attn"]["wo"])
-        new_kv = (k, v)
+        attn_out = L.out_proj(lp["attn"], attn_out, policy)
+        new_kv = (L.collapse_heads(k, cfg.n_kv_heads), L.collapse_heads(v, cfg.n_kv_heads))
     else:
         attn_out, new_kv = L.attention_block(
             lp["attn"], h, cfg, q_pos, kv_cache=kv, cache_len=cache_len, policy=policy,

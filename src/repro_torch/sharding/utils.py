@@ -325,3 +325,89 @@ def column_einsum(eq: str, x: Any, w: Any, w_dim: int, out_dim: int) -> Any:
         in_grad_placements=(xg, wg), device_mesh=mesh, redistribute_inputs=True,
     )(x, w)
 
+
+
+def row_einsum(eq: str, x: Any, w: Any, x_dim: int, w_dim: int) -> Any:
+    """``torch.einsum(eq, x, w)`` of a batch-leading activation ``x`` and a
+    weight ``w`` that contract ``x``'s dimension ``x_dim`` with ``w``'s
+    ``w_dim``, which may be split over the mesh: an output projection such
+    as ``bshk,hkd->bsd`` with the heads split, the counterpart of
+    :func:`column_einsum`.
+
+    Off a mesh the plain einsum.  On a mesh each rank multiplies its own
+    batch rows of its own contraction shard by its own weight rows through
+    ``local_map`` (every other weight dimension gathered whole): the
+    reference's row-parallel product.  The output is a partial sum over the
+    mesh dimensions that split the contraction, which the caller's
+    ``shard_act`` reduces.  ``x``'s gradient is ``dout @ w_localᵀ`` on its
+    own shard and the weight's gradient lands in its own rows, a partial
+    sum over the batch shards.  (DTensor's own einsum multiplies one of the
+    two gradients at full width.)
+    """
+    if not is_dtensor(w):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    # Per mesh dim, the placements of (x, w, the output, x's grad, w's grad):
+    # contraction-split, batch-split or replicated.
+    rows = []
+    for wp, xp in zip(w.placements, x.placements):
+        if wp == Shard(w_dim):
+            rows.append((Shard(x_dim), wp, Partial(), Shard(x_dim), wp))
+        elif xp == Shard(0):
+            rows.append((xp, Replicate(), xp, xp, Partial()))
+        else:
+            rows.append((Replicate(),) * 5)
+    xs, ws, out, xg, wg = (list(c) for c in zip(*rows))
+    return local_map(
+        lambda a, b: torch.einsum(eq, a, b), out_placements=out, in_placements=(xs, ws),
+        in_grad_placements=(xg, wg), device_mesh=mesh, redistribute_inputs=True,
+    )(x, w)
+
+
+def gathered_einsum(eq: str, x: Any, w: Any, w_dim: int, out_dim: int) -> Any:
+    """``torch.einsum(eq, x, w)`` of a batch-leading activation ``x`` and a
+    weight ``w`` held whole over the mesh dimensions that do not split the
+    batch, where every rank needs the whole output: Mamba2's B and C
+    projections, shared by the heads that each ``model`` rank holds.
+
+    Off a mesh the plain einsum.  On a mesh each rank multiplies its own
+    batch rows by its own slice of the weight's columns (``w_dim``, which
+    the output keeps at ``out_dim``) over every such dimension that the
+    columns divide, through :func:`column_einsum`, and the output's slices
+    are gathered: the product costs each rank its share, not the whole.
+    The weight's gradient lands in its own columns, a partial sum over the
+    ranks; ``x``'s is reduced over the column slices.
+    """
+    if not (is_dtensor(w) and is_dtensor(x)):
+        return torch.einsum(eq, x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    split, n = [], 1
+    for mdim, (wp, xp) in enumerate(zip(w.placements, x.placements)):
+        size = mesh.size(mdim)
+        ok = xp != Shard(0) and wp == Replicate() and size > 1
+        if ok and w.shape[w_dim] % (n * size) == 0:
+            n *= size
+            split.append(True)
+        else:
+            split.append(False)
+    if n == 1:
+        return column_einsum(eq, x, w, w_dim, out_dim)
+    off, cols = local_extent(w.shape, [Shard(w_dim) if sp else Replicate() for sp in split],
+                             mesh)[w_dim]
+    cut = local_map(
+        lambda a: a.narrow(w_dim, off, cols).contiguous(),
+        out_placements=[Shard(w_dim) if sp else pl for sp, pl in zip(split, w.placements)],
+        in_placements=(list(w.placements),),
+        in_grad_placements=([Partial() if sp else pl for sp, pl in zip(split, w.placements)],),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(w)
+    y = column_einsum(eq, x, cut, w_dim, out_dim)
+    return y.redistribute(mesh, [Replicate() if sp else pl for sp, pl in zip(split, y.placements)])

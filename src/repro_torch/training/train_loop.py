@@ -27,7 +27,7 @@ import torch
 from repro_torch._device import DeviceLike, tree_leaves, tree_map
 from repro_torch.models.registry import ModelApi
 from repro_torch.sharding.policy import TP_POLICY, ShardingPolicy
-from repro_torch.sharding.utils import is_dtensor, on_mesh, place_like
+from repro_torch.sharding.utils import is_dtensor, local_extent, on_mesh, place_like
 from repro_torch.training.optimizer import (
     AdamWConfig, AdamWState, adamw_init, adamw_update, zeros_f32,
 )
@@ -43,20 +43,14 @@ def cross_entropy_chunked(
 ) -> torch.Tensor:
     """Mean next-token NLL, computed chunk by chunk along the sequence.
 
-    On a mesh the logits are first laid out by rows: the batch keeps its
-    shards, the vocabulary is gathered whole (DTensor has no sound rule
-    for a gather along a sharded vocabulary), and the labels are placed
-    alike."""
+    On a mesh the logits keep their layout, batch rows and vocabulary
+    split (:func:`_cross_entropy_on_mesh`)."""
     b, s, _v = logits.shape
     if s % chunk != 0:
         chunk = s  # fall back to a single chunk for ragged tiny inputs
     labels = torch.as_tensor(labels, device=logits.device).long()
     if is_dtensor(logits):
-        from torch.distributed.tensor import Replicate, Shard
-
-        rows = [pl if pl == Shard(0) else Replicate() for pl in logits.placements]
-        logits = logits.redistribute(logits.device_mesh, rows)
-        labels = place_like(labels, logits)
+        return _cross_entropy_on_mesh(logits, labels, mask, chunk)
     tot = torch.zeros((), dtype=torch.float32, device=logits.device)
     cnt = torch.zeros((), dtype=torch.float32, device=logits.device)
     for c0 in range(0, s, chunk):
@@ -70,16 +64,80 @@ def cross_entropy_chunked(
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def _cross_entropy_on_mesh(logits: Any, labels: torch.Tensor, mask: Optional[torch.Tensor],
+                           chunk: int) -> torch.Tensor:
+    """:func:`cross_entropy_chunked` of ``DTensor`` logits, vocabulary-parallel.
+
+    The logits stay in their layout (the reference's: batch rows over the
+    batch axes, the vocabulary over ``model``).  Each rank takes, through
+    ``local_map`` and chunk by chunk, the max of its own vocabulary slice
+    (gathered, so every rank shifts by the row's max), the sum of
+    exponentials over its slice, and the target logit where its slice holds
+    the label (zero elsewhere): the last two are partial sums over the
+    vocabulary shards, reduced before the log.  No rank holds more than
+    its own rows of its own vocabulary slice, in fp32 one chunk at a time.
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    b, s, v = logits.shape
+    pls = [pl if pl in (Shard(0), Shard(2)) else Replicate() for pl in logits.placements]
+    rows = [pl if pl == Shard(0) else Replicate() for pl in pls]
+    # The per-row statistics: partial sums over the vocabulary shards; the
+    # per-shard maxima: one column per vocabulary shard.
+    sums = [Partial() if pl == Shard(2) else pl for pl in pls]
+    maxes = [pl if pl == Shard(0) else (Shard(2) if pl == Shard(2) else Replicate())
+             for pl in pls]
+    off, n = local_extent((b, s, v), pls, mesh)[2]
+
+    def local_max(lg: torch.Tensor) -> torch.Tensor:
+        return torch.cat([lg[:, c0:c0 + chunk].float().amax(-1) for c0 in range(0, s, chunk)],
+                         dim=1)[..., None]
+
+    def local_stats(lg: torch.Tensor, lab: torch.Tensor, mx: torch.Tensor):
+        sumexp, tgt = [], []
+        for c0 in range(0, s, chunk):
+            lg32 = lg[:, c0:c0 + chunk].float()
+            sumexp.append(torch.exp(lg32 - mx[:, c0:c0 + chunk, None]).sum(-1))
+            loc = lab[:, c0:c0 + chunk] - off
+            hit = (loc >= 0) & (loc < n)
+            t = torch.gather(lg32, -1, loc.clamp(0, n - 1)[..., None])[..., 0]
+            tgt.append(torch.where(hit, t, torch.zeros((), dtype=t.dtype, device=t.device)))
+        return torch.cat(sumexp, dim=1), torch.cat(tgt, dim=1)
+
+    with torch.no_grad():
+        mx = local_map(local_max, out_placements=maxes, in_placements=(pls,),
+                       device_mesh=mesh, redistribute_inputs=True)(logits.detach())
+        mx = mx.redistribute(mesh, rows).amax(-1)
+    labels = place_like(labels, mx)
+    sumexp, tgt = local_map(
+        local_stats, out_placements=(sums, sums), in_placements=(pls, rows, rows),
+        in_grad_placements=(pls, rows, rows), device_mesh=mesh, redistribute_inputs=True,
+    )(logits, labels, mx)
+    nll = (torch.log(sumexp.redistribute(mesh, rows)) + mx) - tgt.redistribute(mesh, rows)
+    mk = (torch.ones((b, s), dtype=torch.float32, device=logits.device)
+          if mask is None else mask.float())
+    mk = place_like(mk, mx)
+    return (nll * mk).sum() / torch.clamp(mk.sum(), min=1.0)
+
+
 def lm_loss(model: ModelApi, params: Params, batch: Any,
             policy: ShardingPolicy = TP_POLICY) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token LM loss (teacher-forced).  ``batch``: tokens (B, S) or the
     enc-dec dict of ``features`` and ``tokens``; the loss predicts
-    tokens[1:] from tokens[:-1], plus the MoE's weighted aux loss."""
+    tokens[1:] from tokens[:-1], plus the MoE's weighted aux loss.  The
+    logits are not sliced: the labels shift by one and the last position is
+    masked, which gives the same mean over B (S - 1) positions."""
     cfg = model.cfg
     tokens = batch["tokens"] if cfg.family == "encdec" else batch
     logits, aux = model.forward(params, batch, policy)
-    tokens = torch.as_tensor(tokens, device=logits.device)
-    ce = cross_entropy_chunked(logits[:, :-1], tokens[:, 1:], chunk=cfg.loss_chunk)
+    tokens = torch.as_tensor(tokens, device=logits.device).long()
+    b, s = tokens.shape
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    mask = torch.ones((b, s), dtype=torch.float32, device=logits.device)
+    mask[:, -1] = 0.0
+    ce = cross_entropy_chunked(logits, labels, mask, chunk=cfg.loss_chunk)
     loss = ce + cfg.moe_aux_loss_weight * aux
     return loss, {"ce": ce, "aux": aux}
 

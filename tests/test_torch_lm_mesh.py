@@ -11,7 +11,8 @@ import neither JAX nor the JAX package, set one thread, join through a
 ``FileStore`` under the test's temporary directory, run every case of
 :data:`SERVE_CASES` and the batcher in lockstep — first on a (4, 2)
 ``(data, model)`` mesh, then on a (2, 4) one, where mistral's 2 KV heads do
-not divide the model axis and its cache shards the sequence — save their
+not divide the model axis and its cache shards the sequence (granite-34b's
+one KV head divides neither model axis: its query heads' ranks share it) — save their
 results with ``np.save`` and destroy their process group.  The fixture
 waits at most :data:`WORLD_SECONDS`; no process group is made in the
 pytest process.  The one-device runs are rank 0's alone.  The reference runs in the pytest process on a (4, 2)
@@ -54,7 +55,7 @@ WORLD_SECONDS = 400
 TOL = dict(rtol=1e-5, atol=1e-5)
 MESHES = {"4x2": (4, 2), "2x4": (2, 4)}
 SERVE_CASES = [
-    ("mistral-nemo-12b", "tp"), ("mistral-nemo-12b", "fsdp_tp"),
+    ("mistral-nemo-12b", "tp"), ("mistral-nemo-12b", "fsdp_tp"), ("granite-34b", "tp"),
     ("qwen2-moe-a2.7b", "tp"), ("qwen2-moe-a2.7b", "expert_tp"),
     ("qwen2-moe-a2.7b", "fsdp_expert"),
     ("mamba2-780m", "tp"), ("zamba2-2.7b", "fsdp_tp"), ("whisper-medium", "tp"),

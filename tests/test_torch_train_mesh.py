@@ -1,13 +1,16 @@
 """The port's train step on a mesh — ``lm_loss``, ``loss_and_grads`` and
 ``make_train_step`` under a ``ShardingPolicy``, with parameters, gradients
 and AdamW moments as ``DTensor``s — held against the JAX package's jitted
-step on the same (4, 2) ``(data, model)`` mesh from the same weights.
+step on the same ``(data, model)`` mesh from the same weights: (4, 2), and
+(2, 4) for mistral-nemo-12b, whose 2 KV heads do not divide the 4-way model
+axis (each pair of its ranks shares a KV head; granite-34b's one KV head
+does not divide the 2-way axis of (4, 2) either).
 
 The port's side runs in one world of 8 gloo ranks to the design of
 ``tests/test_torch_mesh_serving.py``: 8 child processes, each this file
 run as a script (``python tests/test_torch_train_mesh.py RANK DIR``; no
 JAX, no reference package), joined through a ``FileStore``, running every
-case of :data:`CASES` in lockstep on a (4, 2) mesh, then saving their
+case of :data:`CASES` in lockstep on its mesh, then saving their
 results with ``np.save`` and destroying their process group; the fixture
 waits at most :data:`WORLD_SECONDS`.  No process group is made in the
 pytest process (the launcher test runs the port's launcher in a
@@ -42,16 +45,17 @@ WORLD = 8
 # The hard limit on the world: alone it takes ~60 s of scenarios; the
 # margin is for a loaded machine (a full test run's other workers).
 WORLD_SECONDS = 400
-MESH = (4, 2)
-# (arch, policy, grad_accum)
+MESHES = {"4x2": (4, 2), "2x4": (2, 4)}
+# (arch, policy, grad_accum, mesh)
 CASES = [
-    ("mistral-nemo-12b", "tp", 1), ("mistral-nemo-12b", "fsdp_tp", 1),
-    ("qwen2-moe-a2.7b", "expert_tp", 1), ("qwen2-moe-a2.7b", "fsdp_expert", 1),
-    ("mamba2-780m", "fsdp_tp", 1), ("zamba2-2.7b", "tp", 1), ("whisper-medium", "tp", 1),
-    ("mistral-nemo-12b", "fsdp_tp", 2),
+    ("mistral-nemo-12b", "tp", 1, "4x2"), ("mistral-nemo-12b", "fsdp_tp", 1, "4x2"),
+    ("qwen2-moe-a2.7b", "expert_tp", 1, "4x2"), ("qwen2-moe-a2.7b", "fsdp_expert", 1, "4x2"),
+    ("mamba2-780m", "fsdp_tp", 1, "4x2"), ("zamba2-2.7b", "tp", 1, "4x2"),
+    ("whisper-medium", "tp", 1, "4x2"), ("mistral-nemo-12b", "fsdp_tp", 2, "4x2"),
+    ("granite-34b", "tp", 1, "4x2"), ("mistral-nemo-12b", "tp", 1, "2x4"),
 ]
-ARCHS = sorted({a for a, _, _ in CASES})
-CKPT_CASE = ("mistral-nemo-12b", "fsdp_tp", 1)
+ARCHS = sorted({c[0] for c in CASES})
+CKPT_CASE = ("mistral-nemo-12b", "fsdp_tp", 1, "4x2")
 BATCH = 8
 SEQ = {"qwen2-moe-a2.7b": 64}  # 64 tokens: the MoE routes one group per row
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
@@ -62,8 +66,9 @@ G_FLOOR = 1e-6  # |g| below which AdamW's first step is not compared
 
 
 def _case_id(case):
-    arch, policy, accum = case
-    return f"{arch}-{policy}" + (f"-accum{accum}" if accum > 1 else "")
+    arch, policy, accum, mesh = case
+    return (f"{arch}-{policy}" + (f"-accum{accum}" if accum > 1 else "")
+            + (f"-{mesh}" if mesh != "4x2" else ""))
 
 
 def _batch_for(arch, vocab, enc_inputs, encdec):
@@ -105,7 +110,7 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
-def _w_train(ctx, arch, policy_name, accum, mesh, workdir):
+def _w_train(ctx, arch, policy_name, accum, mesh_name, meshes, workdir):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import set_mesh
     from repro_torch.models.multitask import params_from_reference
@@ -121,6 +126,7 @@ def _w_train(ctx, arch, policy_name, accum, mesh, workdir):
     model = get_model(get_smoke_config(arch))
     params = params_from_reference(ctx["inputs"]["params"][arch], device="cpu")
     batch = ctx["inputs"]["batches"][arch]
+    mesh = meshes[mesh_name]
     out = {}
     with set_mesh(mesh):
         mp = place_tree(params, model.param_specs(policy), mesh)
@@ -135,7 +141,7 @@ def _w_train(ctx, arch, policy_name, accum, mesh, workdir):
             grads_kept=_placements(grads) == want,
             moments_kept=_placements(opt.mu) == want == _placements(opt.nu),
             step=int(opt.step))
-        if (arch, policy_name, accum) == CKPT_CASE:
+        if (arch, policy_name, accum, mesh_name) == CKPT_CASE:
             path = str(Path(workdir) / f"ckpt_rank{ctx['rank']}.npz")
             save_checkpoint(path, {"params": new}, step=1)
             back, step = restore_checkpoint(path, {"params": new})
@@ -147,7 +153,7 @@ def _w_train(ctx, arch, policy_name, accum, mesh, workdir):
     return out
 
 
-def _w_production_mesh(ctx, mesh, workdir):
+def _w_production_mesh(ctx, meshes, workdir):
     from repro_torch.launch import train
 
     try:
@@ -177,12 +183,13 @@ def _child_main(rank: int, workdir: Path) -> None:
     try:
         with open(workdir / "inputs.pkl", "rb") as f:
             ctx = {"inputs": pickle.load(f), "rank": rank}
-        mesh = make_mesh(MESH, ("data", "model"), device="cpu")
+        meshes = {name: make_mesh(shape, ("data", "model"), device="cpu")
+                  for name, shape in MESHES.items()}
         results = {}
         for name, fn in SCENARIOS.items():
             t0 = time.perf_counter()
             try:
-                results[name] = fn(ctx, mesh, workdir)
+                results[name] = fn(ctx, meshes, workdir)
             except Exception:
                 results[name] = {"error": traceback.format_exc()}
             print(f"rank {rank} {name} {time.perf_counter() - t0:.2f}s", flush=True)
@@ -219,8 +226,8 @@ def _ref_flat(tree):
 @pytest.fixture(scope="module")
 def reference():
     """The weights, the batches and the reference's results: its gradients
-    (``value_and_grad`` of ``lm_loss``) and its jitted train step on the
-    (4, 2) mesh."""
+    (``value_and_grad`` of ``lm_loss``) and its jitted train step on each
+    case's mesh."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding
@@ -236,7 +243,7 @@ def reference():
     from repro.training import lm_loss as r_lm_loss
     from repro.training import make_train_step as r_make_train_step
 
-    mesh = r_make_mesh(MESH, ("data", "model"))
+    meshes = {name: r_make_mesh(shape, ("data", "model")) for name, shape in MESHES.items()}
     inputs = {"params": {}, "batches": {}}
     models, raw, grads = {}, {}, {}
     for arch in ARCHS:
@@ -247,8 +254,9 @@ def reference():
         inputs["batches"][arch] = _batch_for(arch, cfg.raw_vocab_size, cfg.enc_inputs,
                                              cfg.family == "encdec")
     out = {"inputs": inputs, "raw": raw, "steps": {}}
-    with r_set_mesh(mesh):
-        for arch, policy_name, accum in CASES:
+    for arch, policy_name, accum, mesh_name in CASES:
+        mesh = meshes[mesh_name]
+        with r_set_mesh(mesh):
             policy, model = R_POLICIES[policy_name], models[arch]
             spec = r_fit_specs(raw[arch], model.param_specs(policy), mesh)
             placed = jax.tree.map(lambda x, s: jax.device_put(x, NamedSharding(mesh, s)),
@@ -263,7 +271,7 @@ def reference():
             step = jax.jit(r_make_train_step(model, RAdamWConfig(**OPT), policy,
                                              grad_accum=accum))
             new, opt, metrics = step(placed, r_adamw_init(placed), b)
-            out["steps"][(arch, policy_name, accum)] = {
+            out["steps"][(arch, policy_name, accum, mesh_name)] = {
                 "metrics": {k: float(metrics[k]) for k in ("loss", "lr", "grad_norm")},
                 "new": _ref_flat(new), "step": int(opt.step)}
     out["grads"] = grads
