@@ -461,7 +461,16 @@ TRAIN_MULTITASK = (40, 16, 128)
 # budget's automatic choice (tp) would not exercise.
 DRYRUN_CASES = (("mistral-nemo-12b", "train_4k", "auto"),
                 ("mixtral-8x22b", "prefill_32k", "fsdp_tp"),
-                ("mamba2-780m", "train_4k", "auto"))
+                ("mamba2-780m", "train_4k", "auto"),
+                ("mamba2-780m", "prefill_32k", "auto"))
+# A prefill holds only its share of memory: the counted peak a rank at most
+# DRYRUN_PEAK_SLACK times the reference's ``peak_memory_per_device`` for
+# the same pair (the card has no JAX, so the reference's figure is a
+# constant: ``mamba2-780m__prefill_32k__single.json`` of ``python -m
+# repro.launch.dryrun --arch mamba2-780m --shape prefill_32k --mesh single
+# --policy tp``, JAX_PLATFORMS=cpu, 512 forced host devices, jax 0.9.0).
+DRYRUN_REFERENCE_PEAK = {"mamba2-780m/prefill_32k": 4375842536.0}
+DRYRUN_PEAK_SLACK = 1.5
 DRYRUN_SECONDS = 240
 # Each rank does its share: a dry run's FLOPs over the 256 ranks at most this
 # many times the same plan's counted in a world of one.
@@ -2958,7 +2967,9 @@ def dryrun_phase(smi: str, counted: dict) -> dict:
     the forward twice and the backward once per layer; a prefill: once);
     ``hlo_flops`` at most :data:`DRYRUN_FLOPS_SLACK` times the same plan's
     FLOPs counted in a world of one in the same subprocess
-    (``--world-of-one``): each rank does only its share.
+    (``--world-of-one``): each rank does only its share; where
+    :data:`DRYRUN_REFERENCE_PEAK` has the pair, its peak a rank at most
+    :data:`DRYRUN_PEAK_SLACK` times the reference's.
     (b) ``counted``, the steps :func:`count_step` counted in the training
     phases.  Prints the ``dryrun`` line with the card's name and power
     limit."""
@@ -3010,11 +3021,17 @@ def dryrun_phase(smi: str, counted: dict) -> dict:
         check(0 < r["hlo_flops"] <= DRYRUN_FLOPS_SLACK * one,
               f"{label}: FLOPs over 256 ranks {r['hlo_flops']}, {r['flops_factor']:.3f} times "
               f"the world of one's {one}")
+        ref_peak = DRYRUN_REFERENCE_PEAK.get(f"{arch}/{shape}")
+        check(ref_peak is None or 0 < r["peak_memory_per_device"] <= DRYRUN_PEAK_SLACK * ref_peak,
+              f"{label}: peak a rank {r['peak_memory_per_device']} bytes, more than "
+              f"{DRYRUN_PEAK_SLACK} times the reference's {ref_peak}")
         rows[f"{arch}/{shape}"] = {k: r[k] for k in (
             "policy", "n_params", "trace_s", "memory", "kernels", "hlo_flops", "hlo_bytes",
             "coll_bytes", "coll_breakdown", "model_flops", "t_compute", "t_memory",
             "t_collective", "dominant", "useful_flops_ratio", "world_of_one", "flops_factor")}
         rows[f"{arch}/{shape}"]["peak_bytes"] = r["memory"]["peak_bytes"]
+        if ref_peak is not None:
+            rows[f"{arch}/{shape}"]["peak_over_reference"] = r["peak_memory_per_device"] / ref_peak
     line = {"device": smi, "mesh": "16x16 (fake world of 256)", "cases": rows,
             "counted_steps": counted, "phase_s": time.perf_counter() - t0}
     print(json.dumps({"dryrun": line}), flush=True)

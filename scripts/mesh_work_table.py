@@ -16,8 +16,7 @@ port's own policy (``repro_torch.launch.specs.select_policy``), this runs:
 
 It prints a markdown table and the pairs that break either criterion:
 ``hlo_flops`` above 1.10 times the larger of the world-of-one count and
-the reference's, or (``train_4k``) a peak above 1.5 times the
-reference's.  All numbers are CPU counts on meta tensors and compiled HLO,
+the reference's, or a peak above 1.5 times the reference's (every shape).  All numbers are CPU counts on meta tensors and compiled HLO,
 not times or memory of any device.  The JSONs land under ``DIR/port``,
 ``DIR/reference`` and ``DIR/parent``; a pair already there is not run
 again.  Runs take 2-30 s each.
@@ -108,12 +107,12 @@ def main(argv=None) -> int:
         factor = port["hlo_flops"] / max(one, ref["hlo_flops"])
         peak, rpeak = port["peak_memory_per_device"], ref["peak_memory_per_device"]
         ppeak = parent.get("peak_memory_per_device")
-        if factor > FLOPS_SLACK or (shape == "train_4k" and peak > PEAK_SLACK * rpeak):
+        if factor > FLOPS_SLACK or peak > PEAK_SLACK * rpeak:
             bad.append((arch, shape, factor, peak / rpeak))
         print(f"| {arch} `{shape}` ({policy}) | {_g(parent.get('hlo_flops'))} | "
               f"{port['hlo_flops']:.4g} | {one:.4g} | {ref['hlo_flops']:.4g} | {factor:.3f} | "
-              f"{'—' if ppeak is None else f'{ppeak / 1e9:.1f}'} | {peak / 1e9:.1f} | "
-              f"{rpeak / 1e9:.1f} |")
+              f"{'—' if ppeak is None else f'{ppeak / 1e9:.2f}'} | {peak / 1e9:.2f} | "
+              f"{rpeak / 1e9:.2f} |")
     print(json.dumps({"pairs": len(rows), "over": bad}))
     return 1 if bad else 0
 

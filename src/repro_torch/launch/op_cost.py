@@ -37,6 +37,7 @@ Importing this module makes no process group and touches no device.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import weakref
 from typing import Any, Callable, Dict, Iterator, Optional
 
@@ -229,9 +230,23 @@ def analyze_step(fn: Callable, *args: Any, **kwargs: Any) -> Dict[str, Any]:
     }
 
 
+def _tensors(tree: Any) -> list:
+    """The tensors of a tree of dicts, lists, tuples and dataclasses (the
+    models' caches)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [t for f in dataclasses.fields(tree) for t in _tensors(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
 def local_bytes(tree: Any) -> int:
-    """Bytes this rank holds of a tree of tensors: a ``DTensor`` leaf's
-    local shard, any other tensor whole."""
+    """Bytes this rank holds of a tree of tensors, caches included: a
+    ``DTensor`` leaf's local shard, any other tensor whole."""
     from repro_torch.sharding.utils import is_dtensor
 
-    return sum(_nbytes(t.to_local() if is_dtensor(t) else t) for t in tree_leaves(tree))
+    return sum(_nbytes(t.to_local() if is_dtensor(t) else t) for t in _tensors(tree))

@@ -25,6 +25,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.policy import P, ShardingPolicy, _ambient_mesh, mesh_axes
 
 
+def shape_of(shape: Any, dtype: torch.dtype) -> torch.Tensor:
+    """A ``meta`` tensor of ``shape`` and ``dtype`` that holds no storage (one
+    element broadcast): a description of a tensor, as the reference's
+    ``ShapeDtypeStruct``, which a dry run inside the step that makes it
+    does not count as memory."""
+    return torch.empty((), dtype=dtype, device="meta").expand(shape)
+
+
 @dataclasses.dataclass
 class KVCache:
     """Stacked per-layer KV cache: ``k``/``v`` are (L, B, T, Hk, Dh)."""
@@ -49,10 +57,7 @@ def kv_cache_shape(
     layers = layers if layers is not None else cfg.num_layers
     shape = (layers, batch, t, cfg.n_kv_heads, cfg.head_dim)
     dt = cfg.activation_dtype()
-    return KVCache(
-        k=torch.empty(shape, dtype=dt, device="meta"),
-        v=torch.empty(shape, dtype=dt, device="meta"),
-    )
+    return KVCache(k=shape_of(shape, dt), v=shape_of(shape, dt))
 
 
 def kv_cache_zeros(
@@ -105,14 +110,9 @@ def ssm_cache_shape(cfg: ModelConfig, batch: int, layers: Optional[int] = None) 
     layers = layers if layers is not None else cfg.num_layers
     conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state
     return SSMCache(
-        conv=torch.empty(
-            (layers, batch, cfg.ssm_conv_width - 1, conv_dim),
-            dtype=cfg.activation_dtype(), device="meta",
-        ),
-        state=torch.empty(
-            (layers, batch, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state),
-            dtype=torch.float32, device="meta",
-        ),
+        conv=shape_of((layers, batch, cfg.ssm_conv_width - 1, conv_dim), cfg.activation_dtype()),
+        state=shape_of((layers, batch, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                       torch.float32),
     )
 
 
@@ -174,13 +174,15 @@ class EncDecCache:
     cross_v: torch.Tensor
 
 
-def encdec_cache_shape(cfg: ModelConfig, batch: int, dec_len: int, enc_len: int) -> EncDecCache:
-    cross = (cfg.num_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+def encdec_cache_shape(cfg: ModelConfig, batch: int, dec_len: int, enc_len: int,
+                       layers: Optional[int] = None) -> EncDecCache:
+    layers = layers if layers is not None else cfg.num_layers
+    cross = (layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
     dt = cfg.activation_dtype()
     return EncDecCache(
-        self_kv=kv_cache_shape(cfg, batch, dec_len),
-        cross_k=torch.empty(cross, dtype=dt, device="meta"),
-        cross_v=torch.empty(cross, dtype=dt, device="meta"),
+        self_kv=kv_cache_shape(cfg, batch, dec_len, layers),
+        cross_k=shape_of(cross, dt),
+        cross_v=shape_of(cross, dt),
     )
 
 
@@ -236,11 +238,11 @@ def place_cache(cache: Any, spec: Any, mesh: Any) -> Any:
     return map_cache(one, cache, spec)
 
 
-def zeros_like_spec(shapes: Any, spec: Any, mesh: Any) -> Any:
+def zeros_like_spec(shapes: Any, spec: Any, mesh: Any, device: torch.device) -> Any:
     """A zero cache of ``shapes``' shapes and dtypes (a cache of tensors,
-    ``meta`` ones included) on ``mesh``'s device, each tensor allocated as
-    its own shard of ``spec``'s fitted layout: no rank ever holds a full
-    copy."""
+    ``meta`` ones included) on ``device`` (``meta`` in a dry run), each
+    tensor allocated as its own shard of ``spec``'s fitted layout on
+    ``mesh``: no rank ever holds a full copy."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.sharding.utils import _contiguous_strides, fit_spec, local_extent, placements
@@ -248,8 +250,19 @@ def zeros_like_spec(shapes: Any, spec: Any, mesh: Any) -> Any:
     def one(t, sp):
         pls = placements(fit_spec(tuple(t.shape), sp, mesh), mesh)
         local = [n for _, n in local_extent(t.shape, pls, mesh)]
-        z = torch.zeros(local, dtype=t.dtype, device=mesh.device_type)
+        z = torch.zeros(local, dtype=t.dtype, device=device)
         return DTensor.from_local(z, mesh, pls, run_check=False, shape=t.shape,
                                   stride=_contiguous_strides(t.shape))
 
     return map_cache(one, shapes, spec)
+
+
+def prefill_cache(shapes: Any, spec: Any, mesh: Any, device: torch.device) -> Any:
+    """The cache a prefill fills layer by layer, allocated once at its full
+    (L, ...) shapes (``shapes``, a cache of ``meta`` tensors) and zeroed: on
+    ``mesh`` shard by shard in ``spec``'s fitted layout
+    (:func:`zeros_like_spec`), off a mesh one plain tensor each on
+    ``device``."""
+    if mesh is not None:
+        return zeros_like_spec(shapes, spec, mesh, device)
+    return map_cache(lambda t: torch.zeros(t.shape, dtype=t.dtype, device=device), shapes)

@@ -43,7 +43,9 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.cache import EncDecCache, KVCache
+from repro_torch.models.cache import (
+    EncDecCache, encdec_cache_shape, encdec_cache_spec, prefill_cache,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     draw_stacked, layer_params, num_stacked, stacked_specs, token_ids,
@@ -232,36 +234,40 @@ def _decoder(
     """The decoder stack over a full sequence.  ``cached`` (prefill) takes
     the reference's ``_attend_cached`` paths (chunked only where the keys
     outnumber the chunk) and returns the caches; otherwise (``forward``)
-    every attention takes its chunked path."""
+    every attention takes its chunked path.  The caches are allocated once
+    (on a mesh in ``encdec_cache_spec``'s layout) and each attention's K/V
+    written into its layer's slots as soon as it has attended."""
     layers = params["dec_layers"]
-    caches = []
+    cache = None
+    if cached:
+        (b, s), t_enc = x.shape[:2], enc_out.shape[1]
+        cache = prefill_cache(encdec_cache_shape(cfg, b, s, t_enc, num_stacked(layers)),
+                              encdec_cache_spec(cfg, policy), mesh_of(params), x.device)
 
-    def body(lp: Params, x: torch.Tensor, enc_out: torch.Tensor):
+    def attend(i: int, ap: Params, h: torch.Tensor, kv_in: torch.Tensor,
+               causal: bool) -> torch.Tensor:
+        chunked = kv_in.shape[1] > cfg.attn_chunk or not cached
+        y, kv = _attend(ap, h, kv_in, cfg, causal=causal, chunked=chunked, policy=policy)
+        if cached:
+            bufs = ((cache.self_kv.k, cache.self_kv.v) if causal
+                    else (cache.cross_k, cache.cross_v))
+            for buf, t in zip(bufs, kv):
+                L.write_cache_layer(buf, i, t, cfg.n_kv_heads)
+        return y
+
+    def body(lp: Params, x: torch.Tensor, enc_out: torch.Tensor, i: int) -> torch.Tensor:
         lp = gather_fsdp(lp, policy)
         h = L.rmsnorm(lp["self_norm"], x, cfg.norm_eps)
-        chunked = h.shape[1] > cfg.attn_chunk or not cached
-        y, self_kv = _attend(lp["self_attn"], h, h, cfg, causal=True, chunked=chunked,
-                             policy=policy)
-        x = x + y
+        x = x + attend(i, lp["self_attn"], h, h, causal=True)
         h = L.rmsnorm(lp["cross_norm"], x, cfg.norm_eps)
-        chunked = enc_out.shape[1] > cfg.attn_chunk or not cached
-        y, cross_kv = _attend(lp["cross_attn"], h, enc_out, cfg, causal=False,
-                              chunked=chunked, policy=policy)
-        x = x + y
+        x = x + attend(i, lp["cross_attn"], h, enc_out, causal=False)
         h = L.rmsnorm(lp["mlp_norm"], x, cfg.norm_eps)
         x = x + L.mlp_block(lp["mlp"], h, cfg, policy)
-        kv = (*self_kv, *cross_kv) if cached else ()
-        return shard_act(x, policy, "batch", None, None), tuple(
-            L.collapse_heads(t, cfg.n_kv_heads) for t in kv)
+        return shard_act(x, policy, "batch", None, None)
 
     for i in range(num_stacked(layers)):
-        x, kv = L.remat(cfg, body, layer_params(layers, i), x, enc_out)
-        if cached:
-            caches.append(kv)
-    if not cached:
-        return x, None
-    sks, svs, cks, cvs = (torch.stack(parts) for parts in zip(*caches))
-    return x, EncDecCache(self_kv=KVCache(k=sks, v=svs), cross_k=cks, cross_v=cvs)
+        x = L.remat(cfg, body, layer_params(layers, i), x, enc_out, i)
+    return x, cache
 
 
 def forward(

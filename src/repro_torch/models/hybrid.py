@@ -36,11 +36,11 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as M
-from repro_torch.models.cache import HybridCache, KVCache, SSMCache
+from repro_torch.models.cache import HybridCache, hybrid_cache_spec, kv_cache_shape, prefill_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import draw_stacked, layer_params, stacked_specs, token_ids
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
-from repro_torch.sharding.utils import column_einsum, gather_fsdp, on_mesh, write_rows
+from repro_torch.sharding.utils import column_einsum, gather_fsdp, mesh_of, on_mesh, write_rows
 
 Params = Dict[str, Any]
 
@@ -153,10 +153,11 @@ def _shared_attn_apply(
 
     Without ``kv`` the sequence attends to itself causally through
     :func:`repro_torch.kernels.ops.flash_attention_bhsd`, and the roped K and
-    raw V come back for the cache.  With ``kv=(k, v)`` of shape
-    (B, T, Hk, Dh) one token decodes: its K/V are written **in place** at slot
-    ``cache_len % T`` and it attends over slots ``<= cache_len`` (no ring
-    handling, as in the reference).
+    raw V come back for the cache, as the attention read them (on a mesh
+    :func:`~repro_torch.models.layers.write_cache_layer` takes them).  With
+    ``kv=(k, v)`` of shape (B, T, Hk, Dh) one token decodes: its K/V are
+    written **in place** at slot ``cache_len % T`` and it attends over slots
+    ``<= cache_len`` (no ring handling, as in the reference).
     """
     params = gather_fsdp({k: params[k] for k in ("shared_attn", "shared_mlp")}, policy)
     h = L.rmsnorm(inv_norm, x, cfg.norm_eps)
@@ -178,7 +179,7 @@ def _shared_attn_apply(
         new_kv = (ck, cv)
     else:
         attn = ops.flash_attention_bhsd(q, k_new, v_new, causal=True, window=cfg.sliding_window)
-        new_kv = tuple(L.collapse_heads(t, cfg.n_kv_heads) for t in (k_new, v_new))
+        new_kv = (k_new, v_new)
     x = x + L.out_proj(ap, attn, policy)
     x = x + L.mlp_block(params["shared_mlp"], h, cfg, policy)
     return shard_act(x, policy, "batch", None, None), new_kv
@@ -217,30 +218,35 @@ def prefill(
     params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, HybridCache]:
     """Prompt pass: last-position logits + the SSM caches of every Mamba2
-    layer and the roped K / raw V of every shared-attention invocation."""
+    layer and the roped K / raw V of every shared-attention invocation.  The
+    cache is allocated once (on a mesh in ``hybrid_cache_spec``'s layout)
+    and each layer's part written into it as the layer finishes."""
     n_inv, period = _n_inv(cfg), cfg.hybrid_attn_period
     with on_mesh(params):
         tokens = token_ids(tokens, params, policy)
+        b, s = tokens.shape
         x = L.embed_tokens(params["embed"], tokens, cfg, policy)
-        q_pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
-        tails, states, ks, vs = [], [], [], []
+        q_pos = torch.arange(s, dtype=torch.int32, device=x.device)
+        mesh = mesh_of(params)
+        spec = hybrid_cache_spec(cfg, policy)
+        cache = HybridCache(
+            ssm=M.prefill_ssm_cache(cfg, (b, s), cfg.num_layers, mesh, policy, x.device),
+            kv=prefill_cache(kv_cache_shape(cfg, b, s, n_inv), spec.kv, mesh, x.device))
         for i in range(n_inv):
             for j in range(period):
                 y, tail, final = M.mamba_sequence(_mamba(params, i, j), x, cfg, policy)
                 x = x + y
-                tails.append(tail)
-                states.append(final)
+                write_rows(cache.ssm.conv, 0, i * period + j, tail[None])
+                write_rows(cache.ssm.state, 0, i * period + j, final[None])
+                del y, tail, final  # else they live on through the next layer
             inv_norm, inv_lora = _invocation(params, i)
-            x, (k, v) = _shared_attn_apply(params, inv_norm, x, cfg, q_pos,
-                                           inv_lora=inv_lora, policy=policy)
-            ks.append(k)
-            vs.append(v)
+            x, kv = _shared_attn_apply(params, inv_norm, x, cfg, q_pos,
+                                       inv_lora=inv_lora, policy=policy)
+            for buf, t in zip((cache.kv.k, cache.kv.v), kv):
+                L.write_cache_layer(buf, i, t, cfg.n_kv_heads)
+            del kv, t
         x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         logits = L.unembed(params["embed"], x, cfg, policy)
-        cache = HybridCache(
-            ssm=SSMCache(conv=torch.stack(tails), state=torch.stack(states)),
-            kv=KVCache(k=torch.stack(ks), v=torch.stack(vs)),
-        )
         return logits[:, 0], cache
 
 

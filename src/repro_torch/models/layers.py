@@ -205,21 +205,53 @@ def expand_heads(t: Any, dim: int, q: Any) -> Any:
     )(t)
 
 
-def collapse_heads(t: Any, hk: int) -> Any:
+def collapse_heads(t: Any, hk: int, dest: Sequence[Any]) -> Any:
     """The Hk KV heads of ``t`` (B, S, E, Dh), which :func:`expand_heads`
-    laid out with E heads, as the cache holds them (gathered over the
-    ranks that split the E heads); ``t`` itself where it has Hk heads."""
+    laid out with E heads, as the cache holds them; ``t`` itself where it
+    has Hk heads.
+
+    Each mesh dimension that splits the E heads splits the sequence
+    instead where ``dest`` (the placements of one layer of the cache,
+    (B, T, Hk, Dh)) splits it and S divides: one all-to-all, after which a
+    rank holds all heads of its own positions and keeps every (E / Hk)-th.
+    Elsewhere it is gathered: every rank then holds the layer's K or V
+    over the whole sequence."""
     e = t.shape[2]
     if e == hk:
         return t
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    pls = [Replicate() if pl.is_shard(2) else pl for pl in t.placements]
+    mesh = t.device_mesh
+    pls, ways = [], 1
+    for mdim, (pl, d) in enumerate(zip(t.placements, dest)):
+        if not pl.is_shard(2):
+            pls.append(pl)
+        elif d == Shard(1) and t.shape[1] % (ways * mesh.size(mdim)) == 0:
+            ways *= mesh.size(mdim)
+            pls.append(Shard(1))
+        else:
+            pls.append(Replicate())
     return local_map(
         lambda a: a[:, :, ::e // hk].contiguous(), out_placements=pls, in_placements=(pls,),
-        device_mesh=t.device_mesh, redistribute_inputs=True,
+        device_mesh=mesh, redistribute_inputs=True,
     )(t)
+
+
+def write_cache_layer(buf: Any, i: int, t: Any, hk: int, start: int = 0) -> None:
+    """Layer ``i`` of the KV cache ``buf`` (L, B, T, Hk, Dh), in place, from
+    a prefill's K or V ``t`` (B, S, E, Dh) as the attention read it: its
+    positions go to slots ``start``, ``start + 1``, ... wrapping past T (a
+    sliding window's ring).  On a mesh ``t`` is moved straight into the
+    layer's own shards (:func:`collapse_heads` to its layout), so no rank
+    holds more than this one layer's K or V whole."""
+    layer = buf[i]
+    if is_dtensor(layer):
+        t = collapse_heads(t, hk, layer.placements)
+    if start == 0 and t.shape[1] == buf.shape[2]:
+        write_rows(buf, 0, i, t[None])  # in the layer's layout: each rank copies its shard
+    else:
+        write_rows(layer, 1, start, t)
 
 
 def spec_attention(policy: ShardingPolicy) -> Params:

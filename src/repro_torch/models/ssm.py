@@ -33,14 +33,15 @@ import torch.nn.functional as F
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.cache import SSMCache
+from repro_torch.models.cache import SSMCache, prefill_cache, ssm_cache_shape, ssm_cache_spec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     draw_stacked, layer_params, num_stacked, stacked_specs, token_ids,
 )
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
 from repro_torch.sharding.utils import (
-    column_einsum, gather_fsdp, gathered_einsum, mesh_pad, on_mesh, row_einsum, write_rows,
+    column_einsum, gather_fsdp, gathered_einsum, mesh_of, mesh_pad, on_mesh, row_einsum,
+    write_rows,
 )
 
 Params = Dict[str, Any]
@@ -149,7 +150,8 @@ def causal_conv(u: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     w = kernel.shape[0]
     pad = mesh_pad(u, (0, 0, w - 1, 0))
     s = u.shape[1]
-    out = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
+    # In u's own layout (on a mesh its own rows), as the reference's zeros_like.
+    out = torch.zeros_like(u, dtype=torch.float32)
     for i in range(w):
         out = out + kernel[i].float() * pad[:, i : i + s].float()
     return out.to(u.dtype)
@@ -261,19 +263,22 @@ def _gate_out(lp: Params, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
 
 def mamba_sequence(
     lp: Params, x: torch.Tensor, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    keep_tail: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """One Mamba2 block over a full sequence (residual outside).
 
     Returns (output, conv tail (B, W-1, conv_dim), final SSD state
     (B, H, P, N)): the reference's ``mamba_block`` without a cache and the
-    cache derivation of its ``prefill`` bodies, in one pass.  The SSD goes
-    through :func:`repro_torch.kernels.ops.ssd_scan`.
+    cache derivation of its ``prefill`` bodies, in one pass.  The tail is a
+    copy of the conv input's last rows (None without ``keep_tail``), so the
+    whole conv input is freed with the layer.  The SSD goes through
+    :func:`repro_torch.kernels.ops.ssd_scan`.
     """
     lp = gather_fsdp(lp, policy)
     u = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
     z, xin, b_in, c_in, dt_raw = _in_proj(lp, u)
     conv_in = torch.cat([xin, b_in, c_in], dim=-1)  # (B,S,di+2N)
-    tail = conv_in[:, -(cfg.ssm_conv_width - 1):, :]
+    tail = conv_in[:, -(cfg.ssm_conv_width - 1):, :].clone() if keep_tail else None
     conv_out = F.silu(causal_conv(conv_in, lp["conv"]).float()).to(conv_in.dtype)
     xh, dt, a, b_ssd, c_ssd = _ssd_inputs(lp, conv_out, dt_raw, cfg)
     xh = shard_act(xh, policy, "batch", None, "model", None)
@@ -296,7 +301,7 @@ def mamba_block(
     (conv_cache, ssd_state).
     """
     if cache is None:
-        out, _tail, _final = mamba_sequence(params, x, cfg, policy)
+        out, _tail, _final = mamba_sequence(params, x, cfg, policy, keep_tail=False)
         return out, None
     if x.shape[1] != 1:
         raise ValueError(f"a Mamba2 decode step takes one token, got {x.shape[1]}")
@@ -364,19 +369,35 @@ def forward(
 def prefill(
     params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, SSMCache]:
-    """Prompt pass returning final logits + SSM state caches per layer."""
+    """Prompt pass returning final logits + SSM state caches per layer: the
+    cache is allocated once (on a mesh in ``ssm_cache_spec``'s layout) and
+    each layer's conv tail and SSD state written into it as it finishes."""
     with on_mesh(params):
         tokens = token_ids(tokens, params, policy)
         x = L.embed_tokens(params["embed"], tokens, cfg, policy)
-        tails, states = [], []
-        for i in range(num_stacked(params["layers"])):
+        n = num_stacked(params["layers"])
+        cache = prefill_ssm_cache(cfg, tokens.shape, n, mesh_of(params), policy, x.device)
+        for i in range(n):
             y, tail, final = mamba_sequence(layer_params(params["layers"], i), x, cfg, policy)
             x = x + y
-            tails.append(tail)
-            states.append(final)
+            write_rows(cache.conv, 0, i, tail[None])
+            write_rows(cache.state, 0, i, final[None])
+            del y, tail, final  # else they live on through the next layer
         x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         logits = L.unembed(params["embed"], x, cfg, policy)
-        return logits[:, 0], SSMCache(conv=torch.stack(tails), state=torch.stack(states))
+        return logits[:, 0], cache
+
+
+def prefill_ssm_cache(cfg: ModelConfig, token_shape: Tuple[int, int], layers: int, mesh: Any,
+                      policy: ShardingPolicy, device: torch.device) -> SSMCache:
+    """The SSM cache of a prefill over tokens of ``token_shape`` (B, S),
+    allocated once for ``layers`` Mamba2 layers (on ``mesh``, if any, in
+    ``ssm_cache_spec``'s layout): a prompt shorter than W - 1 keeps S conv
+    rows, as the reference's tail slice does."""
+    b, s = token_shape
+    shapes = ssm_cache_shape(cfg, b, layers)
+    shapes.conv = shapes.conv[:, :, :min(s, cfg.ssm_conv_width - 1)]
+    return prefill_cache(shapes, ssm_cache_spec(cfg, policy), mesh, device)
 
 
 def decode_step(

@@ -38,7 +38,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.cache import KVCache, kv_cache_spec
+from repro_torch.models.cache import KVCache, kv_cache_shape, kv_cache_spec, prefill_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import init_moe_mlp, moe_mlp, spec_moe_mlp
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
@@ -183,8 +183,10 @@ def _layer_apply(
     policy: ShardingPolicy = TP_POLICY,
 ):
     """One pre-norm decoder layer.  Returns (x, new_kv, aux): with
-    ``return_kv`` (prefill) the fresh K/V for the cache, with ``kv`` the
-    cache written in place by the decode token."""
+    ``return_kv`` (prefill) the fresh K/V for the cache, as the attention
+    read them (on a mesh :func:`~repro_torch.models.layers.project_kv`'s
+    layout, which :func:`~repro_torch.models.layers.write_cache_layer`
+    takes), with ``kv`` the cache written in place by the decode token."""
     _check_family(cfg)
     lp = gather_fsdp(lp, policy)
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
@@ -199,7 +201,7 @@ def _layer_apply(
             q, k, v, causal=True, window=cfg.sliding_window
         )
         attn_out = L.out_proj(lp["attn"], attn_out, policy)
-        new_kv = (L.collapse_heads(k, cfg.n_kv_heads), L.collapse_heads(v, cfg.n_kv_heads))
+        new_kv = (k, v)
     else:
         attn_out, new_kv = L.attention_block(
             lp["attn"], h, cfg, q_pos, kv_cache=kv, cache_len=cache_len, policy=policy,
@@ -269,41 +271,40 @@ def hidden_states(
         return x
 
 
-def _ring(t: torch.Tensor, shift: int) -> torch.Tensor:
-    """``torch.roll(t, shift, dims=2)`` as a concatenation of two slices,
-    which DTensor takes on torch 2.11 (it has no rule for ``roll``)."""
-    w = t.shape[2]
-    return torch.cat([t[:, :, w - shift:], t[:, :, :w - shift]], dim=2)
-
-
 def prefill(
     params: Params, tokens: Any, cfg: ModelConfig, policy: ShardingPolicy = TP_POLICY,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """Process a full prompt; return last-position logits + KV cache."""
+    """Process a full prompt; return last-position logits + KV cache.
+
+    The cache is allocated once, on a mesh in ``kv_cache_spec``'s layout,
+    and each layer's K/V are written into it as the layer finishes.
+    Sliding-window configs keep only the trailing window, laid out as a
+    ring buffer (slot = position % window) to match ``decode_step``."""
     with on_mesh(params):
         tokens = token_ids(tokens, params, policy)
-        s = tokens.shape[1]
+        b, s = tokens.shape
         x = L.embed_tokens(params["embed"], tokens, cfg, policy)
         q_pos = _positions(s, x.device)
-        ks, vs = [], []
+        n = num_stacked(params["layers"])
+        cache = prefill_cache(kv_cache_shape(cfg, b, s, n), kv_cache_spec(cfg, policy),
+                              mesh_of(params), x.device)
+        w = cfg.sliding_window
+        ring = w is not None and s > w
 
         def body(lp: Params, x: torch.Tensor):
             x, kv, _ = _layer_apply(lp, x, cfg, q_pos, return_kv=True, policy=policy)
             return x, kv
 
-        for i in range(num_stacked(params["layers"])):
-            x, (k, v) = L.remat(cfg, body, layer_params(params["layers"], i), x)
-            ks.append(k)
-            vs.append(v)
+        for i in range(n):
+            x, kv = L.remat(cfg, body, layer_params(params["layers"], i), x)
+            for buf, t in zip((cache.k, cache.v), kv):
+                # The attention holds the sequence whole: the window is a local slice.
+                L.write_cache_layer(buf, i, t[:, s - w:] if ring else t, cfg.n_kv_heads,
+                                    s % w if ring else 0)
+            del kv, t  # else they live on through the next layer
         x = L.rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
         logits = L.unembed(params["embed"], x, cfg, policy)
-        k_all, v_all = torch.stack(ks), torch.stack(vs)
-        # Sliding-window configs keep only the trailing window slots, laid out
-        # as a ring buffer (slot = position % window) to match decode_step.
-        if cfg.sliding_window is not None and s > cfg.sliding_window:
-            w = cfg.sliding_window
-            k_all, v_all = (_ring(t[:, :, -w:], s % w) for t in (k_all, v_all))
-        return logits[:, 0], KVCache(k=k_all, v=v_all)
+        return logits[:, 0], cache
 
 
 def decode_step(

@@ -56,7 +56,8 @@ from repro_torch.core.types import (
     ExecutionStats, HardwareModel, TPU_V5E, TaskGateRecord,
 )
 from repro_torch.models.cache import (
-    EncDecCache, HybridCache, KVCache, SSMCache, cache_leaves, place_cache, zeros_like_spec,
+    EncDecCache, HybridCache, KVCache, SSMCache, cache_leaves, place_cache, shape_of,
+    zeros_like_spec,
 )
 from repro_torch.models.registry import ModelApi
 from repro_torch.serving.batching import (
@@ -1010,24 +1011,27 @@ def greedy(logits: Any) -> torch.Tensor:
 
 def _grow_kv(kv: KVCache, total: int, spec: Optional[KVCache] = None,
              mesh: Any = None) -> KVCache:
-    """Pad a KV cache's T axis out to ``total`` slots (zeros).  On a mesh
-    the grown cache is allocated shard by shard in ``spec``'s layout and
-    the prefill's slots are written into it on each rank's shards."""
+    """Pad a KV cache's T axis out to ``total`` slots (zeros); a cache that
+    holds them already comes back as it is.  On a mesh the grown cache is
+    allocated shard by shard in ``spec``'s layout and the prefill's slots
+    are written into it on each rank's shards, a layer at a time (where the
+    sequence is sharded, a rank gathers one layer's prefill slots, never
+    the whole cache's)."""
     t = kv.k.shape[2]
+    if t >= total:
+        return kv  # a prefill's cache is already in its spec's layout
     if mesh is None:
-        if t >= total:
-            return kv
         pad = (0, 0, 0, 0, 0, total - t)  # (L, B, T, Hk, Dh): grow T only
         return KVCache(
             k=torch.nn.functional.pad(kv.k, pad), v=torch.nn.functional.pad(kv.v, pad)
         )
     n_layers, b, _, hk, dh = kv.k.shape
-    shape = (n_layers, b, max(t, total), hk, dh)
-    grown = zeros_like_spec(
-        KVCache(k=torch.empty(shape, dtype=kv.k.dtype, device="meta"),
-                v=torch.empty(shape, dtype=kv.v.dtype, device="meta")), spec, mesh)
-    write_rows(grown.k, 2, 0, kv.k)
-    write_rows(grown.v, 2, 0, kv.v)
+    shape = (n_layers, b, total, hk, dh)
+    grown = zeros_like_spec(KVCache(k=shape_of(shape, kv.k.dtype), v=shape_of(shape, kv.v.dtype)),
+                            spec, mesh, kv.k.device)
+    for i in range(n_layers):
+        write_rows(grown.k[i], 1, 0, kv.k[i])
+        write_rows(grown.v[i], 1, 0, kv.v[i])
     return grown
 
 

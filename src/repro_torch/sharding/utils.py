@@ -199,30 +199,39 @@ def local_extent(shape: Sequence[int], pls: Sequence[Any], mesh: Any) -> List[Tu
 
 def write_rows(buf: Any, dim: int, start: int, values: Any) -> None:
     """``buf.narrow(dim, start, n).copy_(values)``, in place, for a plain
-    tensor or a ``DTensor`` ``buf``.
+    tensor or a ``DTensor`` ``buf``; rows past the end of ``dim`` wrap to
+    its start, as slots of a ring buffer do (``n`` at most ``dim``'s size).
 
     On a mesh the write is made on the local shards and ``buf`` keeps its
     layout: ``values`` is first brought to ``buf``'s placements with
-    dimension ``dim`` whole, then each rank writes the rows of
-    ``[start, start + n)`` that fall in its own slice of ``dim`` — where
-    ``dim`` is sharded (a sequence-sharded cache) only the rank holding a
-    slot writes it.
+    dimension ``dim`` whole (already so, nothing moves), then each rank
+    writes the rows of ``[start, start + n)`` that fall in its own slice of
+    ``dim`` — where ``dim`` is sharded (a sequence-sharded cache) only the
+    rank holding a slot writes it.
     """
     from torch.distributed.tensor import DTensor, Replicate
 
+    n, size = values.shape[dim], buf.shape[dim]
+    # (first row of buf, first row of values, rows): the part before the
+    # end of dim, then the part that wraps.
+    pieces = [(start, 0, min(n, size - start))]
+    if start + n > size:
+        pieces.append((0, size - start, start + n - size))
     if not isinstance(buf, DTensor):
-        buf.narrow(dim, start, values.shape[dim]).copy_(values)
+        for at, src, rows in pieces:
+            buf.narrow(dim, at, rows).copy_(values.narrow(dim, src, rows))
         return
     mesh, pls = buf.device_mesh, buf.placements
     whole = [Replicate() if pl.is_shard(dim) else pl for pl in pls]
     if not isinstance(values, DTensor):
         values = DTensor.from_local(values, mesh, [Replicate()] * mesh.ndim, run_check=False)
     vals = values.redistribute(mesh, whole).to_local()
-    n = values.shape[dim]
-    off, size = local_extent(buf.shape, pls, mesh)[dim]
-    lo, hi = max(start, off), min(start + n, off + size)
-    if lo < hi:
-        buf.to_local().narrow(dim, lo - off, hi - lo).copy_(vals.narrow(dim, lo - start, hi - lo))
+    off, local = local_extent(buf.shape, pls, mesh)[dim]
+    for at, src, rows in pieces:
+        lo, hi = max(at, off), min(at + rows, off + local)
+        if lo < hi:
+            buf.to_local().narrow(dim, lo - off, hi - lo).copy_(
+                vals.narrow(dim, src + lo - at, hi - lo))
 
 
 def place_batch(x: Any, policy: Any, mesh: Any) -> Any:

@@ -25,8 +25,10 @@ The contract:
   the port's one-device server's, on both meshes, for the dense, MoE
   (``expert_tp`` and ``fsdp_expert`` included), SSM, hybrid and enc-dec
   families; prefill logits within ``rtol=atol=1e-5``;
-* the grown cache is in ``cache_spec(policy)``'s fitted layout and keeps
-  it through a decode step;
+* a prefill's cache comes back in ``cache_spec(policy)``'s layout fitted
+  to the prompt (granite-34b's MQA cache and mistral's on (2, 4) shard the
+  sequence), the grown cache is in its fitted layout and keeps it through
+  a decode step;
 * ``ContinuousBatcher`` tokens on mistral ``tp`` equal the reference's
   batcher's;
 * each rank's collective kinds and bytes for one prefill and one decode
@@ -148,6 +150,8 @@ def _w_serve(ctx, arch, policy_name, mesh):
         with CollectiveRecorder() as rec_prefill:
             logits, cache = model.prefill(mp, batch, policy)
         logits = logits.full_tensor().numpy()
+        prefilled = _layout(cache)
+        prefill_spec = _spec_layout(model, cache, policy, mesh)
         cache = _grow_cache(model, cache, s0 + STEPS, s0, policy)
         grown = _layout(cache)
         want = _spec_layout(model, cache, policy, mesh)
@@ -157,6 +161,7 @@ def _w_serve(ctx, arch, policy_name, mesh):
         kept = _layout(cache)
     return {"tokens": tokens, "off_tokens": off_tokens, "logits": logits,
             "off_logits": off_logits, "grown": grown, "spec_layout": want, "kept": kept,
+            "prefilled": prefilled, "prefill_spec": prefill_spec,
             "collectives": {"prefill": (rec_prefill.breakdown(), rec_prefill.counts),
                             "decode": (rec_decode.breakdown(), rec_decode.counts)}}
 
@@ -379,6 +384,28 @@ def test_cache_keeps_the_spec_layout(world, arch, policy, mesh_name):
     got = _scenario(world, f"{mesh_name}/{arch}/{policy}")
     assert got["grown"] == got["spec_layout"]
     assert got["kept"] == got["spec_layout"]
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch,policy", SERVE_CASES, ids=[f"{a}-{p}" for a, p in SERVE_CASES])
+def test_prefill_cache_comes_back_in_the_spec_layout(world, arch, policy, mesh_name):
+    """A prefill writes its cache straight into ``cache_spec(policy)``'s
+    layout, fitted to the prompt's length: nothing is regathered."""
+    got = _scenario(world, f"{mesh_name}/{arch}/{policy}")
+    assert got["prefilled"] == got["prefill_spec"]
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", ["granite-34b", "mistral-nemo-12b"])
+def test_prefill_cache_shards_the_sequence_where_heads_do_not_divide(world, arch, mesh_name):
+    """granite-34b's one KV head divides neither model axis, mistral's two
+    not the 4-way one: there each rank's prefill cache holds its own
+    positions of every layer (``Shard(2)`` of (L, B, T, Hk, Dh)), not the
+    whole sequence."""
+    got = _scenario(world, f"{mesh_name}/{arch}/tp")["prefilled"]
+    split = arch == "granite-34b" or MESHES[mesh_name][1] == 4
+    want = "(Shard(dim=1), Shard(dim=2))" if split else "(Shard(dim=1), Shard(dim=3))"
+    assert got[:2] == [want, want]
 
 
 def test_gqa_cache_shards_the_sequence_where_heads_do_not_divide(world):

@@ -5,18 +5,24 @@ The port's step on a mesh is counted per rank on ``meta`` tensors
 
 * at smoke width on a (2, 4) ``(data, model)`` world of 8 ranks, for
   mistral-nemo-12b (8 query heads over 2 KV heads: ranks share a KV
-  head), granite-34b (MQA), chameleon-34b, mamba2-780m, whisper-medium
-  and qwen2-moe-a2.7b at a train and a prefill shape, one rank's FLOPs
-  times 8 are at most 1.10 times the same step's FLOPs in a world of one
-  on a (1, 1) mesh; and in the train step no rank allocates a tensor of the
-  logits' shape wider than its own rows and its own slice of the
-  vocabulary, (B / data) S (V / model) fp32 elements at most, nor any
-  tensor with the whole vocabulary as its last dimension;
+  head), granite-34b (MQA), chameleon-34b, mamba2-780m, whisper-medium,
+  qwen2-moe-a2.7b and zamba2-2.7b at a train and a prefill shape, one
+  rank's FLOPs times 8 are at most 1.10 times the same step's FLOPs in a
+  world of one on a (1, 1) mesh; in the train step no rank allocates a
+  tensor of the logits' shape wider than its own rows and its own slice of
+  the vocabulary, (B / data) S (V / model) fp32 elements at most, nor any
+  tensor with the whole vocabulary as its last dimension; and in the
+  prefill no single allocation on a rank is larger than its share (over
+  ``data``) of the world of one's largest, and doubling the depth raises a
+  rank's peak by no more than its shards of the added layers' cache in
+  ``cache_spec``'s layout;
 * at full scale on the 16 x 16 production mesh (rank 0 of 256), the dry
-  run's ``hlo_flops`` of mistral-nemo-12b ``train_4k`` and granite-34b
-  ``prefill_32k`` are at most 1.10 times the larger of the world-of-one
-  count and the reference's ``hlo_flops`` (``repro.launch.dryrun``, 512
-  forced host devices, under the same policy);
+  run's ``hlo_flops`` of mistral-nemo-12b ``train_4k`` and ``prefill_32k``,
+  granite-34b, mamba2-780m and zamba2-2.7b ``prefill_32k`` are at most
+  1.10 times the larger of the world-of-one count and the reference's
+  ``hlo_flops`` (``repro.launch.dryrun``, 512 forced host devices, under
+  the same policy), and each prefill's peak a rank at most 1.5 times the
+  reference's ``peak_memory_per_device``;
 * a head split that would hand a rank query heads of two KV groups without
   the whole of either raises ``ValueError``.
 
@@ -24,6 +30,7 @@ The fake worlds run in one child process, this file run as a script
 (``python tests/test_torch_mesh_work.py OUT``; no JAX, no reference
 package); the reference's dry runs in another, started beside it.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -38,12 +45,18 @@ ROOT = Path(__file__).resolve().parents[1]
 WORLD_SECONDS = 300
 MESH = (2, 4)
 ARCHS = ("mistral-nemo-12b", "granite-34b", "chameleon-34b", "mamba2-780m", "whisper-medium",
-         "qwen2-moe-a2.7b")
+         "qwen2-moe-a2.7b", "zamba2-2.7b")
 SHAPES = {"train": ("t", 64, 8, "train"), "prefill": ("p", 64, 8, "prefill")}
 SLACK = 1.10
 #: Full-scale pairs, and whether the world-of-one count is taken too (the
-#: reference's count alone bounds granite-34b's prefill).
-FULL = {("mistral-nemo-12b", "train_4k"): True, ("granite-34b", "prefill_32k"): False}
+#: reference's count alone bounds the prefills).
+FULL = {("mistral-nemo-12b", "train_4k"): True, ("granite-34b", "prefill_32k"): False,
+        ("mamba2-780m", "prefill_32k"): False, ("mistral-nemo-12b", "prefill_32k"): False,
+        ("zamba2-2.7b", "prefill_32k"): False}
+#: A rank's peak at full scale at most this many times the reference's
+#: ``peak_memory_per_device`` (the prefill pairs of ``FULL``).
+PEAK_SLACK = 1.5
+PREFILL_PEAKS = [pair for pair in FULL if pair[1].startswith("prefill")]
 STRADDLE = (24, 6)  # Hq, Hk: 6 query heads a rank over groups of 4
 
 
@@ -60,12 +73,16 @@ def _watch(vocab_local: int, vocab: int):
 
     class Watch(op_cost.OpCounter):
         largest = 0
+        biggest = 0  # the largest single allocation of any shape
         full_vocab: list = []
 
         def _track(self, ins, out):
             shared = {op_cost._storage_key(t) for t in ins}
             for t in tree_leaves(out):
-                if t.dim() != 3 or op_cost._storage_key(t) in shared:
+                if op_cost._storage_key(t) in shared:
+                    continue
+                self.biggest = max(self.biggest, t.untyped_storage().nbytes())
+                if t.dim() != 3:
                     continue
                 if t.shape[-1] == vocab_local:
                     self.largest = max(self.largest, t.untyped_storage().nbytes())
@@ -76,12 +93,35 @@ def _watch(vocab_local: int, vocab: int):
     return Watch()
 
 
+def _cache_share(plan, cache) -> int:
+    """The bytes of a rank's shards of a prefill's ``cache`` laid out by the
+    model's ``cache_spec`` (fitted to each tensor's shape)."""
+    from repro_torch.models.cache import cache_leaves, map_cache
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.utils import fit_spec, local_extent, placements
+
+    mesh = cache_leaves(cache)[0].device_mesh
+
+    def share(t, sp):
+        pls = placements(fit_spec(tuple(t.shape), sp, mesh), mesh)
+        n = 1
+        for _, size in local_extent(t.shape, pls, mesh):
+            n *= size
+        return n * t.element_size()
+
+    return sum(cache_leaves(map_cache(share, cache, get_model(plan.cfg).cache_spec(plan.policy))))
+
+
 def _count(plan, vocab_local: int, vocab: int) -> dict:
     counter = _watch(vocab_local, vocab)
     with counter:
-        plan.step_fn(*plan.args)
-    return {"flops": counter.flops, "largest": counter.largest,
-            "full_vocab": counter.full_vocab}
+        out = plan.step_fn(*plan.args)
+    row = {"flops": counter.flops, "largest": counter.largest,
+           "full_vocab": counter.full_vocab, "peak": counter.peak_bytes,
+           "biggest": counter.biggest}
+    if plan.kind == "prefill":
+        row["cache_share"] = _cache_share(plan, out[1])
+    return row
 
 
 def _child(out_dir: str) -> None:
@@ -108,6 +148,11 @@ def _child(out_dir: str) -> None:
                         plan = make_plan(cfg, InputShape(*sh), mesh, "tp")
                         out[key][f"{arch}/{kind}"] = _count(
                             plan, cfg.vocab_size // model_ways, cfg.vocab_size)
+                    if key == "mesh":  # the prefill again at twice the depth
+                        deep = dataclasses.replace(cfg, num_layers=2 * cfg.num_layers)
+                        plan = make_plan(deep, InputShape(*SHAPES["prefill"]), mesh, "tp")
+                        out[key][f"{arch}/prefill/deep"] = _count(
+                            plan, cfg.vocab_size // model_ways, cfg.vocab_size)
                 if key == "mesh":
                     hq, hk = STRADDLE
                     q = DTensor.from_local(torch.empty((4, 1, hq // 4, 2), device="meta"), mesh,
@@ -122,7 +167,8 @@ def _child(out_dir: str) -> None:
         t0 = time.perf_counter()
         res = run_one(arch, shape, "single", "tp", None, verbose=False)
         row = {"status": res["status"], "error": res.get("error"),
-               "hlo_flops": res.get("hlo_flops"), "one": None}
+               "hlo_flops": res.get("hlo_flops"), "one": None,
+               "peak": res.get("peak_memory_per_device")}
         if one:
             with fake_world(1):
                 mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
@@ -143,6 +189,7 @@ out = {}
 for arch, shape in json.loads(sys.argv[2]):
     res = run_one(arch, shape, "single", "tp", None, verbose=False)
     out[arch + "/" + shape] = {"status": res["status"], "hlo_flops": res.get("hlo_flops"),
+                               "peak": res.get("peak_memory_per_device"),
                                "error": res.get("error")}
 json.dump(out, open(sys.argv[1], "w"))
 """
@@ -217,6 +264,30 @@ def test_full_scale_flops_within_the_reference(work, arch, shape):
     assert ref["status"] == "ok", ref["error"]
     cap = max(ref["hlo_flops"], port["one"] or 0.0)
     assert port["hlo_flops"] <= SLACK * cap, (port["hlo_flops"] / cap, port, ref)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_holds_only_its_share(work, arch):
+    """A prefill on the (2, 4) world: no single allocation on a rank is
+    larger than its share of the largest one in the world of one (every
+    activation splits its batch over ``data`` at least), and doubling the
+    depth raises a rank's peak by no more than its shards of the added
+    layers' cache (the cache is allocated once in its layout; each layer's
+    conv input, K and V are freed with the layer)."""
+    rank, deep = work["mesh"][f"{arch}/prefill"], work["mesh"][f"{arch}/prefill/deep"]
+    share = work["one"][f"{arch}/prefill"]["biggest"] // MESH[0]
+    assert 0 < rank["biggest"] <= share, (rank["biggest"], share)
+    grown, cache = deep["peak"] - rank["peak"], deep["cache_share"] - rank["cache_share"]
+    assert 0 < cache and grown <= cache, (grown, cache)
+
+
+@pytest.mark.parametrize("arch,shape", PREFILL_PEAKS)
+def test_full_scale_prefill_peak_within_the_reference(work, arch, shape):
+    key = f"{arch}/{shape}"
+    port, ref = work["full"][key], work["ref"][key]
+    assert port["status"] == "ok", port["error"]
+    assert ref["status"] == "ok", ref["error"]
+    assert 0 < port["peak"] <= PEAK_SLACK * ref["peak"], (port["peak"] / ref["peak"], port, ref)
 
 
 def test_a_straddling_head_split_raises(work):

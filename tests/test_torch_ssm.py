@@ -181,6 +181,33 @@ def test_causal_conv_and_step_match_reference():
     _close(new, rnew, dict(rtol=0, atol=0))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_conv_is_bit_equal_to_reference(dtype):
+    """The conv sums its four taps in fp32 in the reference's order from a
+    zero accumulator in the input's own layout: the same bits as the
+    reference's eager ``causal_conv``."""
+    rng = np.random.default_rng(7)
+    u = rng.standard_normal((3, 37, 40)).astype(np.float32)
+    kernel = rng.standard_normal((4, 40)).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    out = p_ssm.causal_conv(torch.as_tensor(u).to(tdt), torch.as_tensor(kernel).to(tdt))
+    ref = r_ssm.causal_conv(jnp.asarray(u).astype(jdt), jnp.asarray(kernel).astype(jdt))
+    assert out.dtype == tdt
+    assert torch.equal(out, torch.as_tensor(np.asarray(ref.astype(jnp.float32))).to(tdt))
+
+
+def test_conv_tail_is_a_copy_of_its_rows():
+    """``mamba_sequence``'s conv tail owns storage of its own size, so no
+    view keeps a layer's whole (B, S, conv_dim) conv input alive."""
+    _rcfg, pcfg, _rp, pp = _model("mamba2-780m")
+    x = np.random.default_rng(3).standard_normal((2, 40, pcfg.d_model)).astype(np.float32)
+    _out, tail, _final = p_ssm.mamba_sequence(layer_params(pp["layers"], 0),
+                                              torch.as_tensor(x), pcfg)
+    assert tail.shape == (2, pcfg.ssm_conv_width - 1, pcfg.ssm_d_inner + 2 * pcfg.ssm_state)
+    assert tail._base is None and tail.is_contiguous()
+    assert tail.untyped_storage().nbytes() == tail.numel() * tail.element_size()
+
+
 @pytest.mark.parametrize("s", [40, 64])
 def test_mamba_block_matches_reference(s):
     """The full-sequence block (SSD through ``ops.ssd_scan``), its prefill
