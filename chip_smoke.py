@@ -107,13 +107,16 @@
    Vanilla, counters equal the prediction, the LM generates its tokens);
    and Pearson's guard: under grad on the card it raises.  Then the launch
    analysis (``dryrun_phase``): ``python -m repro_torch.launch.dryrun`` on
-   mistral-nemo-12b ``train_4k``, mixtral-8x22b ``prefill_32k`` and
-   mamba2-780m ``train_4k`` at full width and depth, on meta tensors in a
+   mistral-nemo-12b ``train_4k`` and ``decode_32k``, mixtral-8x22b
+   ``prefill_32k``, mamba2-780m ``train_4k`` and ``prefill_32k`` and
+   zamba2-2.7b ``long_500k`` at full width and depth, on meta tensors in a
    fake world of 256 ranks (a 16 x 16 mesh), one subprocess each (status
    ok, FLOPs, bytes and collective bytes positive, model FLOPs the
    estimate's, each kernel counted as often as the step launches it, and
    the FLOPs of the 256 ranks at most 1.10 times the same plan counted in a
-   world of one: each rank does only its share); and
+   world of one: each rank does only its share; mamba2's prefill peak and
+   the two decodes' and mamba2's train collective bytes a rank at most 1.5
+   times the reference's); and
    one more step of the mistral (8 layers) and mamba2 training above counted
    by ``analyze_step`` on the card and on meta (equal FLOPs, bytes within
    2 %, each launch counted once by its formula, ``roofline_share`` of the
@@ -152,9 +155,11 @@
    8 gloo ranks on the CPU, one subprocess each, on a (2, 4) ("data",
    "model") mesh, where mistral's and granite-34b's query heads split over
    ranks that share a KV head: a smoke mistral-nemo-12b and a smoke
-   mamba2-780m train step (loss and every gradient leaf) and a smoke
-   granite-34b prefill (logits) against the same code off the mesh; prints
-   the ``gloo_mesh`` line.
+   mamba2-780m train step (loss and every gradient leaf), a smoke
+   granite-34b prefill (logits) and two ``LMServer.generate`` runs — a
+   smoke mistral-nemo-12b over its sequence-split cache and a batch-1 smoke
+   zamba2-2.7b (tokens) — against the same code off the mesh; prints the
+   ``gloo_mesh`` line.
 13. Prints one ``{"kernels": [...]}`` line, then the device line last.
 
 Each path runs with every launch count set to 0 just before it and read
@@ -462,7 +467,9 @@ TRAIN_MULTITASK = (40, 16, 128)
 DRYRUN_CASES = (("mistral-nemo-12b", "train_4k", "auto"),
                 ("mixtral-8x22b", "prefill_32k", "fsdp_tp"),
                 ("mamba2-780m", "train_4k", "auto"),
-                ("mamba2-780m", "prefill_32k", "auto"))
+                ("mamba2-780m", "prefill_32k", "auto"),
+                ("mistral-nemo-12b", "decode_32k", "auto"),
+                ("zamba2-2.7b", "long_500k", "auto"))
 # A prefill holds only its share of memory: the counted peak a rank at most
 # DRYRUN_PEAK_SLACK times the reference's ``peak_memory_per_device`` for
 # the same pair (the card has no JAX, so the reference's figure is a
@@ -471,10 +478,24 @@ DRYRUN_CASES = (("mistral-nemo-12b", "train_4k", "auto"),
 # --policy tp``, JAX_PLATFORMS=cpu, 512 forced host devices, jax 0.9.0).
 DRYRUN_REFERENCE_PEAK = {"mamba2-780m/prefill_32k": 4375842536.0}
 DRYRUN_PEAK_SLACK = 1.5
+# Each rank moves only its share: the counted collective bytes a rank at most
+# DRYRUN_COLL_SLACK times the reference's ``coll_bytes`` (each collective's
+# result bytes a device) for the same pair, from the same reference runs:
+# the decode over a sequence-split cache (mistral), the batch-1 decode over
+# a head-split one (zamba2) and the Mamba2 block's train step.
+DRYRUN_REFERENCE_COLL = {"mistral-nemo-12b/decode_32k": 33832960.0,
+                         "zamba2-2.7b/long_500k": 5684968.0,
+                         "mamba2-780m/train_4k": 178260632116.0}
+DRYRUN_COLL_SLACK = 1.5
 DRYRUN_SECONDS = 240
 # Each rank does its share: a dry run's FLOPs over the 256 ranks at most this
-# many times the same plan's counted in a world of one.
+# many times the same plan's counted in a world of one, or where
+# DRYRUN_REFERENCE_FLOPS has the pair the reference's ``hlo_flops`` if that
+# is larger (a decode replicates work that the world of one does once: the
+# batch-1 decode over the data axis, a sequence-split cache's query heads).
 DRYRUN_FLOPS_SLACK = 1.10
+DRYRUN_REFERENCE_FLOPS = {"mistral-nemo-12b/decode_32k": 8546984919040.0,
+                          "zamba2-2.7b/long_500k": 875797774336.0}
 DRYRUN_COUNTED_SSM = "mamba2-780m"  # train_ssm_phase counts this arch's step
 COUNT_BYTES_TOL = 0.02     # a step's counted bytes, card vs meta, relative
 ROOFLINE_SHARE_MAX = 1.05  # no count may make the card look faster than its peak
@@ -2964,12 +2985,17 @@ def dryrun_phase(smi: str, counted: dict) -> dict:
     collective bytes positive; ``model_flops`` equal to
     ``model_flops_estimate`` of the config's own parameter count; each
     kernel's counted launches those the step makes (a train step with remat:
-    the forward twice and the backward once per layer; a prefill: once);
+    the forward twice and the backward once per layer; a prefill: once; a
+    decode step: none);
     ``hlo_flops`` at most :data:`DRYRUN_FLOPS_SLACK` times the same plan's
     FLOPs counted in a world of one in the same subprocess
-    (``--world-of-one``): each rank does only its share; where
+    (``--world-of-one``), or the reference's where
+    :data:`DRYRUN_REFERENCE_FLOPS` has the pair and it is larger: each rank
+    does only its share; where
     :data:`DRYRUN_REFERENCE_PEAK` has the pair, its peak a rank at most
-    :data:`DRYRUN_PEAK_SLACK` times the reference's.
+    :data:`DRYRUN_PEAK_SLACK` times the reference's; where
+    :data:`DRYRUN_REFERENCE_COLL` has it, its collective bytes a rank at
+    most :data:`DRYRUN_COLL_SLACK` times the reference's.
     (b) ``counted``, the steps :func:`count_step` counted in the training
     phases.  Prints the ``dryrun`` line with the card's name and power
     limit."""
@@ -3010,17 +3036,17 @@ def dryrun_phase(smi: str, counted: dict) -> dict:
         check(r["n_params"] == n and r["model_flops"] == want_mf,
               f"{label}: n_params {r['n_params']} vs {n}, model_flops {r['model_flops']} vs "
               f"{want_mf}")
-        once = prefill_launches(cfg)
+        once = prefill_launches(cfg) if kind != "decode" else {}
         fwd = 2 if kind == "train" and cfg.remat else 1
         want = {k: fwd * v for k, v in once.items() if v}
         if kind == "train":
             want.update({f"{k}_bwd": v for k, v in once.items() if v})
         got = {k: v["launches"] for k, v in r["kernels"].items()}
         check(got == want, f"{label}: kernels counted {got}, the step launches {want}")
-        one = r["world_of_one"]["flops"]
+        one = max(r["world_of_one"]["flops"], DRYRUN_REFERENCE_FLOPS.get(f"{arch}/{shape}", 0.0))
         check(0 < r["hlo_flops"] <= DRYRUN_FLOPS_SLACK * one,
               f"{label}: FLOPs over 256 ranks {r['hlo_flops']}, {r['flops_factor']:.3f} times "
-              f"the world of one's {one}")
+              f"the world of one's {r['world_of_one']['flops']} (cap {one})")
         ref_peak = DRYRUN_REFERENCE_PEAK.get(f"{arch}/{shape}")
         check(ref_peak is None or 0 < r["peak_memory_per_device"] <= DRYRUN_PEAK_SLACK * ref_peak,
               f"{label}: peak a rank {r['peak_memory_per_device']} bytes, more than "
@@ -3029,9 +3055,16 @@ def dryrun_phase(smi: str, counted: dict) -> dict:
             "policy", "n_params", "trace_s", "memory", "kernels", "hlo_flops", "hlo_bytes",
             "coll_bytes", "coll_breakdown", "model_flops", "t_compute", "t_memory",
             "t_collective", "dominant", "useful_flops_ratio", "world_of_one", "flops_factor")}
+        ref_coll = DRYRUN_REFERENCE_COLL.get(f"{arch}/{shape}")
+        check(ref_coll is None or r["coll_bytes"] <= DRYRUN_COLL_SLACK * ref_coll,
+              f"{label}: collective bytes a rank {r['coll_bytes']} "
+              f"({json.dumps(r['coll_breakdown'])}), more than {DRYRUN_COLL_SLACK} times the "
+              f"reference's {ref_coll}")
         rows[f"{arch}/{shape}"]["peak_bytes"] = r["memory"]["peak_bytes"]
         if ref_peak is not None:
             rows[f"{arch}/{shape}"]["peak_over_reference"] = r["peak_memory_per_device"] / ref_peak
+        if ref_coll is not None:
+            rows[f"{arch}/{shape}"]["coll_over_reference"] = r["coll_bytes"] / ref_coll
     line = {"device": smi, "mesh": "16x16 (fake world of 256)", "cases": rows,
             "counted_steps": counted, "phase_s": time.perf_counter() - t0}
     print(json.dumps({"dryrun": line}), flush=True)
@@ -3690,12 +3723,17 @@ def lm_mesh_phase(device: torch.device, smi: str, serve=LM_MESH_SERVE,
 
 # A (2, 4) ``(data, model)`` mesh: mistral's 2 KV heads and granite-34b's one
 # do not divide the 4-way model axis, so ranks that split the query heads
-# share a KV head; mamba2 splits its SSD heads and gathers B and C.
+# share a KV head, and mistral's cache splits its sequence, which a decode
+# attends where it lies; mamba2 splits its SSD heads and gathers B and C;
+# zamba2 at batch 1 reads its cache's KV heads on the model axis.
 GLOO_RANKS = 8
 GLOO_MESH = (2, 4)
 GLOO_CASES = (("mistral-nemo-12b", "train"), ("mamba2-780m", "train"),
-              ("granite-34b", "prefill"))
+              ("granite-34b", "prefill"), ("mistral-nemo-12b", "generate"),
+              ("zamba2-2.7b", "generate"))
 GLOO_BATCH, GLOO_SEQ = 8, 64
+# ``generate`` cases: (batch, prompt length, steps) of ``LMServer.generate``.
+GLOO_GENERATE = {"mistral-nemo-12b": (GLOO_BATCH, 16, 4), "zamba2-2.7b": (1, 16, 4)}
 GLOO_SECONDS = 120        # the hard limit on the world (it takes well under 60 s)
 GLOO_LOSS_TOL = 2e-5      # the loss, relative
 GLOO_GRAD_TOL = 1e-4      # each gradient leaf, of its largest |value|
@@ -3714,6 +3752,7 @@ def gloo_rank(rank: int, workdir: str) -> int:
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.serving import LMServer
     from repro_torch.sharding.policy import TP_POLICY
     from repro_torch.sharding.utils import place_tree
     from repro_torch.training import loss_and_grads
@@ -3737,9 +3776,16 @@ def gloo_rank(rank: int, workdir: str) -> int:
                 if kind == "train":
                     loss, _, grads = loss_and_grads(model, placed, tokens, 1, TP_POLICY)
                     on = [loss] + [g.full_tensor() for g in tree_leaves(grads)]
+                elif kind == "generate":
+                    rows_, prompt_len, steps = GLOO_GENERATE[arch]
+                    prompt = tokens[:rows_, :prompt_len]
+                    on = LMServer(model, placed, TP_POLICY).generate(prompt, steps)
                 else:
                     on = [model.prefill(placed, tokens, TP_POLICY)[0].full_tensor()]
-            if kind == "train":
+            if kind == "generate":
+                want = LMServer(model, params).generate(prompt, steps)
+                row = {"batch": rows_, "tokens_equal": bool(np.array_equal(on, want))}
+            elif kind == "train":
                 loss, _, grads = loss_and_grads(model, params, tokens)
                 off = [loss] + tree_leaves(grads)
                 row = {"loss": float(off[0]),
@@ -3769,7 +3815,10 @@ def gloo_mesh_phase(smi: str) -> dict:
     mamba2-780m train step (loss within ``GLOO_LOSS_TOL``, every gradient
     leaf within ``GLOO_GRAD_TOL`` of its largest |value|) and a smoke
     granite-34b prefill (logits within ``GLOO_LOGITS_TOL``) agree with the
-    same code off the mesh.  Prints the ``gloo_mesh`` line."""
+    same code off the mesh, and so do the tokens of a smoke mistral-nemo-12b
+    ``LMServer.generate`` over its sequence-split cache and a batch-1 smoke
+    zamba2-2.7b one (:data:`GLOO_GENERATE`), equal.  Prints the
+    ``gloo_mesh`` line."""
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
@@ -3790,7 +3839,9 @@ def gloo_mesh_phase(smi: str) -> dict:
         with open(os.path.join(wd, "gloo.json")) as fh:
             rows = json.load(fh)
     for name, row in rows.items():
-        if "loss_rel_err" in row:
+        if "tokens_equal" in row:
+            check(row["tokens_equal"], f"gloo mesh {name}: tokens differ from off the mesh's")
+        elif "loss_rel_err" in row:
             check(row["loss_rel_err"] <= GLOO_LOSS_TOL and row["grad_rel_err"] <= GLOO_GRAD_TOL,
                   f"gloo mesh {name}: loss {row['loss_rel_err']:.3g}, grads "
                   f"{row['grad_rel_err']:.3g} off the mesh's")

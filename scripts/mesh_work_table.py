@@ -7,17 +7,24 @@ port's own policy (``repro_torch.launch.specs.select_policy``), this runs:
 
 * the port's dry run with ``--world-of-one`` (``python -m
   repro_torch.launch.dryrun``): ``hlo_flops`` over the 256 ranks, the same
-  plan's FLOPs counted in a world of one, and the peak bytes of a rank;
+  plan's FLOPs counted in a world of one, the peak bytes of a rank and its
+  collective bytes (``coll_bytes``, ``coll_breakdown``);
 * the reference's dry run under the same policy (``python -m
   repro.launch.dryrun --policy P``, ``JAX_PLATFORMS=cpu``, 512 forced
-  host devices): its ``hlo_flops`` and ``peak_memory_per_device``;
+  host devices): its ``hlo_flops``, ``peak_memory_per_device`` and
+  ``coll_bytes`` (each collective's result bytes a device, by kind);
 * with ``--parent SRC`` (the ``src`` of another tree, e.g. ``git archive``
   of the parent commit), that tree's dry run of the port as well.
 
-It prints a markdown table and the pairs that break either criterion:
+It prints a markdown table and the pairs that break any criterion:
 ``hlo_flops`` above 1.10 times the larger of the world-of-one count and
-the reference's, or a peak above 1.5 times the reference's (every shape).  All numbers are CPU counts on meta tensors and compiled HLO,
-not times or memory of any device.  The JSONs land under ``DIR/port``,
+the reference's, a peak above 1.5 times the reference's (every shape), or
+collective bytes a rank above 1.5 times the reference's — with both
+sides' per-kind breakdowns for each such pair.  The port's count records
+a redistribution that gloo and the fake world carry out without an
+all-to-all as an all-gather of the whole result.  All numbers are CPU
+counts on meta tensors and compiled HLO, not times or memory of any
+device.  The JSONs land under ``DIR/port``,
 ``DIR/reference`` and ``DIR/parent``; a pair already there is not run
 again.  Runs take 2-30 s each.
 """
@@ -34,6 +41,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 FLOPS_SLACK = 1.10
 PEAK_SLACK = 1.5
+COLL_SLACK = 1.5
 
 
 def pairs() -> list:
@@ -94,9 +102,10 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(args.jobs) as ex:
         rows = list(ex.map(one, todo))
     print("| pair (policy) | port before | port | world of one | reference | port / max(one, ref) "
-          "| peak GB before | peak GB | reference peak GB |")
-    print("|---|---|---|---|---|---|---|---|---|")
-    bad = []
+          "| peak GB before | peak GB | reference peak GB | coll bytes before | coll bytes "
+          "| reference coll bytes | coll / ref |")
+    print("|---|---|---|---|---|---|---|---|---|---|---|---|---|")
+    bad, kinds = [], []
     for (arch, shape, policy), row in rows:
         port, ref, parent = row["port"], row["ref"], row.get("parent", {})
         if port.get("status") != "ok" or ref.get("status") != "ok":
@@ -107,12 +116,19 @@ def main(argv=None) -> int:
         factor = port["hlo_flops"] / max(one, ref["hlo_flops"])
         peak, rpeak = port["peak_memory_per_device"], ref["peak_memory_per_device"]
         ppeak = parent.get("peak_memory_per_device")
-        if factor > FLOPS_SLACK or peak > PEAK_SLACK * rpeak:
-            bad.append((arch, shape, factor, peak / rpeak))
+        coll, rcoll = port["coll_bytes"], ref["coll_bytes"]
+        ratio = coll / rcoll if rcoll else (0.0 if coll == 0 else float("inf"))
+        if factor > FLOPS_SLACK or peak > PEAK_SLACK * rpeak or ratio > COLL_SLACK:
+            bad.append((arch, shape, factor, peak / rpeak, ratio))
+            if ratio > COLL_SLACK:
+                kinds.append((arch, shape, port["coll_breakdown"], ref["coll_breakdown"]))
         print(f"| {arch} `{shape}` ({policy}) | {_g(parent.get('hlo_flops'))} | "
               f"{port['hlo_flops']:.4g} | {one:.4g} | {ref['hlo_flops']:.4g} | {factor:.3f} | "
               f"{'—' if ppeak is None else f'{ppeak / 1e9:.2f}'} | {peak / 1e9:.2f} | "
-              f"{rpeak / 1e9:.2f} |")
+              f"{rpeak / 1e9:.2f} | {_g(parent.get('coll_bytes'))} | {coll:.4g} | {rcoll:.4g} | "
+              f"{ratio:.3f} |")
+    for arch, shape, mine, theirs in kinds:
+        print(f"{arch} {shape}: port {json.dumps(mine)}; reference {json.dumps(theirs)}")
     print(json.dumps({"pairs": len(rows), "over": bad}))
     return 1 if bad else 0
 

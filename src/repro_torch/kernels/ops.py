@@ -69,16 +69,40 @@ class MeshHeads(NamedTuple):
     narrow: Optional[Tuple[int, int]]
 
 
+def head_splits(t: Any) -> List[bool]:
+    """Per mesh dimension of ``DTensor`` ``t`` (B, S, H, ...), whether a
+    per-rank layout splits its heads there: each dimension that does not
+    shard the batch, in mesh order, where H divides the split so far times
+    its size — but none before a dimension over which ``t`` already splits
+    its heads (the policy's model axis, where a cache and the KV projection
+    split theirs), whose split would otherwise nest inside a new one."""
+    from torch.distributed.tensor import Shard
+
+    mesh, heads = t.device_mesh, t.shape[2]
+    last = max((mdim for mdim, pl in enumerate(t.placements) if pl.is_shard(2)), default=-1)
+    out, split = [], 1
+    for mdim, pl in enumerate(t.placements):
+        n = mesh.size(mdim)
+        ok = (pl != Shard(0) and n > 1 and (pl.is_shard(2) or mdim > last)
+              and heads % (split * n) == 0)
+        split *= n if ok else 1
+        out.append(ok)
+    return out
+
+
 def mesh_heads(q: Any, hk: int) -> MeshHeads:
     """The per-rank layout of attention of ``DTensor`` ``q`` over ``hk`` KV
     heads, the reference's: every mesh dimension over which ``q`` shards its
-    batch keeps it sharded (K and V alike), and every other dimension that
-    divides Hq splits the query heads.  The KV heads split with them where
-    Hk divides too; otherwise each rank holds K and V whole on that
-    dimension and reads only the KV head(s) its own query heads read (its
-    gradients come back as partial sums over the ranks sharing a KV head).
-    A split that would hand one rank query heads of two KV groups without
-    the whole of either raises ``ValueError``.
+    batch keeps it sharded (K and V alike); the query heads split where
+    :func:`head_splits` splits them — first where ``q`` already splits them
+    (where the cache and the KV projection split theirs), so a batch-1
+    decode reads the cache's KV heads where they lie.  The KV
+    heads split with the query heads where Hk divides too; otherwise each
+    rank holds K and V whole on that dimension and reads only the KV
+    head(s) its own query heads read (its gradients come back as partial
+    sums over the ranks sharing a KV head).  A split that would hand one
+    rank query heads of two KV groups without the whole of either raises
+    ``ValueError``.
     """
     from torch.distributed.tensor import Partial, Replicate, Shard
 
@@ -86,6 +110,7 @@ def mesh_heads(q: Any, hk: int) -> MeshHeads:
 
     mesh = q.device_mesh
     hq = q.shape[2]
+    heads = head_splits(q)
     qpl, kvpl, grad = [], [], []
     qsplit = ksplit = 1
     for mdim, pl in enumerate(q.placements):
@@ -94,7 +119,7 @@ def mesh_heads(q: Any, hk: int) -> MeshHeads:
             qpl.append(Shard(0))
             kvpl.append(Shard(0))
             grad.append(Shard(0))
-        elif n > 1 and hq % (qsplit * n) == 0:
+        elif heads[mdim]:
             qpl.append(Shard(2))
             if ksplit == qsplit and hk % (ksplit * n) == 0:
                 ksplit *= n
@@ -165,8 +190,9 @@ def _ssd_on_mesh(x, dt, a, b_in, c_in, chunk: int):
 
     Every mesh dimension over which ``x`` shards its batch keeps it sharded
     (x, dt, B, C and the final state split together); each other dimension
-    splits the heads of x, dt, ``a`` and the final state where they divide
-    and replicates them otherwise, with B and C (shared by every head)
+    splits the heads of x, dt, ``a`` and the final state where
+    :func:`head_splits` splits them (as :func:`mesh_heads` does) and
+    replicates them otherwise, with B and C (shared by every head)
     replicated.  Each rank scans its local rows and heads: the kernel on
     CUDA (one launch per rank, counted once in ``ssd_scan.launches``; under
     autograd ``SSDScanFunction`` and its backward kernels), the plain
@@ -184,16 +210,9 @@ def _ssd_on_mesh(x, dt, a, b_in, c_in, chunk: int):
     batch = (Shard(0), Shard(0), Replicate(), Shard(0), Partial(), Shard(0))
     heads = (Shard(2), Shard(1), Shard(0), Replicate(), Shard(0), Partial())
     whole = (Replicate(),) * 6
-    rows, split = [], 1
-    for mdim, pl in enumerate(x.placements):
-        n = mesh.size(mdim)
-        if pl == Shard(0):
-            rows.append(batch)
-        elif n > 1 and x.shape[2] % (split * n) == 0:
-            split *= n
-            rows.append(heads)
-        else:
-            rows.append(whole)
+    split = head_splits(x)
+    rows = [batch if pl == Shard(0) else heads if split[mdim] else whole
+            for mdim, pl in enumerate(x.placements)]
     xl, sl, al, bl, ga, gb = (list(c) for c in zip(*rows))
     return local_map(
         lambda *t: _ssd_scan(*t, chunk),

@@ -42,7 +42,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
 from repro_torch.sharding.utils import (
-    column_einsum, gather_fsdp, is_dtensor, local_extent, mesh_pad, row_einsum, write_rows,
+    column_einsum, gather_fsdp, is_dtensor, local_extent, mesh_pad, mesh_reduce, mesh_sum,
+    row_einsum, write_rows,
 )
 
 Params = Dict[str, Any]
@@ -111,11 +112,44 @@ def spec_rmsnorm() -> Params:
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMS norm in fp32, cast back to ``x``'s dtype."""
+    """RMS norm in fp32, cast back to ``x``'s dtype.  A ``DTensor`` whose
+    channels are split (Mamba2's gated norm over ``d_inner``) is normed per
+    rank (:func:`_rmsnorm_on_mesh`)."""
+    if is_dtensor(x) and any(pl.is_shard(x.ndim - 1) for pl in x.placements):
+        return _rmsnorm_on_mesh(params, x, eps)
     x32 = x.float()
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def _rmsnorm_on_mesh(params: Params, x: Any, eps: float) -> Any:
+    """:func:`rmsnorm` of a ``DTensor`` whose channels are split, through
+    ``local_map``: the local sum of squares is all-reduced (a (..., 1)
+    field, never the activations), then each rank scales its own channels.
+    In the backward only that field's gradient is all-reduced
+    (:func:`~repro_torch.sharding.utils.mesh_sum`); the scale's gradient
+    lands in its own channels, a partial sum over the rows' shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, width, last = x.device_mesh, x.shape[-1], x.ndim - 1
+    split = [mdim for mdim, pl in enumerate(x.placements) if pl.is_shard(last)]
+    # Per mesh dim, the placements of (the scale, its gradient).
+    rows = [(Shard(0), Shard(0)) if pl.is_shard(last) else
+            (Replicate(), Partial()) if pl.is_shard() else (Replicate(), Replicate())
+            for pl in x.placements]
+    spl, sgrad = (list(c) for c in zip(*rows))
+
+    def norm(t: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        x32 = t.float()
+        var = mesh_sum(x32.square().sum(dim=-1, keepdim=True), mesh, split) / width
+        return (x32 * torch.rsqrt(var + eps) * scale.float()).to(t.dtype)
+
+    return local_map(
+        norm, out_placements=list(x.placements), in_placements=(x.placements, spl),
+        in_grad_placements=(x.placements, sgrad), device_mesh=mesh, redistribute_inputs=True,
+    )(x, params["scale"])
 
 
 # --------------------------------------------------------------------------
@@ -408,28 +442,98 @@ def attention_decode(
     stored values (the reference's ``preferred_element_type=float32``); the
     softmax weights are rounded to V's dtype first, as there.  ``DTensor``
     inputs whose cache keeps its sequence whole run per rank on the local
-    batch rows and heads (:func:`_attend_on_mesh`).
+    batch rows and heads (:func:`_attend_on_mesh`); a cache that splits its
+    sequence is attended where it lies (:func:`_decode_on_split_sequence`).
     """
     if _splits_rows_or_heads(q, k):
         return _attend_on_mesh(
             lambda a, b, c, valid: attention_decode(a, b, c, k_pos, q_pos_scalar, window, valid),
             q, k, v, kv_valid)
+    if is_dtensor(k) and any(pl.is_shard(1) for pl in k.placements):
+        return _decode_on_split_sequence(q, k, v, k_pos, q_pos_scalar, window, kv_valid)
     b, s, hq, dh = q.shape
     if s != 1:
         raise ValueError(f"attention_decode takes one query token, got {s}")
     hk = k.shape[2]
-    g = hq // hk
-    qg = _groupable(q, hk).reshape(b, hk, g, dh)
+    qg = _groupable(q, hk).reshape(b, hk, hq // hk, dh)
+    w = torch.softmax(_decode_scores(qg, k, k_pos, q_pos_scalar, window, kv_valid), dim=-1)
+    out = torch.einsum("bhgt,bthd->bhgd", w.to(v.dtype).float(), v.float())
+    return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
+def _decode_scores(qg: torch.Tensor, k: torch.Tensor, k_pos: torch.Tensor, q_pos_scalar: int,
+                   window: Optional[int], kv_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """The masked fp32 scores (B, Hk, G, T) of one query token ``qg``
+    (B, Hk, G, Dh) over the cache slots ``k`` (B, T, Hk, Dh) at positions
+    ``k_pos``: causal, within ``window``, and where ``kv_valid``."""
     scores = torch.einsum("bhgd,bthd->bhgt", qg.float(), k.float())
-    scores = scores * (1.0 / math.sqrt(dh))
+    scores = scores * (1.0 / math.sqrt(qg.shape[-1]))
     mask = k_pos[None, None, None, :] <= q_pos_scalar
     if window is not None:
         mask = mask & ((q_pos_scalar - k_pos[None, None, None, :]) < window)
     if kv_valid is not None:
         mask = mask & kv_valid[:, None, None, :]
-    w = torch.softmax(_masked(scores, mask), dim=-1)
-    out = torch.einsum("bhgt,bthd->bhgd", w.to(v.dtype).float(), v.float())
-    return out.reshape(b, 1, hq, dh).to(q.dtype)
+    return _masked(scores, mask)
+
+
+def _decode_on_split_sequence(q, k, v, k_pos, q_pos_scalar: int, window: Optional[int],
+                              kv_valid: Optional[Any]):
+    """:func:`attention_decode` over a ``DTensor`` cache that splits its
+    sequence (B, T, Hk, Dh), on each rank's own slots through ``local_map``,
+    as the reference's partitioned softmax does: the local max of the masked
+    fp32 scores and an all-reduce max, the local exp and sum and an
+    all-reduce sum, the weights (rounded to V's dtype) times the local V and
+    an all-reduce sum of that fp32 partial output.  Only the statistics and
+    the output move, never the cache; ``q`` (one token) is gathered over the
+    sequence's ranks.  ``k_pos`` and ``kv_valid`` are sliced with the slots,
+    and a rank whose slots are all masked for a row (or that holds no
+    slot) adds nothing to it: its local sum is 0 once the max is the global
+    one."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k.device_mesh
+    seq = [mdim for mdim, pl in enumerate(k.placements) if pl.is_shard(1)]
+    # Per mesh dim, the placements of (q and the output, k_pos, kv_valid):
+    # batch rows, slots, KV heads (q's follow) or replicated.
+    rows = []
+    for pl in k.placements:
+        if pl.is_shard(0):
+            rows.append((Shard(0), Replicate(), Shard(0)))
+        elif pl.is_shard(1):
+            rows.append((Replicate(), Shard(0), Shard(1)))
+        elif pl.is_shard(2):
+            rows.append((Shard(2), Replicate(), Replicate()))
+        else:
+            rows.append((Replicate(),) * 3)
+    qpl, ppl, vpl = (list(c) for c in zip(*rows))
+
+    def whole(t):
+        if t is None or is_dtensor(t):
+            return t
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    def attend(a, b_, c, kp, valid):
+        bl, _, hq, dh = a.shape
+        hk = b_.shape[2]
+        scores = _decode_scores(a.reshape(bl, hk, hq // hk, dh), b_, kp, q_pos_scalar, window,
+                                valid)
+        # The sequence splits like torch.chunk, so a rank may hold no slot:
+        # its max is then the mask value, and its sum 0.
+        top = (scores.amax(dim=-1, keepdim=True) if scores.shape[-1] else
+               scores.new_full((*scores.shape[:-1], 1), NEG_INF))
+        top = mesh_reduce(top, "max", mesh, seq)
+        e = torch.exp(scores - top)
+        w = e / mesh_reduce(e.sum(dim=-1, keepdim=True), "sum", mesh, seq)
+        out = torch.einsum("bhgt,bthd->bhgd", w.to(c.dtype).float(), c.float())
+        out = mesh_reduce(out, "sum", mesh, seq)
+        return out.reshape(bl, 1, hq, dh).to(a.dtype)
+
+    vrows = None if kv_valid is None else vpl
+    return local_map(
+        attend, out_placements=qpl, in_placements=(qpl, k.placements, v.placements, ppl, vrows),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(whole(q), k, v, whole(k_pos), whole(kv_valid))
 
 
 def _splits_rows_or_heads(q: Any, k: Any) -> bool:

@@ -40,7 +40,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.sharding.policy import TP_POLICY, P, ShardingPolicy, shard_act
 from repro_torch.sharding.utils import (
-    column_einsum, gather_fsdp, gathered_einsum, mesh_of, mesh_pad, on_mesh, row_einsum,
+    column_einsum, gather_fsdp, gathered_einsum, is_dtensor, mesh_of, on_mesh, row_einsum,
     write_rows,
 )
 
@@ -148,13 +148,45 @@ def ssd_decode_step(state, x, dt, a, b_in, c_in):
 def causal_conv(u: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """u: (B, S, C); kernel: (W, C).  y[t] = sum_w k[w] u[t - W + 1 + w]."""
     w = kernel.shape[0]
-    pad = mesh_pad(u, (0, 0, w - 1, 0))
+    pad = F.pad(u, (0, 0, w - 1, 0))
     s = u.shape[1]
     # In u's own layout (on a mesh its own rows), as the reference's zeros_like.
     out = torch.zeros_like(u, dtype=torch.float32)
     for i in range(w):
         out = out + kernel[i].float() * pad[:, i : i + s].float()
     return out.to(u.dtype)
+
+
+def silu_conv(u: Any, kernel: Any) -> Any:
+    """SiLU of :func:`causal_conv` (in fp32), in ``u``'s dtype.  The conv is
+    depthwise, so a ``DTensor`` ``u`` is convolved per rank on its own rows
+    and channels (:func:`_conv_on_mesh`)."""
+    if is_dtensor(u):
+        return _conv_on_mesh(u, kernel)
+    return F.silu(causal_conv(u, kernel).float()).to(u.dtype)
+
+
+def _conv_on_mesh(u: Any, kernel: Any) -> Any:
+    """:func:`silu_conv` of a ``DTensor`` ``u`` through ``local_map``: each
+    rank convolves its own batch rows and channels (the sequence whole) with
+    its own columns of ``kernel`` (held whole), and nothing moves.  The
+    output's gradient is brought to ``u``'s layout once (a partial sum is
+    reduced there, not first split by the SiLU's backward and then
+    gathered), and the kernel's lands in its own columns, a partial sum
+    over the rows' shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    upl = [Replicate() if pl.is_shard(1) else pl for pl in u.placements]
+    # Per mesh dim, the placements of (the kernel, its gradient).
+    rows = [(Shard(1), Shard(1)) if pl.is_shard(2) else
+            (Replicate(), Partial()) if pl.is_shard() else (Replicate(), Replicate())
+            for pl in upl]
+    kpl, kgrad = (list(c) for c in zip(*rows))
+    return local_map(
+        silu_conv, out_placements=upl, in_placements=(upl, kpl), in_grad_placements=(upl, kgrad),
+        device_mesh=u.device_mesh, redistribute_inputs=True,
+    )(u, kernel)
 
 
 def causal_conv_step(
@@ -239,20 +271,20 @@ def spec_mamba_block(cfg: ModelConfig, policy: ShardingPolicy) -> Params:
     }
 
 
-def _ssd_inputs(lp: Params, conv_out: torch.Tensor, dt_raw: torch.Tensor, cfg: ModelConfig):
-    """Split the conv output into x (B, S, H, P), B, C — views, no copy — and
-    form dt (fp32, softplus) and a = -exp(a_log)."""
-    bsz, s, _ = conv_out.shape
-    di, n = cfg.ssm_d_inner, cfg.ssm_state
-    xin, b_in, c_in = torch.split(conv_out, [di, n, n], dim=-1)
+def _ssd_inputs(lp: Params, xin: torch.Tensor, dt_raw: torch.Tensor, cfg: ModelConfig):
+    """x (B, S, H, P) of the conv's x channels, dt (fp32, softplus) and
+    a = -exp(a_log)."""
+    bsz, s, _ = xin.shape
     dt = F.softplus(dt_raw.float() + lp["dt_bias"])
     a = -torch.exp(lp["a_log"])
-    return xin.reshape(bsz, s, cfg.ssm_n_heads, cfg.ssm_head_dim), dt, a, b_in, c_in
+    return xin.reshape(bsz, s, cfg.ssm_n_heads, cfg.ssm_head_dim), dt, a
 
 
 def _gate_out(lp: Params, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
-    """D skip, SiLU(z) gate, gated norm and the output projection."""
+    """D skip, SiLU(z) gate, gated norm and the output projection.  On a
+    mesh ``d_inner`` stays split throughout (the norm's sum of squares is
+    all-reduced: :func:`~repro_torch.models.layers.rmsnorm`)."""
     bsz, s = y.shape[:2]
     y = y + lp["d_skip"][None, None, :, None].to(y.dtype) * xh
     y = y.reshape(bsz, s, cfg.ssm_d_inner)
@@ -277,10 +309,20 @@ def mamba_sequence(
     lp = gather_fsdp(lp, policy)
     u = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
     z, xin, b_in, c_in, dt_raw = _in_proj(lp, u)
-    conv_in = torch.cat([xin, b_in, c_in], dim=-1)  # (B,S,di+2N)
-    tail = conv_in[:, -(cfg.ssm_conv_width - 1):, :].clone() if keep_tail else None
-    conv_out = F.silu(causal_conv(conv_in, lp["conv"]).float()).to(conv_in.dtype)
-    xh, dt, a, b_ssd, c_ssd = _ssd_inputs(lp, conv_out, dt_raw, cfg)
+    w, di, n = cfg.ssm_conv_width, cfg.ssm_d_inner, cfg.ssm_state
+    if is_dtensor(xin):
+        # Depthwise: on a mesh x's channels (split) are convolved apart from
+        # B's and C's, since one concatenation would gather x.
+        bc = torch.cat([b_in, c_in], dim=-1)  # (B,S,2N)
+        tail = torch.cat([xin[:, -(w - 1):], bc[:, -(w - 1):]], dim=-1) if keep_tail else None
+        k_x, k_bc = torch.split(lp["conv"], [di, 2 * n], dim=1)
+        x_conv, (b_ssd, c_ssd) = silu_conv(xin, k_x), torch.split(silu_conv(bc, k_bc), n, dim=-1)
+    else:
+        # One conv pass: half the per-tap launches of two.
+        conv_in = torch.cat([xin, b_in, c_in], dim=-1)  # (B,S,di+2N)
+        tail = conv_in[:, -(w - 1):, :].clone() if keep_tail else None
+        x_conv, b_ssd, c_ssd = torch.split(silu_conv(conv_in, lp["conv"]), [di, n, n], dim=-1)
+    xh, dt, a = _ssd_inputs(lp, x_conv, dt_raw, cfg)
     xh = shard_act(xh, policy, "batch", None, "model", None)
     y, final = ops.ssd_scan(xh, dt, a, b_ssd, c_ssd, cfg.ssm_chunk)
     out = _gate_out(lp, y, xh, z, cfg)
@@ -312,7 +354,9 @@ def mamba_block(
     conv_cache, ssd_state = cache
     conv_t, conv_cache = causal_conv_step(conv_cache, conv_in[:, 0], params["conv"])
     conv_t = F.silu(conv_t.float()).to(conv_in.dtype)
-    xh, dt, a, b1, c1 = _ssd_inputs(params, conv_t[:, None], dt_raw, cfg)
+    x1, b1, c1 = torch.split(conv_t[:, None], [cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_state],
+                             dim=-1)
+    xh, dt, a = _ssd_inputs(params, x1, dt_raw, cfg)
     y1, ssd_state = ssd_decode_step(ssd_state, xh[:, 0], dt[:, 0], a, b1[:, 0], c1[:, 0])
     out = _gate_out(params, y1[:, None], xh, z, cfg)
     return shard_act(out, policy, "batch", None, None), (conv_cache, ssd_state)

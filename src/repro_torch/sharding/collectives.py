@@ -58,14 +58,16 @@ class CollectiveRecorder(TorchDispatchMode):
     issued inside it (``with CollectiveRecorder() as rec: ...``).
 
     ``bytes`` holds the byte sums and ``counts`` the number of collectives
-    of each kind, group-of-one collectives included; :meth:`breakdown` is
-    the ``{kind: bytes}`` dict of the kinds seen.
+    of each kind, group-of-one collectives included; ``largest`` is the
+    bytes of the largest single collective; :meth:`breakdown` is the
+    ``{kind: bytes}`` dict of the kinds seen.
     """
 
     def __init__(self) -> None:
         super().__init__()
         self.bytes: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
+        self.largest = 0.0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -82,6 +84,7 @@ class CollectiveRecorder(TorchDispatchMode):
                 if _group_size(args) > 1:
                     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(out))
                 self.bytes[kind] = self.bytes.get(kind, 0.0) + float(nbytes)
+                self.largest = max(self.largest, float(nbytes))
                 self.counts[kind] = self.counts.get(kind, 0) + 1
         return out
 

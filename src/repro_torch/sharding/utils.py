@@ -420,3 +420,36 @@ def gathered_einsum(eq: str, x: Any, w: Any, w_dim: int, out_dim: int) -> Any:
     )(w)
     y = column_einsum(eq, x, cut, w_dim, out_dim)
     return y.redistribute(mesh, [Replicate() if sp else pl for sp, pl in zip(split, y.placements)])
+
+
+def mesh_reduce(t: torch.Tensor, op: str, mesh: Any, dims: Sequence[int]) -> torch.Tensor:
+    """``t`` (a rank's local tensor, inside ``local_map``) all-reduced with
+    ``op`` (``"sum"``, ``"max"``) over each mesh dimension of ``dims`` in
+    turn, through functional collectives (so the collective recorder counts
+    them)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for mdim in dims:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, mdim)))
+    return t
+
+
+class _MeshSum(torch.autograd.Function):
+    """The all-reduce sum of :func:`mesh_sum`; its gradient is the
+    all-reduce sum of the gradients, since every rank reads the sum."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return mesh_reduce(t, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return mesh_reduce(grad.contiguous(), "sum", ctx.mesh, ctx.dims), None, None
+
+
+def mesh_sum(t: torch.Tensor, mesh: Any, dims: Sequence[int]) -> torch.Tensor:
+    """:func:`mesh_reduce` with ``"sum"``, differentiable: a statistic that
+    each rank sums over its own slice of a split dimension (a norm's sum of
+    squares), made whole on every rank."""
+    return _MeshSum.apply(t, mesh, list(dims))

@@ -29,6 +29,14 @@ The contract:
   to the prompt (granite-34b's MQA cache and mistral's on (2, 4) shard the
   sequence), the grown cache is in its fitted layout and keeps it through
   a decode step;
+* a batch of one row (:data:`SINGLE_CASES`: mistral, whose cache shards
+  the sequence on (2, 4) — with a 5-token prompt, 9 slots, it keeps it
+  whole — and zamba2, whose query heads then follow the cache's KV head
+  split) generates the reference's mesh server's tokens and the one-device
+  server's, on both meshes;
+* decode attention over a cache whose sequence ``DTensor`` splits
+  unevenly (a rank of (2, 4) holding no slot) equals the reference's
+  ``attention_decode`` (:data:`UNEVEN_CASES`);
 * ``ContinuousBatcher`` tokens on mistral ``tp`` equal the reference's
   batcher's;
 * each rank's collective kinds and bytes for one prefill and one decode
@@ -62,7 +70,23 @@ SERVE_CASES = [
     ("qwen2-moe-a2.7b", "fsdp_expert"),
     ("mamba2-780m", "tp"), ("zamba2-2.7b", "fsdp_tp"), ("whisper-medium", "tp"),
 ]
-ARCHS = sorted({a for a, _ in SERVE_CASES})
+# Batch-1 generates (arch, policy, prompt length): the data axis splits no
+# rows, so the query heads' placement alone decides where a decode reads its
+# cache.  ``generate`` sizes the cache to the prompt plus STEPS: mistral's
+# 5 + 4 slots do not divide over the 4-way model axis of (2, 4), so the
+# fitted cache spec keeps that cache's sequence whole.
+SINGLE_CASES = [("mistral-nemo-12b", "tp", 12), ("zamba2-2.7b", "tp", 12),
+                ("mistral-nemo-12b", "tp", 5)]
+SINGLE_IDS = [f"{a}-{p}-prompt{n}" for a, p, n in SINGLE_CASES]
+SINGLE_SLOTS = 256  # the cache a batch-1 decode step's collectives are read over
+ARCHS = sorted({a for a, *_ in SERVE_CASES + SINGLE_CASES})
+# Decode attention over a cache whose sequence DTensor splits unevenly over
+# the model axis (``torch.chunk``: 9 slots over 4 ranks hold 3/3/3/0, over
+# 2 ranks 5/4), a ring whose slots hold positions 9, 10, 2, ..., 8, read at
+# position 8: (window, whether kv_valid masks slots) per case.
+UNEVEN_T, UNEVEN_Q_POS = 9, 8
+UNEVEN_K_POS = (9, 10, 2, 3, 4, 5, 6, 7, 8)
+UNEVEN_CASES = {"causal": (None, False), "window": (4, False), "kv_valid": (None, True)}
 BATCH, STEPS = 8, 4
 # qwen2-moe's prompt reaches 64 tokens, so its prefill routes one group per
 # row (sharded with the batch) and its decode one group over the batch.
@@ -85,6 +109,15 @@ def _inputs_for(arch, cfg_vocab, enc_inputs, encdec):
     prompts = rng.integers(0, cfg_vocab, (BATCH, s0)).astype(np.int32)
     feats = (rng.normal(size=(BATCH, s0, enc_inputs)).astype(np.float32) if encdec else None)
     return prompts, feats
+
+
+def _uneven_inputs():
+    """q (4, 1, 8, 16), k and v (4, 9, 2, 16), k_pos and kv_valid, fp32."""
+    rng = np.random.default_rng(30)
+    q = rng.normal(size=(4, 1, 8, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(4, UNEVEN_T, 2, 16)).astype(np.float32) for _ in range(2))
+    valid = rng.random((4, UNEVEN_T)) > 0.3
+    return q, k, v, np.array(UNEVEN_K_POS, np.int32), valid
 
 
 def _batcher_requests(vocab, case):
@@ -166,6 +199,60 @@ def _w_serve(ctx, arch, policy_name, mesh):
                             "decode": (rec_decode.breakdown(), rec_decode.counts)}}
 
 
+def _largest_collective(fn):
+    """``fn()``'s largest single collective on this rank, in bytes."""
+    from repro_torch.sharding.collectives import CollectiveRecorder
+
+    with CollectiveRecorder() as rec:
+        fn()
+    return rec.largest
+
+
+def _w_single(ctx, arch, policy_name, prompt_len, mesh):
+    """``LMServer.generate`` of the first prompt's first ``prompt_len``
+    tokens alone, on the mesh and (on
+    rank 0) on one device; and the largest collective of one decode step
+    over the prefill's cache grown to :data:`SINGLE_SLOTS` slots."""
+    from repro_torch.launch.mesh import set_mesh
+    from repro_torch.serving import LMServer
+    from repro_torch.serving.engine import _grow_cache
+    from repro_torch.sharding.policy import POLICIES
+    from repro_torch.sharding.utils import place_tree
+
+    policy = POLICIES[policy_name]
+    model = _model(arch)
+    params = _port_params(ctx, arch)
+    prompt = ctx["inputs"]["prompts"][arch][0][:1, :prompt_len]
+    s0 = prompt.shape[1]
+    off = LMServer(model, params).generate(prompt, STEPS) if ctx["rank"] == 0 else None
+    with set_mesh(mesh):
+        mp = place_tree(params, model.param_specs(policy), mesh)
+        tokens = LMServer(model, mp, policy).generate(prompt, STEPS)
+        logits, cache = model.prefill(mp, torch.as_tensor(prompt), policy)
+        cache = _grow_cache(model, cache, SINGLE_SLOTS, s0, policy)
+        tok = torch.as_tensor(np.argmax(logits.full_tensor().numpy(), axis=-1))
+        largest = _largest_collective(lambda: model.decode_step(mp, tok, cache, s0, policy))
+    return {"tokens": tokens, "off_tokens": off, "largest_collective": largest}
+
+
+def _w_uneven_decode(ctx, mesh):
+    """``attention_decode`` of :func:`_uneven_inputs` with the batch split
+    over ``data``, q's heads and the cache's sequence over ``model``, for
+    each of :data:`UNEVEN_CASES`; and this rank's number of slots."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models.layers import attention_decode
+
+    q, k, v, k_pos, valid = (torch.as_tensor(a) for a in _uneven_inputs())
+    q = distribute_tensor(q, mesh, [Shard(0), Shard(2)])
+    k, v = (distribute_tensor(t, mesh, [Shard(0), Shard(1)]) for t in (k, v))
+    out = {}
+    for name, (window, masks) in UNEVEN_CASES.items():
+        got = attention_decode(q, k, v, k_pos, UNEVEN_Q_POS, window, valid if masks else None)
+        out[name] = got.full_tensor().numpy()
+    return {"out": out, "slots": k.to_local().shape[1]}
+
+
 def _w_batcher(ctx, case, mesh):
     from repro_torch.launch.mesh import set_mesh
     from repro_torch.serving.batching import ContinuousBatcher, GenRequest
@@ -194,6 +281,10 @@ def _scenarios():
         for arch, policy in SERVE_CASES:
             out[f"{mesh_name}/{arch}/{policy}"] = (
                 mesh_name, lambda ctx, m, a=arch, p=policy: _w_serve(ctx, a, p, m))
+        for arch, policy, n in SINGLE_CASES:
+            out[f"{mesh_name}/single/{arch}/{policy}/{n}"] = (
+                mesh_name, lambda ctx, m, a=arch, p=policy, n=n: _w_single(ctx, a, p, n, m))
+        out[f"{mesh_name}/uneven_decode"] = (mesh_name, _w_uneven_decode)
         for case in BATCHER:
             out[f"{mesh_name}/batcher/{case}"] = (
                 mesh_name, lambda ctx, m, c=case: _w_batcher(ctx, c, m))
@@ -300,6 +391,15 @@ def reference():
             out["serve"][(arch, policy_name)] = {
                 "tokens": np.asarray(tokens), "logits": np.asarray(logits),
                 "collectives": {k: collective_breakdown(v) for k, v in hlo.items()}}
+        out["single"] = {}
+        for arch, policy_name, n in SINGLE_CASES:
+            policy, model = R_POLICIES[policy_name], models[arch]
+            spec = r_fit_specs(raw[arch], model.param_specs(policy), mesh)
+            placed = jax.tree.map(lambda x, s: jax.device_put(x, NamedSharding(mesh, s)),
+                                  raw[arch], spec)
+            prompt = jnp.asarray(inputs["prompts"][arch][0][:1, :n])
+            out["single"][(arch, policy_name, n)] = np.asarray(
+                RLMServer(model, placed, policy).generate(prompt, steps=STEPS))
         arch, policy = "mistral-nemo-12b", R_POLICIES["tp"]
         spec = r_fit_specs(raw[arch], models[arch].param_specs(policy), mesh)
         placed = jax.tree.map(lambda x, s: jax.device_put(x, NamedSharding(mesh, s)),
@@ -416,6 +516,61 @@ def test_gqa_cache_shards_the_sequence_where_heads_do_not_divide(world):
     seq = _scenario(world, "2x4/mistral-nemo-12b/tp")["kept"][0]
     assert heads == "(Shard(dim=1), Shard(dim=3))"
     assert seq == "(Shard(dim=1), Shard(dim=2))"
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch,policy,prompt_len", SINGLE_CASES, ids=SINGLE_IDS)
+def test_batch_of_one_on_mesh_matches_reference_and_one_device(world, reference, arch, policy,
+                                                              prompt_len, mesh_name):
+    """One row: no mesh axis splits the batch.  mistral's decode on (2, 4)
+    attends its sequence-split cache where the slots lie (with a 5-token
+    prompt, its 9 slots stay whole); zamba2's query heads keep the model
+    axis's split, where its cache holds its KV heads."""
+    got = _scenario(world, f"{mesh_name}/single/{arch}/{policy}/{prompt_len}")
+    want = reference["single"][(arch, policy, prompt_len)]
+    assert want.shape == (1, STEPS)
+    np.testing.assert_array_equal(got["tokens"], want)
+    np.testing.assert_array_equal(got["tokens"], got["off_tokens"])
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch,policy,prompt_len", SINGLE_CASES, ids=SINGLE_IDS)
+def test_batch_of_one_decode_moves_no_cache(world, arch, policy, prompt_len, mesh_name):
+    """A batch-1 decode step over a cache of :data:`SINGLE_SLOTS` slots
+    issues no collective larger than one token's widest activation row in
+    fp32 (the residual stream, the attention's heads, Mamba2's conv
+    channels): neither the scores nor the cache move, over gloo."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    conv = cfg.ssm_d_inner + 2 * cfg.ssm_state if cfg.family in ("ssm", "hybrid") else 0
+    bound = max(cfg.d_model, cfg.n_heads * cfg.head_dim, conv) * 4
+    got = _scenario(world, f"{mesh_name}/single/{arch}/{policy}/{prompt_len}")
+    got = got["largest_collective"]
+    assert 0 < got <= bound, (got, bound)
+
+
+@pytest.mark.parametrize("case", list(UNEVEN_CASES))
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_decode_over_an_unevenly_split_sequence_matches_reference(world, mesh_name, case):
+    """A cache whose sequence splits 3/3/3/0 (2, 4) or 5/4 (4, 2): the rank
+    with no slot, and the ranks whose slots the window or ``kv_valid``
+    masks whole, add nothing; the output is the reference's one-device
+    ``attention_decode`` within ``TOL``, on every rank."""
+    import jax.numpy as jnp
+
+    from repro.models.layers import attention_decode as r_attention_decode
+
+    q, k, v, k_pos, valid = _uneven_inputs()
+    window, masks = UNEVEN_CASES[case]
+    want = np.asarray(r_attention_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(k_pos), UNEVEN_Q_POS,
+        window, jnp.asarray(valid) if masks else None))
+    name = f"{mesh_name}/uneven_decode"
+    slots = sorted({_scenario(world, name, r)["slots"] for r in range(WORLD)})
+    assert slots == ([0, 3] if MESHES[mesh_name][1] == 4 else [4, 5])
+    for rank in range(WORLD):
+        np.testing.assert_allclose(_scenario(world, name, rank)["out"][case], want, **TOL)
 
 
 @pytest.mark.parametrize("case", list(BATCHER))

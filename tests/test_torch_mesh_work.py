@@ -23,6 +23,17 @@ The port's step on a mesh is counted per rank on ``meta`` tensors
   ``hlo_flops`` (``repro.launch.dryrun``, 512 forced host devices, under
   the same policy), and each prefill's peak a rank at most 1.5 times the
   reference's ``peak_memory_per_device``;
+* each rank moves only its share over the mesh: at smoke width on the
+  (2, 4) world a decode step over a cache of 256 slots — mistral's, which
+  shards the sequence, at batch 8 and 1, and zamba2's, which shards its KV
+  heads, at batch 1 — issues no collective larger than one token's widest
+  activation row of a rank's batch rows in fp32 (nothing the size of the
+  cache or the scores moves), and a mamba2 train step all-gathers no more
+  than ``gathered_einsum``'s B and C, the loss's row maxima and the
+  gradients of the replicated parameters read per channel or head; at full
+  scale mistral-nemo-12b ``decode_32k`` and zamba2-2.7b ``long_500k``
+  move at most 1.5 times the reference's collective bytes a device
+  (``coll_bytes``);
 * a head split that would hand a rank query heads of two KV groups without
   the whole of either raises ``ValueError``.
 
@@ -52,11 +63,22 @@ SLACK = 1.10
 #: reference's count alone bounds the prefills).
 FULL = {("mistral-nemo-12b", "train_4k"): True, ("granite-34b", "prefill_32k"): False,
         ("mamba2-780m", "prefill_32k"): False, ("mistral-nemo-12b", "prefill_32k"): False,
-        ("zamba2-2.7b", "prefill_32k"): False}
+        ("zamba2-2.7b", "prefill_32k"): False, ("mistral-nemo-12b", "decode_32k"): False,
+        ("zamba2-2.7b", "long_500k"): False}
 #: A rank's peak at full scale at most this many times the reference's
 #: ``peak_memory_per_device`` (the prefill pairs of ``FULL``).
 PEAK_SLACK = 1.5
 PREFILL_PEAKS = [pair for pair in FULL if pair[1].startswith("prefill")]
+#: A rank's collective bytes at full scale at most this many times the
+#: reference's ``coll_bytes`` a device: the decode over a sequence-split
+#: cache and the batch-1 decode over a head-split one.
+COLL_SLACK = 1.5
+COLL_PAIRS = [("mistral-nemo-12b", "decode_32k"), ("zamba2-2.7b", "long_500k")]
+#: Smoke decode steps on the (2, 4) world: (arch, batch) over a cache of
+#: DECODE_SLOTS slots.  mistral's 2 KV heads do not divide the 4-way model
+#: axis (its cache shards the sequence); zamba2's 4 do (they shard).
+DECODES = (("mistral-nemo-12b", 8), ("mistral-nemo-12b", 1), ("zamba2-2.7b", 1))
+DECODE_SLOTS = 256
 STRADDLE = (24, 6)  # Hq, Hk: 6 query heads a rank over groups of 4
 
 
@@ -113,12 +135,15 @@ def _cache_share(plan, cache) -> int:
 
 
 def _count(plan, vocab_local: int, vocab: int) -> dict:
-    counter = _watch(vocab_local, vocab)
-    with counter:
+    from repro_torch.sharding.collectives import CollectiveRecorder
+
+    counter, rec = _watch(vocab_local, vocab), CollectiveRecorder()
+    with rec, counter:
         out = plan.step_fn(*plan.args)
     row = {"flops": counter.flops, "largest": counter.largest,
            "full_vocab": counter.full_vocab, "peak": counter.peak_bytes,
-           "biggest": counter.biggest}
+           "biggest": counter.biggest, "all_gather": rec.bytes.get("all-gather", 0.0),
+           "largest_collective": rec.largest}
     if plan.kind == "prefill":
         row["cache_share"] = _cache_share(plan, out[1])
     return row
@@ -154,6 +179,14 @@ def _child(out_dir: str) -> None:
                         out[key][f"{arch}/prefill/deep"] = _count(
                             plan, cfg.vocab_size // model_ways, cfg.vocab_size)
                 if key == "mesh":
+                    for arch, batch in DECODES:
+                        cfg = get_smoke_config(arch)
+                        plan = make_plan(cfg, InputShape("d", DECODE_SLOTS, batch, "decode"),
+                                         mesh, "tp")
+                        kv = getattr(plan.args[2], "kv", plan.args[2])  # a hybrid's KV part
+                        out[key][f"{arch}/decode/{batch}"] = {
+                            **_count(plan, cfg.vocab_size // model_ways, cfg.vocab_size),
+                            "placements": [str(pl) for pl in kv.k.placements]}
                     hq, hk = STRADDLE
                     q = DTensor.from_local(torch.empty((4, 1, hq // 4, 2), device="meta"), mesh,
                                            [Shard(0), Shard(2)], run_check=False)
@@ -168,7 +201,7 @@ def _child(out_dir: str) -> None:
         res = run_one(arch, shape, "single", "tp", None, verbose=False)
         row = {"status": res["status"], "error": res.get("error"),
                "hlo_flops": res.get("hlo_flops"), "one": None,
-               "peak": res.get("peak_memory_per_device")}
+               "peak": res.get("peak_memory_per_device"), "coll": res.get("coll_bytes")}
         if one:
             with fake_world(1):
                 mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
@@ -190,7 +223,7 @@ for arch, shape in json.loads(sys.argv[2]):
     res = run_one(arch, shape, "single", "tp", None, verbose=False)
     out[arch + "/" + shape] = {"status": res["status"], "hlo_flops": res.get("hlo_flops"),
                                "peak": res.get("peak_memory_per_device"),
-                               "error": res.get("error")}
+                               "coll": res.get("coll_bytes"), "error": res.get("error")}
 json.dump(out, open(sys.argv[1], "w"))
 """
 
@@ -288,6 +321,65 @@ def test_full_scale_prefill_peak_within_the_reference(work, arch, shape):
     assert port["status"] == "ok", port["error"]
     assert ref["status"] == "ok", ref["error"]
     assert 0 < port["peak"] <= PEAK_SLACK * ref["peak"], (port["peak"] / ref["peak"], port, ref)
+
+
+def _row_width(cfg) -> int:
+    """The widest activation row of one token in a decode step: the
+    residual stream, the attention's heads, or Mamba2's conv channels."""
+    conv = cfg.ssm_d_inner + 2 * cfg.ssm_state if cfg.family in ("ssm", "hybrid") else 0
+    return max(cfg.d_model, cfg.n_heads * cfg.head_dim, conv)
+
+
+@pytest.mark.parametrize("arch,batch", DECODES)
+def test_decode_moves_no_cache(work, arch, batch):
+    """A decode step on the (2, 4) world issues no collective larger than
+    one token's widest activation row of a rank's batch rows in fp32: the
+    scores are reduced where the cache's slots lie (mistral, its sequence
+    split) and the query heads follow the cache's head split (zamba2 at
+    batch 1), so nothing that grows with the cache's length moves."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    row = work["mesh"][f"{arch}/decode/{batch}"]
+    split = "S(2)" if arch == "mistral-nemo-12b" else "S(3)"
+    assert split in row["placements"], row["placements"]
+    rows = batch // MESH[0] if batch % MESH[0] == 0 else batch
+    bound = rows * _row_width(cfg) * 4
+    assert 0 < row["largest_collective"] <= bound, (row["largest_collective"], bound)
+
+
+def test_mamba2_train_gathers_only_b_and_c(work):
+    """A mamba2 train step on the (2, 4) world all-gathers no more than
+    ``gathered_einsum``'s B and C (each rank's rows, S x N, once per layer
+    and forward pass), the loss's row maxima (one fp32 value per row and
+    vocabulary shard) and the gradients of the replicated parameters that
+    each rank reads only its own channels or heads of (the conv's kernel,
+    the gated norm's scale, ``dt_bias``, ``a_log``, ``d_skip``):
+    ``d_inner`` stays split through the conv, the gated norm and their
+    backwards."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("mamba2-780m")
+    _, seq, batch, _ = SHAPES["train"]
+    rows = batch // MESH[0]
+    passes = 2 if cfg.remat else 1
+    b_and_c = (cfg.num_layers * passes * 2 * rows * seq * cfg.ssm_state
+               * cfg.activation_dtype().itemsize)
+    maxima = rows * seq * MESH[1] * 4
+    di = cfg.ssm_d_inner
+    grads = (cfg.num_layers * (cfg.ssm_conv_width * di + di + 3 * cfg.ssm_n_heads)
+             * cfg.params_dtype().itemsize)
+    got = work["mesh"]["mamba2-780m/train"]["all_gather"]
+    assert 0 < got <= b_and_c + maxima + grads, (got, b_and_c, maxima, grads)
+
+
+@pytest.mark.parametrize("arch,shape", COLL_PAIRS)
+def test_full_scale_collectives_within_the_reference(work, arch, shape):
+    key = f"{arch}/{shape}"
+    port, ref = work["full"][key], work["ref"][key]
+    assert port["status"] == "ok", port["error"]
+    assert ref["status"] == "ok", ref["error"]
+    assert 0 < port["coll"] <= COLL_SLACK * ref["coll"], (port["coll"] / ref["coll"], port, ref)
 
 
 def test_a_straddling_head_split_raises(work):

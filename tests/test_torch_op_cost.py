@@ -7,8 +7,9 @@ reference's scan and its unrolled loop); one product exactly 2 * 32 * 48 *
 16; ``tanh(x) * 2``'s bytes lie within the reference's bounds with no
 collective bytes; and on a 2-rank world the ``coll_*`` keys equal
 :class:`~repro_torch.sharding.collectives.CollectiveRecorder`'s own
-breakdown.  Then the two traps of counting FLOPs under ``DTensor``: a
-(256 x 4096) @ (4096 x 8192) product on a (16, 16) mesh counts one rank's
+breakdown, whose ``largest`` is its largest single collective.  Then the
+two traps of counting FLOPs under ``DTensor``: a (256 x 4096) @ (4096 x
+8192) product on a (16, 16) mesh counts one rank's
 2 * 256 * 4096 * 8192 / 256 FLOPs on its first call (when DTensor's
 sharding propagation also runs the op on global-shape fake tensors) and on
 its second, where ``FlopCounterMode`` counts the global product.  Each hand
@@ -65,9 +66,13 @@ def _child(out_path: str) -> None:
         acc = analyze_step(f)
         with CollectiveRecorder() as rec:
             f()
+        with CollectiveRecorder() as two:  # a (16, 64) and a (2, 64) all-gather
+            f()
+            (x[:2] @ w).redistribute(mesh, [Replicate()])
         out["two_ranks"] = {"acc": {k: v for k, v in acc.items()
                                     if k.startswith("coll") and k != "collective_counts"},
-                            "recorder": rec.breakdown()}
+                            "recorder": rec.breakdown(),
+                            "two": (two.breakdown(), two.counts, two.largest)}
     out["group_after_two_ranks"] = dist.is_initialized()
     # The traps: a (16, 16) mesh of 256 ranks.
     with fake_world(256):
@@ -178,6 +183,15 @@ def test_collective_breakdown_matches_the_recorder(world):
         assert acc[f"coll_{kind}"] == v
     for kind in roofline.COLLECTIVE_KINDS:
         assert acc[f"coll_{kind}"] == rec.get(kind, 0.0)
+
+
+def test_recorder_keeps_the_largest_single_collective(world):
+    """Two all-gathers of fp32 (16, 64) and (2, 64) results on a rank:
+    their bytes add up, and ``largest`` is the first one's alone."""
+    kinds, counts, largest = world["two_ranks"]["two"]
+    assert kinds == {"all-gather": (16 + 2) * 64 * 4}
+    assert counts == {"all-gather": 2}
+    assert largest == 16 * 64 * 4
 
 
 def test_sharded_product_counts_one_ranks_flops_on_every_call(world):
